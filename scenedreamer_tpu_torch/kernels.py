@@ -1,0 +1,184 @@
+"""Build, bind and launch the port's hand-written CUDA kernels.
+
+Sources live in `csrc/`, one shared library per source with a plain C
+interface. They are compiled at first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -Xptxas=-v -shared -Xcompiler -fPIC
+
+(all sources at once, one nvcc each, in parallel) into the gitignored
+`scenedreamer_tpu_torch/_build/`, and bound with ctypes: pointers as
+`c_void_p` from `tensor.data_ptr()`, PyTorch's current stream as the
+last argument. A kernel never synchronises and allocates nothing; the
+wrappers here check device, dtype, shape and contiguity, allocate the
+outputs, raise if `cudaGetLastError()` after the launch is not 0, and
+count launches per kernel (`launch_counts()`), so a run can show that
+its main path went through the kernels. `-fmad=false` stops nvcc from
+fusing multiply-adds on its own; the sources fuse (`__fmaf_rn`) only
+where the JAX op's compiled code does, so the kernels round as their
+plain PyTorch versions do (see the notes in each source and
+`ops/rounding.py`).
+
+Nothing here is imported or built by the CPU path; the op modules call
+these wrappers only for CUDA tensors.
+"""
+import ctypes
+import os
+import shutil
+import threading
+
+import torch
+
+from scenedreamer_tpu_torch.utils.build import finish_compile, start_compile
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
+SOURCES = {'dda': 'dda.cu', 'hashgrid_fwd': 'hashgrid_fwd.cu'}
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-fmad=false', '-Xptxas=-v', '-shared', '-Xcompiler',
+              '-fPIC']
+
+_LOCK = threading.Lock()
+_LIBS = {}
+BUILD_LOGS = {}     # nvcc output (ptxas registers / spills) per source
+_LAUNCHES = {'dda': 0, 'hash_bake': 0, 'hash_encode': 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    'sd_dda_i8': [_P, _I, _I, _I, _F, _F, _F, _P, _LL, _I, _I, _P, _P, _P,
+                  _P, _P],
+    'sd_hash_bake': [_P, _P, _P, _P, _I, _LL, _I, _I, _P],
+    'sd_hash_encode': [_P, _P, _P, _P, _LL, _I, _LL, _I, _F, _F, _F, _I,
+                       _P],
+}
+
+
+def launch_counts():
+    """Kernel launches since the last reset, by kernel name."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts():
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
+
+
+def _nvcc():
+    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(path):
+        raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
+    return path
+
+
+def build():
+    """Compile (one nvcc per source, all started together) and load
+    every kernel library; returns {source name: ctypes library}."""
+    with _LOCK:
+        if len(_LIBS) == len(SOURCES):
+            return dict(_LIBS)
+        cmd = [_nvcc()] + NVCC_FLAGS
+        jobs = {name: start_compile(os.path.join(CSRC, src), cmd, name)
+                for name, src in SOURCES.items() if name not in _LIBS}
+        for name, job in jobs.items():
+            path, BUILD_LOGS[name] = finish_compile(*job)
+            lib = ctypes.CDLL(path)
+            for fn, argtypes in _SIGNATURES.items():
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+            lib.sd_error_string.argtypes = [ctypes.c_int]
+            lib.sd_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return dict(_LIBS)
+
+
+def _launch(source, fn, name, device, *args):
+    lib = build()[source]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f'{name} kernel launch failed: '
+                           f'{lib.sd_error_string(err).decode()} ({err})')
+    _LAUNCHES[name] += 1
+
+
+def _require(t, dtype, name, ndim=None):
+    if not t.is_cuda:
+        raise ValueError(f'{name} must be a CUDA tensor')
+    if t.dtype != dtype:
+        raise ValueError(f'{name} must be {dtype}, got {t.dtype}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous')
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f'{name} must have {ndim} dims, got {t.dim()}')
+
+
+def dda(voxel, cam_ori, raydirs, max_samples, max_steps, with_steps=False):
+    """K1. voxel [Y, X, Z] int8 (0 = empty); cam_ori [3]; raydirs [R, 3]
+    float32. Returns voxel_id [R, M] int32, depth [R, M, 2] float32,
+    hit_mask [R, M] bool (and per-ray axis-step counts [R] int32 with
+    `with_steps`)."""
+    _require(voxel, torch.int8, 'voxel', 3)
+    _require(raydirs, torch.float32, 'raydirs', 2)
+    if raydirs.shape[1] != 3 or raydirs.device != voxel.device:
+        raise ValueError('raydirs must be [R, 3] on the voxel grid device')
+    r, m = raydirs.shape[0], int(max_samples)
+    dev = voxel.device
+    out_id = torch.empty((r, m), dtype=torch.int32, device=dev)
+    out_t = torch.empty((r, m, 2), dtype=torch.float32, device=dev)
+    hit = torch.empty((r, m), dtype=torch.bool, device=dev)
+    steps = torch.empty((r,), dtype=torch.int32, device=dev) \
+        if with_steps else None
+    if r:
+        ori = [float(v) for v in torch.as_tensor(cam_ori).detach()
+               .to('cpu', torch.float32).reshape(3)]
+        _launch('dda', 'sd_dda_i8', 'dda', dev, voxel.data_ptr(),
+                *voxel.shape, *ori, raydirs.data_ptr(), r, m, int(max_steps),
+                out_id.data_ptr(), out_t.data_ptr(), hit.data_ptr(),
+                steps.data_ptr() if with_steps else None)
+    if with_steps:
+        return out_id, out_t, hit, steps
+    return out_id, out_t, hit
+
+
+def hash_bake(table3, masks, weights):
+    """K2 (a). table3 [L, S, C] float32, masks [L, A] int32, weights
+    [L, A] float32 -> baked [L, S, C]."""
+    _require(table3, torch.float32, 'table', 3)
+    _require(masks, torch.int32, 'masks', 2)
+    _require(weights, torch.float32, 'weights', 2)
+    lv, s, c = table3.shape
+    if c % 4 or s & (s - 1) or masks.shape != weights.shape \
+            or masks.shape[0] != lv:
+        raise ValueError('bake needs C % 4 == 0, a power-of-two S and '
+                         '[L, A] masks/weights')
+    baked = torch.empty_like(table3)
+    _launch('hashgrid_fwd', 'sd_hash_bake', 'hash_bake', table3.device,
+            table3.data_ptr(), masks.data_ptr(), weights.data_ptr(),
+            baked.data_ptr(), lv, s, c, masks.shape[1])
+    return baked
+
+
+def hash_encode(baked, xyz, scales, offset, bound, scene_oob):
+    """K2 (b). baked [L, S, C] float32 (S a power of two, C 4 or 8);
+    xyz [N, 3] float32; scales [L] float32 -> [N, L*C] float32."""
+    _require(baked, torch.float32, 'baked', 3)
+    _require(xyz, torch.float32, 'xyz', 2)
+    _require(scales, torch.float32, 'scales', 1)
+    lv, s, c = baked.shape
+    if c not in (4, 8) or s & (s - 1) or xyz.shape[1] != 3 \
+            or scales.shape[0] != lv:
+        raise ValueError('encode needs C in (4, 8), a power-of-two S, '
+                         '[N, 3] points and [L] scales')
+    n = xyz.shape[0]
+    out = torch.empty((n, lv * c), dtype=torch.float32, device=xyz.device)
+    if n:
+        _launch('hashgrid_fwd', 'sd_hash_encode', 'hash_encode',
+                xyz.device, xyz.data_ptr(), baked.data_ptr(),
+                scales.data_ptr(), out.data_ptr(), n, lv, s, c,
+                float(bound), float(2.0 * bound), float(offset),
+                int(bool(scene_oob)))
+    return out

@@ -1,0 +1,299 @@
+"""SceneDreamer generator for inference: hash-grid neural field + sky +
+style + render CNN.
+
+Counterpart of `scenedreamer_tpu/models/generator.py` (reference
+`imaginaire/generators/scenedreamer.py` on `gancraft_base.py:296-603`):
+world_encoder(BEV fields) -> 2-d scene code; style z -> StyleMLP;
+per pixel: depth samples inside the DDA intervals -> scene-folded hash
+encode -> style-modulated RenderMLP -> volume compositing blended with
+the SKYMLP sky dome -> RenderCNN -> tanh.
+
+Submodule and parameter names are the reference's (`hash_encoder.embeddings`,
+`render_net.fc_1`, `world_encoder.conv_blocks.<i>.layers.0`,
+`denoiser.conv2a`, ...). Tensors keep the JAX package's layouts (NHWC
+images, [B, H, W, M] ray arrays). The style encoder, `compact_k` sky-ray
+compaction and the training forward wait for later slices.
+"""
+import dataclasses
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from scenedreamer_tpu_torch.models.layers import (ConditionalHashGrid,
+                                                  RenderCNN, RenderMLP,
+                                                  SKYMLP, StyleMLP)
+from scenedreamer_tpu_torch.ops.compositing import volume_rendering_relu
+from scenedreamer_tpu_torch.ops.hashgrid import (HashGridSpec, encode_folded,
+                                                 fold_scene, foldable)
+from scenedreamer_tpu_torch.ops.pe import pe_out_dim, positional_encoding
+from scenedreamer_tpu_torch.ops.rounding import fma
+from scenedreamer_tpu_torch.ops.sampling import sample_depth
+from scenedreamer_tpu_torch.scene.labels import mc2reduced
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneratorConfig:
+    """Generator hyperparameters (the JAX package's fields and defaults,
+    = configs/scenedreamer_train.yaml)."""
+    style_dims: int = 128
+    interm_style_dims: int = 256
+    final_feat_dim: int = 64
+    pad: int = 6
+    # ray casting
+    num_blocks_early_stop: int = 6
+    num_samples: int = 24
+    sample_depth: float = 3.0
+    coarse_deterministic_sampling: bool = False
+    sample_use_box_boundaries: bool = False
+    # blender
+    raw_noise_std: float = 0.0
+    dists_scale: float = 0.25
+    clip_feat_map: object = True
+    keep_sky_out: bool = True
+    keep_sky_out_avgpool: bool = True
+    sky_global_avgpool: bool = True
+    # ray-direction PE (train config disables the raydir input entirely)
+    pe_lvl_raydir: int = 0
+    pe_incl_orig_raydir: bool = False
+    pe_lvl_raydir_sky: int = 5
+    pe_incl_orig_raydir_sky: bool = True
+    # hash grid (reference scenedreamer.py:51)
+    hash_num_levels: int = 16
+    hash_level_dim: int = 8
+    hash_base_resolution: int = 16
+    hash_log2_size: int = 19
+    hash_desired_resolution: int = 2048
+    hash_variant: str = 'xor'
+    # mlp
+    mlp_hidden: int = 256
+    use_seg: bool = True
+    # style encoder
+    style_enc_num_filters: int = 64
+    style_enc_kernel_size: int = 3
+    num_reduced_labels: int = 12
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def hash_spec(self):
+        return HashGridSpec.create(
+            input_dim=5, num_levels=self.hash_num_levels,
+            level_dim=self.hash_level_dim,
+            base_resolution=self.hash_base_resolution,
+            log2_hashmap_size=self.hash_log2_size,
+            desired_resolution=self.hash_desired_resolution,
+            hash_variant=self.hash_variant)
+
+    @property
+    def viewdir_dim(self):
+        return pe_out_dim(3, self.pe_lvl_raydir, self.pe_incl_orig_raydir) \
+            if (self.pe_lvl_raydir or self.pe_incl_orig_raydir) else 0
+
+    @property
+    def sky_in_dim(self):
+        return pe_out_dim(3, self.pe_lvl_raydir_sky,
+                          self.pe_incl_orig_raydir_sky)
+
+
+class HashEncoder(nn.Module):
+    """Holds the hash table as `embeddings` (reference gridencoder
+    `GridEncoder`, grid.py:133)."""
+
+    def __init__(self, spec):
+        super().__init__()
+        self.embeddings = nn.Parameter(
+            torch.empty(spec.table_size, spec.level_dim))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.embeddings.uniform_(-1e-4, 1e-4, generator=generator)
+
+
+# config values the JAX package's shipped configs use and the port
+# implements; other values of these fields raise
+_FIXED = dict(dtype=torch.float32, raw_noise_std=0.0, clip_feat_map=True,
+              keep_sky_out=True, keep_sky_out_avgpool=True,
+              sky_global_avgpool=True, pe_lvl_raydir=0,
+              pe_incl_orig_raydir=False, use_seg=True)
+
+
+class SceneDreamerGenerator(nn.Module):
+    """Inference generator. `seed` makes the random init reproducible."""
+
+    def __init__(self, cfg=GeneratorConfig(), seed=0):
+        super().__init__()
+        for name, value in _FIXED.items():
+            if getattr(cfg, name) != value:
+                raise NotImplementedError(
+                    f'GeneratorConfig.{name}={getattr(cfg, name)!r} is not '
+                    f'ported (only {value!r})')
+        self.cfg = c = cfg
+        spec = c.hash_spec
+        self.hash_encoder = HashEncoder(spec)
+        self.render_net = RenderMLP(
+            spec.output_dim, style_dim=c.interm_style_dims,
+            mask_dim=c.num_reduced_labels, out_channels_c=c.final_feat_dim,
+            hidden_channels=c.mlp_hidden)
+        self.world_encoder = ConditionalHashGrid()
+        self.sky_net = SKYMLP(c.sky_in_dim, style_dim=c.interm_style_dims,
+                              out_channels_c=c.final_feat_dim)
+        self.style_net = StyleMLP(c.style_dims, out_dim=c.interm_style_dims)
+        self.denoiser = RenderCNN(c.final_feat_dim, c.interm_style_dims,
+                                  hidden_channels=256, out_channels=3)
+        gen = torch.Generator().manual_seed(seed)
+        for mod in self.modules():
+            if mod is not self and hasattr(mod, 'reset_parameters'):
+                mod.reset_parameters(gen)
+
+    # ------------------------------------------------------------------
+    # pieces
+    # ------------------------------------------------------------------
+
+    def world_code(self, height_field, semantic_field):
+        """BEV fields (NHWC) -> [B, 2] scene code."""
+        return self.world_encoder(height_field, semantic_field)
+
+    def style_forward(self, z):
+        return self.style_net(z)
+
+    def sky_color(self, raydirs, z):
+        """raydirs [B, H, W, 3], z [B, S] -> [B, H, W, 1, C]."""
+        pe = positional_encoding(raydirs[..., None, :],
+                                 self.cfg.pe_lvl_raydir_sky,
+                                 self.cfg.pe_incl_orig_raydir_sky)
+        return self.sky_net(pe, z)
+
+    def bake_hash(self, global_enc):
+        """Fold the hash table for each scene code of the batch
+        (kernel K2 (a) on CUDA). A renderer bakes once per frame and
+        passes the result to `render_pixels(baked=...)`."""
+        spec = self.cfg.hash_spec
+        if not foldable(spec, global_enc.shape[-1]):
+            raise NotImplementedError(
+                'only the scene-folded hash encode is ported')
+        return [fold_scene(spec, self.hash_encoder.embeddings, g)
+                for g in global_enc]
+
+    def field_features(self, worldcoord, voxel_dims, global_enc, z,
+                       mc_masks_onehot, baked=None):
+        """Hash-encode world points with the scene code and run the
+        RenderMLP (`scenedreamer.py:285-311`). worldcoord [B, ..., 3]."""
+        spec = self.cfg.hash_spec
+        delim = torch.tensor(voxel_dims, dtype=torch.float32,
+                             device=worldcoord.device)
+        normalized = worldcoord / delim * 2.0 - 1.0
+        b = normalized.shape[0]
+        if baked is None:
+            baked = self.bake_hash(global_enc)
+        flat = normalized.reshape(b, -1, 3)
+        feat = torch.stack([encode_folded(spec, baked[i], flat[i])
+                            for i in range(b)])
+        m_flat = mc_masks_onehot.reshape(b, -1, mc_masks_onehot.shape[-1])
+        sigma, feat_c = self.render_net(feat, z, m_flat)
+        out_shape = normalized.shape[:-1]
+        return (sigma.reshape(out_shape + (sigma.shape[-1],)),
+                feat_c.reshape(out_shape + (feat_c.shape[-1],)))
+
+    def render_pixels(self, voxel_id, depth, hit_mask, raydirs, cam_ori, z,
+                      global_enc, voxel_dims, num_samples=None,
+                      sample_depth_clip=None, deterministic=None,
+                      sky_avg=None, sky_only=False, baked=None,
+                      generator=None):
+        """Per-pixel rendering pass (`scenedreamer.py:313-430`).
+
+        Args:
+            voxel_id [B, H, W, M] int; depth [B, H, W, M, 2];
+            hit_mask [B, H, W, M] bool; raydirs [B, H, W, 3];
+            cam_ori [B, 3]; z [B, interm_style]; global_enc [B, 2];
+            voxel_dims (Y, X, Z); sky_avg optional [B, 1, 1, 1, C]
+            frame-global sky average (tiled inference shares one);
+            sky_only skips the field (exact for rays with no hit);
+            baked: `bake_hash(global_enc)`, reused across calls;
+            generator: `torch.Generator` of the stratified draws when
+            not deterministic.
+
+        Returns dict with net_out [B, H, W, C], weights, rand_depth and
+        the sky masks.
+        """
+        c = self.cfg
+        num_samples = num_samples or c.num_samples
+        sample_depth_clip = sample_depth_clip if sample_depth_clip \
+            is not None else c.sample_depth
+        deterministic = c.coarse_deterministic_sampling \
+            if deterministic is None else deterministic
+        b, h, w, m = voxel_id.shape
+
+        with torch.no_grad():
+            nsamples = (num_samples - c.num_blocks_early_stop
+                        if c.sample_use_box_boundaries else num_samples + 1)
+            rand_depth, new_dists, new_idx = sample_depth(
+                depth.reshape(b * h * w, m, 2),
+                hit_mask.reshape(b * h * w, m), nsamples,
+                deterministic=deterministic,
+                use_box_boundaries=c.sample_use_box_boundaries,
+                sample_depth_clip=sample_depth_clip, generator=generator)
+            s = rand_depth.shape[-1]
+            rand_depth = rand_depth.reshape(b, h, w, s, 1)
+            new_dists = new_dists.reshape(b, h, w, s, 1)
+            new_idx = new_idx.reshape(b, h, w, s)
+
+            vid_reduced = mc2reduced(voxel_id, ign2dirt=True)  # [B,H,W,M]
+            mc_masks = torch.gather(vid_reduced, -1, new_idx)
+            mc_onehot = F.one_hot(mc_masks, c.num_reduced_labels).to(
+                torch.float32)
+
+        # one rounding, as the JAX op's compiled render_pixels does
+        worldcoord = fma(raydirs[:, :, :, None, :], rand_depth,
+                         cam_ori[:, None, None, None, :])
+
+        # sky masks: last slot empty = ray ends in sky; first slot empty =
+        # pure sky ray (reference scenedreamer.py:334-337)
+        sky_mask = ~hit_mask[..., -1:]                        # [B,H,W,1]
+        sky_only_mask = ~hit_mask[..., :1]
+
+        if sky_only:
+            sigma = torch.zeros((b, h, w, s, 1), device=raydirs.device)
+            feat_c = torch.zeros((b, h, w, s, c.final_feat_dim),
+                                 device=raydirs.device)
+        else:
+            sigma, feat_c = self.field_features(
+                worldcoord, voxel_dims, global_enc, z, mc_onehot,
+                baked=baked)
+        weights = volume_rendering_relu(sigma, new_dists * c.dists_scale,
+                                        dim=-2)
+        weights = weights * (~sky_only_mask).to(weights.dtype).reshape(
+            b, h, w, 1, 1)
+        total_w = weights.sum(dim=-2, keepdim=True)           # [B,H,W,1,1]
+        # clip-mode compositing (reference scenedreamer.py:373-427)
+        terrain_sum = (weights * (torch.clamp(feat_c, -1, 1) + 1)).sum(
+            dim=-2, keepdim=True)                             # [B,H,W,1,C]
+
+        sky_c = self.sky_color(raydirs, z)                    # [B,H,W,1,C]
+        is_gnd = (worldcoord[..., 0] <= 1.0).any(dim=-1, keepdim=True)
+        nosky = (~sky_mask | is_gnd).to(torch.float32)[..., None]
+
+        # sky-leak suppression with the global sky average
+        if sky_avg is None:
+            sky_avg = sky_c.mean(dim=(1, 2), keepdim=True)
+        sky_c = sky_c * (1.0 - nosky) + sky_avg * nosky
+        rgbs_sky = torch.clamp(sky_c, -1, 1) + 1
+        net_out = (terrain_sum + (1.0 - total_w) * rgbs_sky).squeeze(-2) - 1.0
+
+        return {
+            'net_out': net_out,            # [B, H, W, C]
+            'weights': weights,
+            'rand_depth': rand_depth,
+            'total_weights': total_w,
+            'sigma': sigma,
+            'sky_c': sky_c,
+            'nosky_mask': nosky,
+            'sky_mask': sky_mask,
+            'sky_only_mask': sky_only_mask,
+        }
+
+    def refine(self, net_out, z):
+        """RenderCNN + tanh (`gancraft_base.py:588-603`).
+        net_out [B, H, W, C] -> (image [B, H, W, 3] in [-1, 1], raw)."""
+        raw = self.denoiser(net_out, z)
+        return torch.tanh(raw), raw

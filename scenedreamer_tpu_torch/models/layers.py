@@ -1,0 +1,241 @@
+"""Style-modulated linears and the neural-field networks, in PyTorch.
+
+Counterpart of `scenedreamer_tpu/models/layers.py` with the reference's
+module and parameter names, so a reference state dict loads as is:
+  * ModLinear (`imaginaire/model_utils/layers.py:184-271`)
+  * RenderMLP == LightningMLP (`gancraft_base.py:20-88`)
+  * StyleMLP (`gancraft_base.py:91-126`), SKYMLP (`gancraft_base.py:129-169`)
+  * ConditionalHashGrid world encoder (`model_utils/layers.py:6-55`)
+  * RenderCNN (`gancraft_base.py:172-225`)
+
+Tensors are channels-last at every public call (NHWC images, [B, ..., C]
+features); the convolutions permute to NCHW inside. Each module has
+`reset_parameters(generator)` with the JAX package's init scheme:
+kaiming(leaky 0.2) x 0.5 for weights, zero biases, randn/sqrt(fan) for
+modulation weights (`generators/scenedreamer.py:66-78`).
+"""
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def leaky_relu(x):
+    return F.leaky_relu(x, 0.2)
+
+
+def _kaiming_half_(w, generator, scale=0.5, a=0.2):
+    """kaiming_normal_(a=0.2, leaky_relu) followed by *= scale."""
+    fan_in = w[0].numel()
+    std = math.sqrt(2.0 / (1.0 + a * a)) / math.sqrt(fan_in) * scale
+    with torch.no_grad():
+        w.normal_(0.0, std, generator=generator)
+
+
+def _mod_weight_(w, generator):
+    """randn / sqrt(style_features) (reference layers.py:143,212)."""
+    with torch.no_grad():
+        w.normal_(0.0, 1.0 / math.sqrt(w.shape[-1]), generator=generator)
+
+
+class Dense(nn.Linear):
+    """Linear layer, weight [out, in], with the reference init."""
+
+    def reset_parameters(self, generator=None):
+        _kaiming_half_(self.weight, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
+class Conv(nn.Conv2d):
+    """NCHW conv with the reference init (kaiming x 0.5, zero bias)."""
+
+    def reset_parameters(self, generator=None):
+        _kaiming_half_(self.weight, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
+class ModLinear(nn.Module):
+    """Style-modulated linear (reference layers.py:184-271, in the mode
+    the generator uses: no bias, modulated bias on the output side):
+    per-batch weight W * alpha_b over the input axis, one batched matmul
+    ([B, N, I] @ [B, I, O]), plus beta_b. alpha(z) = z @ weight_alpha.T
+    + bias_alpha, beta(z) = z @ weight_beta.T + bias_beta."""
+
+    def __init__(self, in_features, out_features, style_dim):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.weight_alpha = nn.Parameter(torch.empty(in_features, style_dim))
+        self.bias_alpha = nn.Parameter(torch.empty(in_features))
+        self.weight_beta = nn.Parameter(torch.empty(out_features, style_dim))
+        self.bias_beta = nn.Parameter(torch.empty(out_features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        _kaiming_half_(self.weight, generator, scale=1.0)
+        _mod_weight_(self.weight_alpha, generator)
+        nn.init.ones_(self.bias_alpha)
+        _mod_weight_(self.weight_beta, generator)
+        nn.init.zeros_(self.bias_beta)
+
+    def forward(self, x, z):
+        prefix = x.shape[:-1]
+        xb = x.reshape(x.shape[0], -1, x.shape[-1])
+        alpha = F.linear(z, self.weight_alpha, self.bias_alpha)   # [B, I]
+        beta = F.linear(z, self.weight_beta, self.bias_beta)      # [B, O]
+        w_mod = self.weight[None] * alpha[:, None, :]             # [B, O, I]
+        y = torch.bmm(xb, w_mod.transpose(1, 2)) + beta[:, None]
+        return y.reshape(*prefix, y.shape[-1])
+
+
+class RenderMLP(nn.Module):
+    """Per-sample neural field: hash features + segmentation one-hot and
+    style -> (sigma, color feature). Reference `gancraft_base.py:20-88`
+    in the generator's configuration (segmentation input, no view
+    direction input)."""
+
+    def __init__(self, in_channels, style_dim, mask_dim, out_channels_c,
+                 hidden_channels=256):
+        super().__init__()
+        hc = hidden_channels
+        self.fc_1 = Dense(in_channels, hc)
+        self.fc_m_a = Dense(mask_dim, hc, bias=False)
+        self.fc_2 = ModLinear(hc, hc, style_dim)
+        self.fc_3 = ModLinear(hc, hc, style_dim)
+        self.fc_4 = ModLinear(hc, hc, style_dim)
+        self.fc_sigma = Dense(hc, 1)
+        self.fc_5 = ModLinear(hc, hc, style_dim)
+        self.fc_6 = ModLinear(hc, hc, style_dim)
+        self.fc_out_c = Dense(hc, out_channels_c)
+
+    def forward(self, x, z, m):
+        """x [B, N, C_in]; z [B, S]; m [B, N, mask_dim]."""
+        f = leaky_relu(self.fc_1(x) + self.fc_m_a(m))
+        f = leaky_relu(self.fc_2(f, z))
+        f = leaky_relu(self.fc_3(f, z))
+        f = leaky_relu(self.fc_4(f, z))
+        sigma = self.fc_sigma(f)
+        f = leaky_relu(self.fc_5(f, z))
+        f = leaky_relu(self.fc_6(f, z))
+        return sigma, self.fc_out_c(f)
+
+
+class StyleMLP(nn.Module):
+    """Style code -> intermediate style (reference gancraft_base.py:91-126)."""
+
+    def __init__(self, style_dim, out_dim, hidden_channels=256,
+                 num_layers=5):
+        super().__init__()
+        dims = [style_dim] + [hidden_channels] * num_layers
+        self.fc_layers = nn.ModuleList(
+            [Dense(dims[i], dims[i + 1]) for i in range(num_layers)])
+        self.fc_out = Dense(hidden_channels, out_dim)
+
+    def forward(self, z):
+        z = z / torch.clamp(torch.linalg.norm(z, dim=-1, keepdim=True),
+                            min=1e-12)
+        for fc in self.fc_layers:
+            z = leaky_relu(fc(z))
+        return leaky_relu(self.fc_out(z))
+
+
+class SKYMLP(nn.Module):
+    """Ray-direction embedding -> sky color feature
+    (reference gancraft_base.py:129-169)."""
+
+    def __init__(self, in_channels, style_dim, out_channels_c=3,
+                 hidden_channels=256):
+        super().__init__()
+        hc = hidden_channels
+        self.fc_z_a = Dense(style_dim, hc, bias=False)
+        self.fc1 = Dense(in_channels, hc)
+        self.fc2 = Dense(hc, hc)
+        self.fc3 = Dense(hc, hc)
+        self.fc4 = Dense(hc, hc)
+        self.fc5 = Dense(hc, hc)
+        self.fc_out_c = Dense(hc, out_channels_c)
+
+    def forward(self, x, z):
+        """x [B, ..., C_pe]; z [B, S]."""
+        zf = self.fc_z_a(z)
+        zf = zf.reshape((zf.shape[0],) + (1,) * (x.dim() - 2)
+                        + (zf.shape[-1],))
+        y = leaky_relu(self.fc1(x) + zf)
+        for fc in (self.fc2, self.fc3, self.fc4, self.fc5):
+            y = leaky_relu(fc(y))
+        return self.fc_out_c(y)
+
+
+class SRTConvBlock(nn.Module):
+    """conv(s1)-relu-conv(s2)-relu (reference model_utils/layers.py:6-23);
+    NCHW inside the world encoder."""
+
+    def __init__(self, in_channels, hdim, odim):
+        super().__init__()
+        self.layers = nn.Sequential(
+            Conv(in_channels, hdim, 3, stride=1, padding=1, bias=False),
+            nn.ReLU(),
+            Conv(hdim, odim, 3, stride=2, padding=1, bias=False),
+            nn.ReLU())
+
+    def forward(self, x):
+        return self.layers(x)
+
+
+class ConditionalHashGrid(nn.Module):
+    """BEV height + semantic one-hot -> 2-d tanh scene code
+    (reference model_utils/layers.py:25-55). Inputs NHWC: height
+    [B, S, S, 1], semantic [B, S, S, 11]."""
+
+    def __init__(self, num_conv_blocks=6):
+        super().__init__()
+        self.hconv_head = Conv(1, 8, 3, stride=2, padding=1)
+        self.sconv_head = Conv(11, 8, 3, stride=2, padding=1)
+        cur = 16
+        blocks = []
+        for _ in range(1, num_conv_blocks):
+            blocks.append(SRTConvBlock(cur, cur, 2 * cur))
+            cur *= 2
+        self.conv_blocks = nn.ModuleList(blocks)
+        self.fc1 = Dense(cur, 16)
+        self.fc2 = Dense(16, 2)
+
+    def forward(self, height, semantic):
+        h = leaky_relu(self.hconv_head(height.permute(0, 3, 1, 2)))
+        s = leaky_relu(self.sconv_head(semantic.permute(0, 3, 1, 2)))
+        joint = torch.cat([h, s], dim=1)
+        for block in self.conv_blocks:
+            joint = leaky_relu(block(joint))
+        pooled = joint.mean(dim=(2, 3))
+        return torch.tanh(self.fc2(leaky_relu(self.fc1(pooled))))
+
+
+class RenderCNN(nn.Module):
+    """Style-modulated 2-D refinement CNN over the composited feature map
+    (reference gancraft_base.py:172-225). Input NHWC [B, H, W, C]."""
+
+    def __init__(self, in_channels, style_dim, hidden_channels=256,
+                 out_channels=3):
+        super().__init__()
+        hc = hidden_channels
+        self.fc_z_cond = Dense(style_dim, 4 * hc)
+        self.conv1 = Conv(in_channels, hc, 1)
+        self.conv2a = Conv(hc, hc, 3, padding=1)
+        self.conv2b = Conv(hc, hc, 3, padding=1, bias=False)
+        self.conv3a = Conv(hc, hc, 3, padding=1)
+        self.conv3b = Conv(hc, hc, 3, padding=1, bias=False)
+        self.conv4a = Conv(hc, hc, 1)
+        self.conv4b = Conv(hc, hc, 1)
+        self.conv4 = Conv(hc, out_channels, 1)
+
+    def forward(self, x, z):
+        a0, b0, a1, b1 = self.fc_z_cond(z)[:, :, None, None].chunk(4, dim=1)
+        y = leaky_relu(self.conv1(x.permute(0, 3, 1, 2)))
+        y = y + self.conv2b(leaky_relu(self.conv2a(y)))
+        y = leaky_relu(y * (a0 + 1.0) + b0)
+        y = y + self.conv3b(leaky_relu(self.conv3a(y)))
+        y = leaky_relu(y * (a1 + 1.0) + b1)
+        y = y + self.conv4b(leaky_relu(self.conv4a(y)))
+        return self.conv4(leaky_relu(y)).permute(0, 2, 3, 1)

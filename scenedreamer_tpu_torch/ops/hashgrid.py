@@ -1,0 +1,246 @@
+"""Multiresolution hash-grid encoding, scene-folded forward.
+
+Counterpart of `scenedreamer_tpu/ops/hashgrid.py` (reference CUDA
+`gridencoder/src/gridencoder.cu` + `gridencoder/grid.py`): the same
+`HashGridSpec` (per-level resolution, table offsets, xor `fast_hash`),
+`foldable`, and the forward of `hashgrid_encode_folded`, which the
+flagship generator always takes (D=5, every level hashed at one
+power-of-two table size).
+
+Every point of a world shares its 2-D scene code, so per level the four
+scene-corner rows fold into one baked table,
+`B_l[j] = sum_a w_a * T_l[j ^ m_a]`, and each point then needs 8
+spatial corners instead of 32 (exact: `% size` is `& (size-1)` and
+distributes over xor). The fold is split so a renderer can bake once
+per frame and encode many ray chunks against it:
+
+    folded = fold_scene(spec, table, scene)     # bake: kernel K2 (a)
+    feats = encode_folded(spec, folded, xyz)    # encode: kernel K2 (b)
+
+For CUDA tensors both steps launch the kernels of `csrc/hashgrid_fwd.cu`;
+for CPU tensors they run the plain PyTorch versions below (index
+arithmetic + gathers, the same float operations in the same order).
+The backward (K3), the unfolded general path (K4) and the 'paired'
+variant (K5) are not ported yet.
+"""
+import collections
+import dataclasses
+
+import numpy as np
+import torch
+
+from scenedreamer_tpu_torch import kernels
+from scenedreamer_tpu_torch.ops.rounding import fma
+
+# Instant-NGP / reference primes (cu:42); prime 1 keeps dim 0 coherent.
+PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
+          2165219737)
+
+
+@dataclasses.dataclass(frozen=True)
+class HashGridSpec:
+    input_dim: int = 3
+    num_levels: int = 16
+    level_dim: int = 2
+    base_resolution: int = 16
+    log2_hashmap_size: int = 19
+    per_level_scale: float = 2.0
+    gridtype: str = 'hash'          # 'hash' | 'tiled'
+    align_corners: bool = False
+    hash_variant: str = 'xor'       # 'xor' (reference) | 'paired'
+
+    @staticmethod
+    def create(input_dim=3, num_levels=16, level_dim=2, base_resolution=16,
+               log2_hashmap_size=19, desired_resolution=None,
+               per_level_scale=2.0, gridtype='hash', align_corners=False,
+               hash_variant='xor'):
+        if desired_resolution is not None:
+            per_level_scale = float(np.exp2(
+                np.log2(desired_resolution / base_resolution)
+                / (num_levels - 1)))
+        return HashGridSpec(input_dim, num_levels, level_dim,
+                            base_resolution, log2_hashmap_size,
+                            float(per_level_scale), gridtype, align_corners,
+                            hash_variant)
+
+    @property
+    def max_params(self):
+        return 2 ** self.log2_hashmap_size
+
+    @property
+    def output_dim(self):
+        return self.num_levels * self.level_dim
+
+    def level_resolution(self, level):
+        scale = np.exp2(level * np.log2(self.per_level_scale)) \
+            * self.base_resolution - 1.0
+        return int(np.ceil(scale)) + 1, float(scale)
+
+    def offsets(self):
+        """Per-level start offsets into the flat table (reference
+        grid.py:113-123)."""
+        offs, off = [], 0
+        for lv in range(self.num_levels):
+            res, _ = self.level_resolution(lv)
+            side = res if self.align_corners else res + 1
+            n = min(self.max_params, side ** self.input_dim)
+            n = int(np.ceil(n / 8) * 8)
+            offs.append(off)
+            off += n
+        offs.append(off)
+        return np.array(offs, dtype=np.int64)
+
+    @property
+    def table_size(self):
+        return int(self.offsets()[-1])
+
+
+def _all_levels_hashed_uniform(spec):
+    """Every level overflows into hash mode at one capped table size."""
+    offs = spec.offsets()
+    sizes = set(int(offs[i + 1] - offs[i])
+                for i in range(spec.num_levels))
+    if len(sizes) != 1 or spec.gridtype != 'hash':
+        return False
+    for lv in range(spec.num_levels):
+        res, _ = spec.level_resolution(lv)
+        side = res if spec.align_corners else res + 1
+        if side ** spec.input_dim <= spec.max_params:
+            return False
+    return True
+
+
+def foldable(spec, scene_dim=2):
+    """The scene-folded path applies when every level is hashed at the
+    same power-of-two size (the flagship D=5 config)."""
+    if not _all_levels_hashed_uniform(spec):
+        return False
+    size = spec.table_size // spec.num_levels
+    return size & (size - 1) == 0 and spec.input_dim > scene_dim
+
+
+def _scales(spec, device):
+    return torch.tensor([spec.level_resolution(lv)[1]
+                         for lv in range(spec.num_levels)],
+                        dtype=torch.float32, device=device)
+
+
+def _offset(spec):
+    return 0.0 if spec.align_corners else 0.5
+
+
+# a baked table [L, S, C] and whether the scene code lies out of bounds
+# (then every point encodes to zero)
+FoldedTable = collections.namedtuple('FoldedTable', ['baked', 'scene_oob'])
+
+
+def scene_fold_weights(spec, scene, bound=1.0):
+    """Scene code [Ds] -> per-level xor masks [L, 2^Ds] int64, blend
+    weights [L, 2^Ds] float32 and the out-of-bounds flag (the math of
+    `bake` in `hashgrid_encode_folded`)."""
+    ds = scene.shape[-1]
+    dp = spec.input_dim - ds
+    if spec.hash_variant != 'xor':
+        raise NotImplementedError('only the xor hash variant is ported')
+    if not foldable(spec, ds):
+        raise ValueError('spec not foldable')
+    size = spec.table_size // spec.num_levels
+    s01 = (scene.to(torch.float32) + bound) / (2.0 * bound)
+    scene_oob = bool(((s01 < 0.0) | (s01 > 1.0)).any())
+    spos = fma(s01[None, :], _scales(spec, scene.device)[:, None],
+               _offset(spec))                                # [L, Ds]
+    sgrid = torch.floor(spos)
+    sfrac = spos - sgrid
+    bits = torch.tensor([[(a >> d) & 1 for d in range(ds)]
+                         for a in range(2 ** ds)], device=scene.device)
+    on = bits.to(torch.bool)[None]                           # [1, A, Ds]
+    weights = torch.where(on, sfrac[:, None, :],
+                          1.0 - sfrac[:, None, :]).prod(dim=-1)  # [L, A]
+    corner = sgrid.to(torch.int64)[:, None, :] + bits[None]  # [L, A, Ds]
+    masks = torch.zeros(corner.shape[:-1], dtype=torch.int64,
+                        device=scene.device)
+    for d in range(ds):
+        masks = masks ^ (corner[..., d] * PRIMES[dp + d])
+    return masks & (size - 1), weights, scene_oob
+
+
+def fold_scene(spec, table, scene, bound=1.0):
+    """Bake the [table_size, C] table for one scene code [Ds]."""
+    masks, weights, scene_oob = scene_fold_weights(spec, scene, bound)
+    table3 = table.reshape(spec.num_levels, -1, spec.level_dim)
+    if table.is_cuda:
+        baked = kernels.hash_bake(table3.contiguous(),
+                                  masks.to(torch.int32).contiguous(),
+                                  weights.contiguous())
+    else:
+        baked = bake_plain(table3, masks, weights)
+    return FoldedTable(baked, scene_oob)
+
+
+def bake_plain(table3, masks, weights):
+    """Plain version of K2 (a): baked[l, j] = 0 + sum_a w[l,a] *
+    table3[l, j ^ masks[l,a]], summed in ascending a."""
+    lv, s, c = table3.shape
+    j = torch.arange(s, device=table3.device)
+    out = torch.zeros_like(table3)
+    for a in range(masks.shape[1]):
+        src = (j[None, :] ^ masks[:, a:a + 1]).unsqueeze(-1).expand(lv, s, c)
+        out = out + weights[:, a, None, None] * torch.gather(table3, 1, src)
+    return out
+
+
+def encode_folded(spec, folded, xyz, bound=1.0):
+    """Encode points [N, 3] in [-bound, bound] against a baked table;
+    returns [N, L*C] (zeros for out-of-bounds points)."""
+    if xyz.shape[-1] != 3:
+        raise ValueError('the folded encode takes 3-D points')
+    scales = _scales(spec, xyz.device)
+    if xyz.is_cuda:
+        return kernels.hash_encode(folded.baked, xyz.contiguous(), scales,
+                                   _offset(spec), bound, folded.scene_oob)
+    return encode_plain(folded.baked, xyz, scales, _offset(spec), bound,
+                        folded.scene_oob)
+
+
+def encode_plain(baked, xyz, scales, offset, bound, scene_oob):
+    """Plain version of K2 (b): per level, the cell position
+    x01 * scale + offset rounded once (as the JAX op's compiled encode
+    and the kernel round it; a separate rounding moves the fractional
+    position by up to one float32 step of the position, ~1e-4 at the
+    finest levels), 8 corner hashes ((x*1) ^ (y*P1) ^ (z*P2)) & (S-1),
+    trilinear weights as products in ascending dimension order, and
+    sum_k w_k * baked[idx_k] in ascending k."""
+    lv, s, c = baked.shape
+    x01 = (xyz.to(torch.float32) + bound) / (2.0 * bound)    # [N, 3]
+    oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1, keepdim=True)
+    outs = []
+    for level in range(lv):
+        pos = fma(x01, scales[level], offset)
+        cell = torch.floor(pos)
+        frac = pos - cell
+        u = cell.to(torch.int64)
+        h = [[u[:, d] * PRIMES[d], (u[:, d] + 1) * PRIMES[d]]
+             for d in range(3)]
+        t = [[1.0 - frac[:, d], frac[:, d]] for d in range(3)]
+        acc = torch.zeros((xyz.shape[0], c), dtype=torch.float32,
+                          device=xyz.device)
+        for k in range(8):
+            idx, w = h[0][k & 1], t[0][k & 1]
+            for d in (1, 2):
+                bit = (k >> d) & 1
+                idx = idx ^ h[d][bit]
+                w = w * t[d][bit]
+            acc = acc + w[:, None] * baked[level][idx & (s - 1)]
+        outs.append(acc)
+    out = torch.cat(outs, dim=-1)
+    if scene_oob:
+        return torch.zeros_like(out)
+    return torch.where(oob, torch.zeros_like(out), out)
+
+
+def hashgrid_encode_folded(spec, table, xyz, scene, bound=1.0):
+    """Exact hash-grid encode of points [N, 3] that share trailing scene
+    coordinates [Ds]: `fold_scene` then `encode_folded`. Equals the
+    unfolded encode of the concatenated [N, 3+Ds] input."""
+    return encode_folded(spec, fold_scene(spec, table, scene, bound), xyz,
+                         bound)

@@ -1,0 +1,189 @@
+"""Trajectory rendering: scene -> camera path -> frames.
+
+Counterpart of the split-refine path of `scenedreamer_tpu/render/pipeline.py`
+(reference `imaginaire/generators/scenedreamer.py:479-632`
+inference_givenstyle). Per frame:
+  1. camera rays and the full-frame DDA (kernel K1 on CUDA);
+  2. one frame-global sky average (`pipeline.py:165-169`);
+  3. the hash table baked once for the world's scene code (K2 (a));
+  4. the pointwise field (depth samples -> hash encode (K2 (b)) ->
+     RenderMLP -> compositing) over chunks of image rows, sized to keep
+     activations a few GB; the field is pointwise, so the values do not
+     depend on the chunking;
+  5. one full-frame RenderCNN, then the pad crop;
+  6. expected depth sum(w t) / sum(w), inf for sky (`pipeline.py:211-216`).
+
+Not in this slice: the sky-tile fast path and `compact_k` compaction,
+CNN row strips above 1.4 MPx, the padded-tile and mesh paths,
+tiles-per-dispatch batching, `export_tile`, style interpolation, depth
+colormaps and the mp4 writer.
+"""
+import os
+import struct
+import zlib
+
+import numpy as np
+import torch
+
+from scenedreamer_tpu_torch.device import resolve_device
+from scenedreamer_tpu_torch.ops.ray_voxel import (camera_rays,
+                                                  ray_voxel_intersection)
+from scenedreamer_tpu_torch.scene.camera import EvalCameraController
+
+# biome color LUT for the semantic-map visualization
+# (`scenedreamer.py:534-546`)
+BIOME_COLORS = np.array(
+    [[255, 255, 178], [184, 200, 98], [188, 161, 53], [190, 255, 242],
+     [106, 144, 38], [33, 77, 41], [86, 179, 106], [34, 61, 53],
+     [35, 114, 94], [0, 0, 255], [0, 255, 0]], np.uint8)
+
+# rays per field chunk: at 40 samples and 256 hidden channels one MLP
+# activation is 32768 * 41 * 256 * 4 B = 1.4 GB
+CHUNK_RAYS = 32768
+
+
+def to_uint8(img):
+    """[-1, 1] float -> uint8 RGB."""
+    return np.clip((np.asarray(img) * 0.5 + 0.5) * 255, 0,
+                   255).astype(np.uint8)
+
+
+def write_png(path, img_uint8):
+    """Write an [H, W, 3] uint8 RGB image as PNG (zlib; no image library)."""
+    img = np.ascontiguousarray(img_uint8, np.uint8)
+    h, w = img.shape[:2]
+    raw = b''.join(b'\0' + img[y].tobytes() for y in range(h))
+
+    def chunk(tag, data):
+        body = tag + data
+        return (struct.pack('>I', len(data)) + body
+                + struct.pack('>I', zlib.crc32(body) & 0xffffffff))
+
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n'
+                + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
+                + chunk(b'IDAT', zlib.compress(raw, 4))
+                + chunk(b'IEND', b''))
+
+
+class TiledRenderer:
+    """Renders frames of one world with fixed inference settings.
+
+    `model` is a `SceneDreamerGenerator` (moved to `device`); `device`
+    defaults to CUDA and raises without it unless 'cpu' is passed.
+    """
+
+    def __init__(self, model, world, num_samples=40,
+                 num_blocks_early_stop=6, sample_depth=3.0, pad=30,
+                 resolution_hw=(540, 960), chunk_rays=CHUNK_RAYS,
+                 device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.world = world
+        self.num_samples = num_samples
+        self.m = num_blocks_early_stop
+        self.sample_depth = sample_depth
+        self.pad = pad
+        self.res = tuple(resolution_hw)
+        self.cam_res = (self.res[0] + pad, self.res[1] + pad)
+        self.chunk_rays = chunk_rays
+        self.voxel = torch.from_numpy(world.voxel).to(self.device)
+        with torch.no_grad():
+            hf = torch.from_numpy(
+                world.height_field.transpose(0, 2, 3, 1)).to(self.device)
+            sf = torch.from_numpy(
+                world.semantic_field.transpose(0, 2, 3, 1)).to(self.device)
+            self.global_enc = self.model.world_code(hf, sf)
+
+    @torch.no_grad()
+    def style_z(self, style):
+        """Raw style [1, style_dims] -> intermediate style."""
+        return self.model.style_forward(torch.tensor(
+            np.asarray(style), dtype=torch.float32, device=self.device))
+
+    @torch.no_grad()
+    def frame(self, cam_pose, z, return_aux=False):
+        """Render one frame. cam_pose = (ori, dir, up, f_ratio) in the
+        world's local frame (EvalCameraController convention). Returns
+        the [H, W, 3] float image in [-1, 1] (numpy) and, with
+        `return_aux`, {'depth', 'first_voxel_id'}."""
+        ori, cdir, up, f_ratio = cam_pose
+        h, w = self.cam_res
+        model, dev = self.model, self.device
+        # the view must not depend on the padding (`scenedreamer.py:579`)
+        cam_f = f_ratio * (self.res[1] - 1)
+        cam_c = ((h - 1) / 2.0, (w - 1) / 2.0)
+        raydirs = camera_rays(cdir, up, cam_f, cam_c, (h, w), device=dev)
+        cam_ori = torch.as_tensor(ori, dtype=torch.float32, device=dev)
+        vid, dep, hit = ray_voxel_intersection(
+            self.voxel, cam_ori, raydirs.reshape(-1, 3), self.m)
+        vid = vid.reshape(1, h, w, self.m)
+        dep = dep.reshape(1, h, w, self.m, 2)
+        hit = hit.reshape(1, h, w, self.m)
+        raydirs = raydirs.reshape(1, h, w, 3)
+        cam_ori = cam_ori[None]
+
+        sky_avg = model.sky_color(raydirs, z).mean(dim=(1, 2), keepdim=True)
+        baked = model.bake_hash(self.global_enc)
+
+        rows = max(1, self.chunk_rays // w)
+        feats, depths = [], []
+        for y0 in range(0, h, rows):
+            sl = slice(y0, min(h, y0 + rows))
+            out = model.render_pixels(
+                vid[:, sl], dep[:, sl], hit[:, sl], raydirs[:, sl], cam_ori,
+                z, self.global_enc, self.world.dims,
+                num_samples=self.num_samples,
+                sample_depth_clip=self.sample_depth, deterministic=True,
+                sky_avg=sky_avg, baked=baked)
+            wts = out['weights'][..., 0]                    # [1,r,W,S]
+            t = out['rand_depth'][..., 0]
+            tw = wts.sum(dim=-1)
+            depths.append(torch.where(
+                tw > 1e-6, (wts * t).sum(dim=-1) / torch.clamp(tw, min=1e-6),
+                torch.full_like(tw, float('inf'))))
+            feats.append(out['net_out'])
+        img, _ = model.refine(torch.cat(feats, dim=1), z)
+        p0 = self.pad // 2
+        crop = (slice(p0, p0 + self.res[0]), slice(p0, p0 + self.res[1]))
+        img = img[0][crop].cpu().numpy()
+        if not return_aux:
+            return img
+        return img, {'depth': torch.cat(depths, dim=1)[0][crop].cpu().numpy(),
+                     'first_voxel_id': vid[0][crop][..., 0].cpu().numpy()}
+
+
+def render_trajectory(model, world, style, output_dir, camera_mode=0,
+                      cam_maxstep=10, cam_ang=72, num_samples=40,
+                      num_blocks_early_stop=6, sample_depth=3.0, pad=30,
+                      resolution_hw=(540, 960), device=None):
+    """Full inference: camera trajectory -> rgb_render/*.png
+    (`scenedreamer.py:479-632`). Returns the rendered frames as
+    [H, W, 3] float images in [-1, 1]."""
+    renderer = TiledRenderer(model, world, num_samples=num_samples,
+                             num_blocks_early_stop=num_blocks_early_stop,
+                             sample_depth=sample_depth, pad=pad,
+                             resolution_hw=resolution_hw, device=device)
+    output_dir = os.path.join(output_dir, 'rgb_render')
+    os.makedirs(output_dir, exist_ok=True)
+
+    # side outputs (`scenedreamer.py:563-565`)
+    sem = np.argmax(world.semantic_field[0], axis=0)
+    write_png(os.path.join(output_dir, 'semantic_map.png'),
+              BIOME_COLORS[sem])
+    hm = world.height_field[0, 0]
+    write_png(os.path.join(output_dir, 'height_map.png'),
+              np.repeat((np.clip(hm, 0, 1) * 255).astype(np.uint8)
+                        [..., None], 3, -1))
+    style = np.asarray(style, np.float32).reshape(1, -1)
+    np.save(os.path.join(output_dir, 'style.npy'), style)
+    z = renderer.style_z(style)
+    ctl = EvalCameraController(
+        world, maxstep=cam_maxstep, pattern=camera_mode, cam_ang=cam_ang,
+        smooth_decay_multiplier=150.0 / cam_maxstep)
+    frames = []
+    for i, pose in enumerate(ctl):
+        img = renderer.frame(pose, z)
+        write_png(os.path.join(output_dir, f'{i:05d}.png'), to_uint8(img))
+        frames.append(img)
+    return frames

@@ -1,0 +1,42 @@
+"""Shared set-up for the tests that hold the PyTorch port against the JAX
+package: the TINY generator of `test_golden.py` initialised by flax,
+and the same weights loaded into the port through its converter."""
+import dataclasses
+
+import numpy as np
+
+import jax
+
+from scenedreamer_tpu.data.synthetic import make_batch, make_world
+from scenedreamer_tpu.models.generator import SceneDreamerGenerator as JGen
+from scenedreamer_tpu_torch.models.generator import (GeneratorConfig,
+                                                     SceneDreamerGenerator)
+from scenedreamer_tpu_torch.utils.convert import \
+    generator_state_dict_from_flax
+from test_golden import TINY
+
+
+def port_config(jcfg):
+    """The port's GeneratorConfig with the JAX config's values."""
+    return GeneratorConfig(**{f.name: getattr(jcfg, f.name)
+                              for f in dataclasses.fields(GeneratorConfig)
+                              if f.name != 'dtype'})
+
+
+def tiny_models(key_seed=0, batch_hw=20):
+    """(world, flax model, flax params as numpy, port model, batch of
+    numpy arrays) as `test_golden._build` makes them."""
+    world = make_world(size=64, seed=7, n_voronoi=20, boundary_detect=4)
+    jmodel = JGen(cfg=TINY)
+    batch = make_batch(world, batch_size=1, height=batch_hw, width=batch_hw,
+                       max_samples=4, pad=TINY.pad, seed=0,
+                       include_gan_data=False)
+    key = jax.random.PRNGKey(key_seed)
+    params = jmodel.init({'params': key}, batch, world.dims, key,
+                         random_style=True)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    tmodel = SceneDreamerGenerator(port_config(TINY))
+    tmodel.load_state_dict(generator_state_dict_from_flax(params))
+    tmodel.eval()
+    batch = {k: np.asarray(v) for k, v in batch.items()}
+    return world, jmodel, params, tmodel, batch

@@ -1,0 +1,95 @@
+"""The port's generator against the JAX package's, with weights from a
+flax init carried across by the port's converter, on the TINY config of
+`test_golden.py`. Inputs are the same numpy arrays; sampling is
+deterministic. Tolerance atol 1e-5: float32 matmuls and convolutions
+sum in another order in the two frameworks."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from _torch_parity import tiny_models
+from test_golden import TINY
+
+ATOL = 1e-5
+
+
+@pytest.fixture(scope='module')
+def setup():
+    return tiny_models()
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def test_world_code(setup):
+    world, jm, params, tm, batch = setup
+    j = jm.apply(params, batch['height_field'], batch['semantic_field'],
+                 method=jm.world_code)
+    with torch.no_grad():
+        t = tm.world_code(_t(batch['height_field']),
+                          _t(batch['semantic_field']))
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL, rtol=0)
+
+
+def test_style_and_sky(setup):
+    world, jm, params, tm, batch = setup
+    style = np.random.default_rng(1).standard_normal(
+        (1, TINY.style_dims)).astype(np.float32)
+    jz = jm.apply(params, style, method=jm.style_forward)
+    with torch.no_grad():
+        tz = tm.style_forward(_t(style))
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), atol=ATOL,
+                               rtol=0)
+    js = jm.apply(params, batch['raydirs'], jz, method=jm.sky_color)
+    with torch.no_grad():
+        ts = tm.sky_color(_t(batch['raydirs']), _t(jz))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=ATOL,
+                               rtol=0)
+
+
+def test_render_pixels_and_refine(setup):
+    world, jm, params, tm, batch = setup
+    rng = np.random.default_rng(2)
+    z = rng.standard_normal((1, TINY.interm_style_dims)).astype(np.float32)
+    genc = np.asarray(jm.apply(params, batch['height_field'],
+                               batch['semantic_field'],
+                               method=jm.world_code))
+    args = [batch[k] for k in ('voxel_id', 'depth', 'hit_mask', 'raydirs',
+                               'cam_ori')] + [z, genc]
+    j = jm.apply(params, jax.random.PRNGKey(3), *args, world.dims,
+                 deterministic=True, method=jm.render_pixels)
+    with torch.no_grad():
+        t = tm.render_pixels(*[_t(a) for a in args], world.dims,
+                             deterministic=True)
+    assert batch['hit_mask'][..., 0].any()
+    for k in ('net_out', 'weights', 'rand_depth', 'total_weights'):
+        np.testing.assert_allclose(t[k].numpy(), np.asarray(j[k]),
+                                   atol=ATOL, rtol=0, err_msg=k)
+    img_j, raw_j = jm.apply(params, j['net_out'], z, method=jm.refine)
+    with torch.no_grad():
+        img_t, raw_t = tm.refine(_t(j['net_out']), _t(z))
+    np.testing.assert_allclose(raw_t.numpy(), np.asarray(raw_j), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), atol=ATOL,
+                               rtol=0)
+
+
+def test_sky_only_matches_full_on_sky_rays(setup):
+    """`sky_only=True` skips the field and is exact where no ray hits."""
+    world, jm, params, tm, batch = setup
+    rng = np.random.default_rng(4)
+    z = torch.from_numpy(rng.standard_normal(
+        (1, TINY.interm_style_dims)).astype(np.float32))
+    hit = np.zeros_like(batch['hit_mask'])
+    args = [_t(batch['voxel_id']), _t(batch['depth']), _t(hit),
+            _t(batch['raydirs']), _t(batch['cam_ori']), z,
+            torch.zeros(1, 2)]
+    with torch.no_grad():
+        full = tm.render_pixels(*args, world.dims, deterministic=True)
+        sky = tm.render_pixels(*args, world.dims, deterministic=True,
+                               sky_only=True)
+    torch.testing.assert_close(sky['net_out'], full['net_out'], rtol=0,
+                               atol=0)

@@ -1,0 +1,83 @@
+"""The PyTorch port stands alone: it imports without JAX, never names the
+JAX package, and its entry points refuse to run on a missing GPU unless
+the caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, 'scenedreamer_tpu_torch')
+FORBIDDEN = {'jax', 'jaxlib', 'flax', 'scenedreamer_tpu'}
+
+
+def _port_files():
+    files = [os.path.join(REPO, 'chip_smoke.py')]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith('.py')]
+    return sorted(files)
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax'):\n"
+        "    sys.modules[m] = None\n"
+        "import scenedreamer_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'scenedreamer_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert not any(k == 'scenedreamer_tpu' or "
+        "k.startswith('scenedreamer_tpu.') for k in sys.modules)\n"
+        "print(len(names))\n")
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 15
+
+
+@pytest.mark.parametrize('path', _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_jax_package_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or '']
+        else:
+            continue
+        for mod in mods:
+            assert mod.split('.')[0] not in FORBIDDEN, (path, mod)
+
+
+def test_entry_points_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip('CUDA present: the default device is usable')
+    from scenedreamer_tpu_torch.cli import inference
+    from scenedreamer_tpu_torch.device import resolve_device
+    from scenedreamer_tpu_torch.models.generator import (
+        GeneratorConfig, SceneDreamerGenerator)
+    from scenedreamer_tpu_torch.render.pipeline import (TiledRenderer,
+                                                        render_trajectory)
+    from scenedreamer_tpu_torch.scene.terrain import generate_terrain
+    from scenedreamer_tpu_torch.scene.voxel_world import build_voxel_world
+    assert resolve_device('cpu').type == 'cpu'
+    maps = generate_terrain(size=32, seed=3, n_voronoi=8, relax_iters=1)
+    world = build_voxel_world(maps.height_map, maps.semantic_map,
+                              maps.tree_map, fill_depth=4,
+                              boundary_detect=2)
+    model = SceneDreamerGenerator(GeneratorConfig(
+        hash_num_levels=4, hash_level_dim=4, hash_log2_size=10,
+        hash_desired_resolution=128, mlp_hidden=16))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        TiledRenderer(model, world)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        render_trajectory(model, world, torch.zeros(1, 128), str(tmp_path))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        inference.main(['--output_dir', str(tmp_path)])
