@@ -24,13 +24,30 @@ of the repository. Phases, each fatal on failure:
      kernel's launch count must rise during the render;
   5. timing (CUDA events, median of 5, L2 flushed before each run) of
      each kernel and its plain version at the main path's shapes, with
-     the bound the card could reach, printed as one `kernels` JSON line.
+     the bound the card could reach;
+  6. K3 (the hash backward: scatter, dT bake, dw reduction) against its
+     plain version at the flagship spec on the sample points of one
+     training batch (crop 256 + pad 6, 262x262 rays, 24 samples), table
+     uniform in [-1, 1], seeded normal cotangent; dT, dw and dxyz held
+     to the tolerances printed with their reasons;
+  7. the training path: `GANTrainer` at the flagship training width of
+     configs/scenedreamer_train.yaml (`GeneratorConfig()`: hash 16 x
+     2^19 x 8, MLP 256, style 128/256, feature 64, 24 samples, M=6,
+     pad 6, stochastic sampling; D 128 filters, 12 labels; VGG19
+     perceptual loss on a random VGG; the yaml's loss weights and
+     optimizers) with random seeded weights, on batches from the port's
+     `make_batch` (batch 1, scene-1024 world, seed 8888): one warm-up
+     and 3 timed `train_step_shared`, then one `train_step`. Losses and
+     gradient norms must be finite, the hash table, the world encoder
+     and a D conv must move, and every kernel's launch count must rise;
+     s/iteration, rays/s (forward + backward) and peak memory printed.
 
-Then the card's name and power limit (nvidia-smi), and last the line
-{"ok": true, "device": {...}}. Float32 everywhere: TF32 is switched off
-for matmuls and convolutions.
+Then one `kernels` JSON line covering K1-K3, the card's name and power
+limit (nvidia-smi), and last the line {"ok": true, "device": {...}}.
+Float32 everywhere: TF32 is switched off for matmuls and convolutions.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -42,6 +59,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 SCENE, SEED = 1024, 8888
 RES, PAD, SAMPLES, M = (540, 960), 30, 40, 6
+TRAIN_CROP, TRAIN_STEPS = 256, 3
 
 
 def log(*a):
@@ -73,6 +91,195 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
+def k3_check(torch, kernels, hg, sample_depth, fma, spec, cfg, batch, dims,
+             dev):
+    """Phase 6: K3 (a)-(c) against the plain versions on the sample points
+    of one training batch; returns errors, timings and bounds."""
+    b, h, w, m = batch['voxel_id'].shape
+    rdepth, _, _ = sample_depth(batch['depth'].reshape(-1, m, 2),
+                                batch['hit_mask'].reshape(-1, m),
+                                cfg.num_samples + 1, deterministic=True,
+                                use_box_boundaries=False,
+                                sample_depth_clip=cfg.sample_depth)
+    wc = fma(batch['raydirs'].reshape(-1, 1, 3), rdepth[..., None],
+             batch['cam_ori'][0])
+    dims_t = torch.tensor(dims, dtype=torch.float32, device=dev)
+    xyz = (wc / dims_t * 2.0 - 1.0).reshape(-1, 3).contiguous()
+    n = xyz.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    table3 = (torch.rand((spec.table_size, spec.level_dim), generator=gen,
+                         device=dev) * 2 - 1).reshape(spec.num_levels, -1,
+                                                      spec.level_dim)
+    g = torch.randn((n, spec.output_dim), generator=gen, device=dev)
+    scene = torch.tensor([0.31, -0.47], device=dev)
+    masks, weights, oob = hg.scene_fold_weights(spec, scene)
+    masks32 = masks.to(torch.int32).contiguous()
+    scales, off = hg._scales(spec, dev), hg._offset(spec)
+    slots = table3.shape[1]
+    baked = kernels.hash_bake(table3, masks32, weights)
+    k_grad, k_dxyz = kernels.hash_encode_bwd(g, xyz, scales, off, 1.0, oob,
+                                             slots, baked)
+    p_grad, p_dxyz = hg.encode_bwd_plain(g, xyz, scales, off, 1.0, oob,
+                                         slots, baked)
+    abs_grad, _ = hg.encode_bwd_plain(g.abs(), xyz, scales, off, 1.0, oob,
+                                      slots)
+    k_dt = kernels.hash_bake(k_grad, masks32, weights)
+    p_dt = hg.bake_plain(p_grad, masks, weights)
+    abs_dt = hg.bake_plain(abs_grad, masks, weights)
+    k_dw = kernels.hash_bake_dw(table3, k_grad, masks32)
+    p_dw = hg.bake_dw_plain(table3, k_grad, masks)
+    torch.cuda.synchronize()
+    dt_excess = float(((k_dt - p_dt).abs() - 1e-5 * abs_dt - 1e-7).max())
+    dt_err = float((k_dt - p_dt).abs().max())
+    g_err = float((k_grad - p_grad).abs().max())
+    dw_rel = float(((k_dw - p_dw).abs() / p_dw.abs()).max())
+    dx_rel = float((k_dxyz - p_dxyz).abs().max() / p_dxyz.abs().max())
+    inb = int((((xyz + 1.0) / 2.0 >= 0) & ((xyz + 1.0) / 2.0 <= 1))
+              .all(-1).sum())
+    log(f'[K3] {n} points ({inb} in bounds), spec {spec.num_levels} x '
+        f'{slots} x {spec.level_dim}')
+    log(f'[K3] G (scatter) max abs err {g_err:.3g}; dT max abs err '
+        f'{dt_err:.3g}; tolerance 1e-5 x (sum of |w g| '
+        f'into the slot, plain path) + 1e-7, because float32 atomics add in '
+        f'a run-dependent order: worst margin {dt_excess:.3g} (<= 0 passes)')
+    log(f'[K3] dw max rel err {dw_rel:.3g}; tolerance 1e-5 (float64 sums '
+        f'on both sides, the kernel in a fixed block order)')
+    log(f'[K3] dxyz max err / max|dxyz| {dx_rel:.3g}; tolerance 1e-4 '
+        f'(float32 atomics over the 16 levels)')
+    assert dt_excess <= 0, 'K3 dT differs from plain'
+    assert dw_rel <= 1e-5, 'K3 dw differs from plain'
+    assert dx_rel <= 1e-4, 'K3 dxyz differs from plain'
+
+    t_enc = median_ms(lambda: kernels.hash_encode_bwd(
+        g, xyz, scales, off, 1.0, oob, slots))
+    t_enc_plain = median_ms(lambda: hg.encode_bwd_plain(
+        g, xyz, scales, off, 1.0, oob, slots))
+    t_dt = median_ms(lambda: kernels.hash_bake(k_grad, masks32, weights))
+    t_dt_plain = median_ms(lambda: hg.bake_plain(k_grad, masks, weights))
+    t_dw = median_ms(lambda: kernels.hash_bake_dw(table3, k_grad, masks32))
+    t_dw_plain = median_ms(lambda: hg.bake_dw_plain(table3, k_grad, masks))
+    tbytes = table3.numel() * 4
+    # scatter: g rows of in-bounds points and xyz read once, G written once
+    enc_bound = bound_ms(inb * spec.output_dim * 4 + n * 12 + tbytes,
+                         inb * spec.num_levels * 8 * spec.level_dim * 2)
+    dt_bound = bound_ms(2 * tbytes, table3.numel() * masks.shape[1] * 2)
+    dw_bound = bound_ms(2 * tbytes, table3.numel() * masks.shape[1] * 2)
+    log(f'[K3] (a) scatter {t_enc:.3f} ms (plain {t_enc_plain:.2f} ms, bound '
+        f'{enc_bound[0]:.3f} ms); (b) dT bake {t_dt:.3f} ms (plain '
+        f'{t_dt_plain:.2f}); (c) dw {t_dw:.3f} ms (plain {t_dw_plain:.2f}, '
+        f'bound {dw_bound[0]:.3f} ms)')
+    return dict(points=n, in_bounds=inb,
+                hash_encode_bwd=(g_err, t_enc, t_enc_plain,
+                                 *enc_bound),
+                hash_bake_bwd=(dt_err, t_dt, t_dt_plain, *dt_bound),
+                hash_bake_dw=(dw_rel, t_dw, t_dw_plain, *dw_bound))
+
+
+def train_path(torch, kernels, cfg, world, voxel, dev):
+    """Phase 7: the training step at the flagship training width."""
+    from scenedreamer_tpu_torch.data.synthetic import make_batch
+    from scenedreamer_tpu_torch.models.discriminator import \
+        GANcraftDiscriminator
+    from scenedreamer_tpu_torch.models.generator import SceneDreamerGenerator
+    from scenedreamer_tpu_torch.train.losses import PerceptualLoss
+    from scenedreamer_tpu_torch.train.trainer import GANTrainer
+    gen_model = SceneDreamerGenerator(cfg, seed=SEED).to(dev)
+    dis = GANcraftDiscriminator(num_labels=cfg.num_reduced_labels,
+                                num_filters=128, seed=SEED).to(dev)
+    trainer = GANTrainer(gen_model, dis, world.dims,
+                         perceptual=PerceptualLoss(seed=SEED).to(dev))
+    draws = torch.Generator(device=dev).manual_seed(SEED)
+    hw = TRAIN_CROP + cfg.pad
+    watched = {'hash_encoder.embeddings': gen_model.hash_encoder.embeddings,
+               'world_encoder.fc2.weight': gen_model.world_encoder.fc2.weight,
+               'fpse.enc1.weight': dis.fpse.enc1.weight}
+    before = {k: v.detach().clone() for k, v in watched.items()}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    metrics, step_s = [], []
+    for i in range(1 + TRAIN_STEPS + 1):
+        batch = make_batch(world, batch_size=1, height=hw, width=hw,
+                           max_samples=cfg.num_blocks_early_stop,
+                           pad=cfg.pad, seed=SEED + i, device=dev,
+                           voxel=voxel)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if i <= TRAIN_STEPS:
+            metrics.append(trainer.train_step_shared(batch, draws))
+        else:
+            metrics.append(trainer.train_step(batch, draws))
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = len(step_s)
+    for i, m in enumerate(metrics):
+        log(f'[train] step {i} ({"shared" if i <= TRAIN_STEPS else "two-forward"})'
+            f' {step_s[i]:.3f} s: ' + ', '.join(f'{k} {v:.4g}'
+                                                 for k, v in m.items()))
+        for k, v in m.items():
+            assert math.isfinite(v), f'non-finite {k} at step {i}'
+    moved = {k: float((v.detach() - before[k]).abs().max())
+             for k, v in watched.items()}
+    log(f'[train] parameter change (max abs): {moved}')
+    for k, v in moved.items():
+        assert v > 0, f'{k} did not move'
+    spi = statistics.mean(step_s[1:1 + TRAIN_STEPS])
+    log(f'[train] {spi:.3f} s/iteration (train_step_shared, mean of '
+        f'{TRAIN_STEPS} after one warm-up; {step_s}), {hw * hw / spi:.0f} '
+        f'rays/s forward + backward at {hw}x{hw} rays, {cfg.num_samples} '
+        f'samples; train_step {step_s[-1]:.3f} s; peak memory '
+        f'{peak_gb:.1f} GB; launches {counts} over {steps} steps')
+    for name in ('dda', 'hash_bake', 'hash_encode', 'hash_encode_bwd',
+                 'hash_bake_dw'):
+        assert counts[name] > 0, f'kernel {name} never launched in training'
+    return dict(counts=counts, steps=steps, s_per_iter=spi,
+                peak_gb=peak_gb, rays=hw * hw)
+
+
+def kernel_rows(serving, k3, train):
+    """The `kernels` JSON rows: K1, K2a, K2b on the serving path and
+    K3a-c on the training path, with launches per frame and per step."""
+    counts, tcounts = serving['counts'], train['counts']
+
+    def row(name, source, replaces, err, ms, plain, bound, by, launches,
+            counter, **extra):
+        return dict(name=name, route='cuda', source=source,
+                    replaces=replaces, launches=launches, max_abs_err=err,
+                    ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                    library_ms=None,
+                    launches_per_frame=counts[counter] / serving['n_frames']
+                    if counter in counts and name != 'hash_bake_bwd' else 0,
+                    launches_per_step=tcounts[counter] / train['steps'],
+                    **extra)
+
+    ms, errs, extra = serving['ms'], serving['errs'], serving['extra']
+    fwd = 'scenedreamer_tpu_torch/csrc/hashgrid_fwd.cu'
+    bwd = 'scenedreamer_tpu_torch/csrc/hashgrid_bwd.cu'
+    return [
+        row('dda', 'scenedreamer_tpu_torch/csrc/dda.cu',
+            'scenedreamer_tpu/ops/ray_voxel.py:456', errs['dda'],
+            *ms['dda'], counts['dda'], 'dda', **extra['dda']),
+        row('hash_bake', fwd, 'scenedreamer_tpu/ops/hashgrid.py:626',
+            errs['hash_bake'], *ms['hash_bake'], counts['hash_bake'],
+            'hash_bake'),
+        row('hash_encode', fwd, 'scenedreamer_tpu/ops/hashgrid.py:848',
+            errs['hash_encode'], *ms['hash_encode'], counts['hash_encode'],
+            'hash_encode', **extra['hash_encode']),
+        row('hash_encode_bwd', bwd, 'scenedreamer_tpu/ops/hashgrid.py:361',
+            *k3['hash_encode_bwd'], tcounts['hash_encode_bwd'],
+            'hash_encode_bwd', points=k3['points']),
+        # K3 (b) is K2a's kernel on G: one launch per encode backward,
+        # counted by the hash_bake counter
+        row('hash_bake_bwd', fwd, 'scenedreamer_tpu/ops/hashgrid.py:642',
+            *k3['hash_bake_bwd'], tcounts['hash_encode_bwd'],
+            'hash_encode_bwd', counted_as='hash_bake'),
+        row('hash_bake_dw', bwd, 'scenedreamer_tpu/ops/hashgrid.py:642',
+            *k3['hash_bake_dw'], tcounts['hash_bake_dw'], 'hash_bake_dw'),
+    ]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -81,6 +288,7 @@ def main():
     sys.path.insert(0, REPO)
     import numpy as np
     from scenedreamer_tpu_torch import kernels
+    from scenedreamer_tpu_torch.data.synthetic import make_batch
     from scenedreamer_tpu_torch.models.generator import (
         GeneratorConfig, SceneDreamerGenerator)
     from scenedreamer_tpu_torch.ops import hashgrid as hg
@@ -209,8 +417,10 @@ def main():
         assert img.shape == RES + (3,), img.shape
         assert np.isfinite(img).all(), 'non-finite frame'
         assert np.abs(img).max() <= 1.0, 'frame outside [-1, 1]'
-    for name, n in counts.items():
-        assert n > 0, f'kernel {name} never launched on the main path'
+    for name in ('dda', 'hash_bake', 'hash_encode'):
+        assert counts[name] > 0, f'kernel {name} never launched on the main path'
+    for name in ('hash_encode_bwd', 'hash_bake_dw'):
+        assert counts[name] == 0, f'the serving path launched {name}'
 
     renderer = TiledRenderer(model, world, num_samples=SAMPLES,
                              num_blocks_early_stop=M, pad=PAD,
@@ -278,26 +488,31 @@ def main():
         f'{enc_ms:.3f} ms (plain {enc_plain_ms:.1f} ms), {rows_read} distinct '
         f'rows, gather-traffic bound {gather_ms:.3f} ms')
 
-    def row(name, source, replaces, err, ms, plain, bound, by, **extra):
-        return dict(name=name, route='cuda', source=source,
-                    replaces=replaces, launches=counts[name],
-                    launches_per_frame=counts[name] / n_frames,
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                    bound_by=by, library_ms=None, **extra)
+    serving = dict(counts=counts, n_frames=n_frames, errs=dict(
+        dda=dda_err, hash_bake=bake_err, hash_encode=enc_err), ms=dict(
+        dda=(dda_ms, dda_plain_ms, dda_bound, dda_by),
+        hash_bake=(bake_ms, bake_plain_ms, bake_bound, bake_by),
+        hash_encode=(enc_ms, enc_plain_ms, enc_bound, enc_by)),
+        extra=dict(dda=dict(rays=r_rays, axis_steps=steps_total),
+                   hash_encode=dict(points=n_pts, gather_bound_ms=gather_ms)))
+    del table, k_baked, p_baked, k_enc, p_enc, table3, renderer, model
+    torch.cuda.empty_cache()
 
-    table_rows = [
-        row('dda', 'scenedreamer_tpu_torch/csrc/dda.cu',
-            'scenedreamer_tpu/ops/ray_voxel.py:456', dda_err, dda_ms,
-            dda_plain_ms, dda_bound, dda_by, rays=r_rays,
-            axis_steps=steps_total),
-        row('hash_bake', 'scenedreamer_tpu_torch/csrc/hashgrid_fwd.cu',
-            'scenedreamer_tpu/ops/hashgrid.py:626', bake_err, bake_ms,
-            bake_plain_ms, bake_bound, bake_by),
-        row('hash_encode', 'scenedreamer_tpu_torch/csrc/hashgrid_fwd.cu',
-            'scenedreamer_tpu/ops/hashgrid.py:848', enc_err, enc_ms,
-            enc_plain_ms, enc_bound, enc_by, points=n_pts,
-            gather_bound_ms=gather_ms),
-    ]
+    # 6. K3 vs plain -------------------------------------------------------
+    tcfg = GeneratorConfig()
+    tspec = tcfg.hash_spec
+    hw = TRAIN_CROP + tcfg.pad
+    batch = make_batch(world, batch_size=1, height=hw, width=hw,
+                       max_samples=tcfg.num_blocks_early_stop, pad=tcfg.pad,
+                       seed=SEED, device=dev, voxel=voxel)
+    k3 = k3_check(torch, kernels, hg, sample_depth, fma, tspec, tcfg, batch,
+                  world.dims, dev)
+    torch.cuda.empty_cache()
+
+    # 7. the training path -------------------------------------------------
+    train = train_path(torch, kernels, tcfg, world, voxel, dev)
+
+    table_rows = kernel_rows(serving, k3, train)
     log(json.dumps({'kernels': table_rows}))
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',

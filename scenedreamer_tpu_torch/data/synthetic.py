@@ -1,0 +1,83 @@
+"""Synthetic world + training batch builders for tests, smoke runs and
+dry runs.
+
+Counterpart of `scenedreamer_tpu/data/synthetic.py` (the reference's
+batch contract of `Generator._get_batch` + `sample_camera`,
+`imaginaire/generators/scenedreamer.py:80-283`): per sample a random
+tour camera, its rays and their ray-voxel intersections (kernel K1 on
+CUDA), the world encoder's BEV fields, and random stand-ins for the
+pseudo ground truth and the real images, with reduced segmentation
+masks from the first-hit voxel ids. Real training replaces the
+stand-ins with SPADE outputs and photos.
+
+The numpy draws happen in the JAX package's order from one
+`numpy.random.default_rng(seed)`, so both packages build the same batch.
+Tensors are NHWC on `device`.
+"""
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from scenedreamer_tpu_torch.ops.ray_voxel import (camera_rays,
+                                                  ray_voxel_intersection)
+from scenedreamer_tpu_torch.scene import camera as cam
+from scenedreamer_tpu_torch.scene import terrain, voxel_world
+from scenedreamer_tpu_torch.scene.labels import mc2reduced
+
+
+def make_world(size=128, seed=42, fill_depth=8, n_voronoi=40,
+               relax_iters=2, boundary_detect=8):
+    maps = terrain.generate_terrain(size=size, seed=seed,
+                                    n_voronoi=n_voronoi,
+                                    relax_iters=relax_iters)
+    return voxel_world.build_voxel_world(
+        maps.height_map, maps.semantic_map, maps.tree_map,
+        fill_depth=fill_depth, seed=seed, boundary_detect=boundary_detect)
+
+
+def make_batch(world, batch_size=2, height=34, width=34, max_samples=4,
+               pad=2, num_labels=12, seed=0, include_gan_data=True,
+               fov=26.0, device='cpu', voxel=None):
+    """Build a training batch: a dict of NHWC tensors on `device`
+    (`voxel`: the world's grid already on the device, to reuse one
+    upload across batches)."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    if voxel is None:
+        voxel = torch.from_numpy(world.voxel).to(dev)
+    cols = {k: [] for k in ('voxel_id', 'depth', 'hit_mask', 'raydirs',
+                            'cam_ori')}
+    f = 0.5 / np.tan(0.5 * np.deg2rad(fov))
+    for _ in range(batch_size):
+        ori, d, up, _f = cam.rand_camera_pose_tour(world, rng)
+        rd = camera_rays(d, up, f * (width - 1),
+                         ((height - 1) / 2, (width - 1) / 2),
+                         (height, width), device=dev)
+        ori = torch.as_tensor(ori, dtype=torch.float32, device=dev)
+        vid, dep, hit = ray_voxel_intersection(voxel, ori, rd.reshape(-1, 3),
+                                               max_samples)
+        cols['voxel_id'].append(vid.reshape(height, width, max_samples))
+        cols['depth'].append(dep.reshape(height, width, max_samples, 2))
+        cols['hit_mask'].append(hit.reshape(height, width, max_samples))
+        cols['raydirs'].append(rd)
+        cols['cam_ori'].append(ori)
+    data = {k: torch.stack(v) for k, v in cols.items()}
+    for name, field in (('height_field', world.height_field),
+                        ('semantic_field', world.semantic_field)):
+        data[name] = torch.from_numpy(np.repeat(
+            field.transpose(0, 2, 3, 1), batch_size, 0)).to(dev)
+    if include_gan_data:
+        crop_h, crop_w = height - pad, width - pad
+        for name in ('pseudo_real_img', 'images'):
+            data[name] = torch.from_numpy(rng.uniform(
+                -1, 1, (batch_size, crop_h, crop_w, 3)).astype(
+                    np.float32)).to(dev)
+        # reduced-label masks from the first-hit voxel ids, cropped like
+        # the images (reference scenedreamer.py:246-281)
+        p0, p1 = pad // 2, pad - pad // 2
+        reduced = mc2reduced(data['voxel_id'][..., 0], ign2dirt=True)
+        reduced = reduced[:, p0:height - p1, p0:width - p1]
+        onehot = F.one_hot(reduced, num_labels).to(torch.float32)
+        data['fake_masks'] = onehot
+        data['real_masks'] = onehot
+    return data

@@ -32,7 +32,8 @@ import torch
 from scenedreamer_tpu_torch.utils.build import finish_compile, start_compile
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
-SOURCES = {'dda': 'dda.cu', 'hashgrid_fwd': 'hashgrid_fwd.cu'}
+SOURCES = {'dda': 'dda.cu', 'hashgrid_fwd': 'hashgrid_fwd.cu',
+           'hashgrid_bwd': 'hashgrid_bwd.cu'}
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-Xptxas=-v', '-shared', '-Xcompiler',
               '-fPIC']
@@ -40,7 +41,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _LOCK = threading.Lock()
 _LIBS = {}
 BUILD_LOGS = {}     # nvcc output (ptxas registers / spills) per source
-_LAUNCHES = {'dda': 0, 'hash_bake': 0, 'hash_encode': 0}
+_LAUNCHES = {'dda': 0, 'hash_bake': 0, 'hash_encode': 0,
+             'hash_encode_bwd': 0, 'hash_bake_dw': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,7 +54,11 @@ _SIGNATURES = {
     'sd_hash_bake': [_P, _P, _P, _P, _I, _LL, _I, _I, _P],
     'sd_hash_encode': [_P, _P, _P, _P, _LL, _I, _LL, _I, _F, _F, _F, _I,
                        _P],
+    'sd_hash_encode_bwd': [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _F,
+                           _F, _F, _P],
+    'sd_hash_bake_dw': [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
 }
+DW_BLOCKS = 256     # blocks per level of the dw reduction (K3 (c))
 
 
 def launch_counts():
@@ -182,3 +188,60 @@ def hash_encode(baked, xyz, scales, offset, bound, scene_oob):
                 float(bound), float(2.0 * bound), float(offset),
                 int(bool(scene_oob)))
     return out
+
+
+def hash_encode_bwd(g, xyz, scales, offset, bound, scene_oob, slots,
+                    baked=None):
+    """K3 (a). g [N, L*C] float32 cotangent of `hash_encode`; xyz [N, 3];
+    scales [L] -> (grad [L, slots, C] float32, the scatter of g into the
+    baked table's rows, and dxyz [N, 3] when `baked` [L, slots, C] is
+    given, else None)."""
+    _require(g, torch.float32, 'g', 2)
+    _require(xyz, torch.float32, 'xyz', 2)
+    _require(scales, torch.float32, 'scales', 1)
+    lv, n = scales.shape[0], xyz.shape[0]
+    c = g.shape[1] // lv
+    if c not in (4, 8) or g.shape != (n, lv * c) or xyz.shape[1] != 3 \
+            or slots & (slots - 1):
+        raise ValueError('encode backward needs C in (4, 8), g [N, L*C], '
+                         '[N, 3] points and a power-of-two slot count')
+    if baked is not None:
+        _require(baked, torch.float32, 'baked', 3)
+        if baked.shape != (lv, slots, c):
+            raise ValueError('baked must be [L, slots, C]')
+    dev = xyz.device
+    grad = torch.zeros((lv, slots, c), dtype=torch.float32, device=dev)
+    dxyz = torch.zeros((n, 3), dtype=torch.float32, device=dev) \
+        if baked is not None else None
+    if n and not scene_oob:
+        _launch('hashgrid_bwd', 'sd_hash_encode_bwd', 'hash_encode_bwd',
+                dev, g.data_ptr(), xyz.data_ptr(), scales.data_ptr(),
+                baked.data_ptr() if baked is not None else None,
+                grad.data_ptr(),
+                dxyz.data_ptr() if dxyz is not None else None, n, lv,
+                int(slots), c, float(bound), float(2.0 * bound),
+                float(offset))
+    return grad, dxyz
+
+
+def hash_bake_dw(table3, grad, masks):
+    """K3 (c). table3, grad [L, S, C] float32; masks [L, A] int32 ->
+    dw [L, A] float32, dw[l, a] = sum_{j,c} table3[l, j ^ m[l,a], c] *
+    grad[l, j, c] (float64 partial sums in a fixed order)."""
+    _require(table3, torch.float32, 'table', 3)
+    _require(grad, torch.float32, 'grad', 3)
+    _require(masks, torch.int32, 'masks', 2)
+    lv, s, c = table3.shape
+    a = masks.shape[1]
+    if grad.shape != table3.shape or masks.shape[0] != lv or c % 4 \
+            or s & (s - 1) or not 1 <= a <= 8:
+        raise ValueError('bake dw needs equal [L, S, C] tables, C % 4 == 0, '
+                         'a power-of-two S and [L, A<=8] masks')
+    dev = table3.device
+    partial = torch.empty(lv * a * DW_BLOCKS, dtype=torch.float64,
+                          device=dev)
+    dw = torch.empty((lv, a), dtype=torch.float32, device=dev)
+    _launch('hashgrid_bwd', 'sd_hash_bake_dw', 'hash_bake_dw', dev,
+            table3.data_ptr(), grad.data_ptr(), masks.data_ptr(),
+            partial.data_ptr(), dw.data_ptr(), lv, s, c, a, DW_BLOCKS)
+    return dw

@@ -1,5 +1,5 @@
-"""SceneDreamer generator for inference: hash-grid neural field + sky +
-style + render CNN.
+"""SceneDreamer generator: hash-grid neural field + sky + style + render
+CNN, for inference and training.
 
 Counterpart of `scenedreamer_tpu/models/generator.py` (reference
 `imaginaire/generators/scenedreamer.py` on `gancraft_base.py:296-603`):
@@ -11,8 +11,15 @@ the SKYMLP sky dome -> RenderCNN -> tanh.
 Submodule and parameter names are the reference's (`hash_encoder.embeddings`,
 `render_net.fc_1`, `world_encoder.conv_blocks.<i>.layers.0`,
 `denoiser.conv2a`, ...). Tensors keep the JAX package's layouts (NHWC
-images, [B, H, W, M] ray arrays). The style encoder, `compact_k` sky-ray
-compaction and the training forward wait for later slices.
+images, [B, H, W, M] ray arrays). `forward` is the training forward
+(reference `scenedreamer.py:432-476`): scene code, style from the VAE
+style encoder (or random), render, refine and crop. Its random draws
+(style, reparameterisation, stratified depths) come from a
+`torch.Generator`; the style draws can be given (`style_eps`) to hold
+the port against another implementation. The hash encode is
+differentiable on both devices (`ops/hashgrid.py`: K2 forward, K3
+backward on CUDA). `compact_k` sky-ray compaction waits for a later
+slice.
 """
 import dataclasses
 
@@ -22,10 +29,12 @@ import torch.nn.functional as F
 
 from scenedreamer_tpu_torch.models.layers import (ConditionalHashGrid,
                                                   RenderCNN, RenderMLP,
-                                                  SKYMLP, StyleMLP)
+                                                  SKYMLP, StyleEncoder,
+                                                  StyleMLP)
 from scenedreamer_tpu_torch.ops.compositing import volume_rendering_relu
 from scenedreamer_tpu_torch.ops.hashgrid import (HashGridSpec, encode_folded,
-                                                 fold_scene, foldable)
+                                                 fold_scene, foldable,
+                                                 init_hashgrid_table)
 from scenedreamer_tpu_torch.ops.pe import pe_out_dim, positional_encoding
 from scenedreamer_tpu_torch.ops.rounding import fma
 from scenedreamer_tpu_torch.ops.sampling import sample_depth
@@ -101,13 +110,12 @@ class HashEncoder(nn.Module):
 
     def __init__(self, spec):
         super().__init__()
-        self.embeddings = nn.Parameter(
-            torch.empty(spec.table_size, spec.level_dim))
-        self.reset_parameters()
+        self.spec = spec
+        self.embeddings = nn.Parameter(init_hashgrid_table(spec))
 
     def reset_parameters(self, generator=None):
         with torch.no_grad():
-            self.embeddings.uniform_(-1e-4, 1e-4, generator=generator)
+            self.embeddings.copy_(init_hashgrid_table(self.spec, generator))
 
 
 # config values the JAX package's shipped configs use and the port
@@ -119,7 +127,9 @@ _FIXED = dict(dtype=torch.float32, raw_noise_std=0.0, clip_feat_map=True,
 
 
 class SceneDreamerGenerator(nn.Module):
-    """Inference generator. `seed` makes the random init reproducible."""
+    """The generator. `seed` makes the random init reproducible (the
+    style encoder, registered last, draws after every other module, so
+    the serving modules' init is that of a generator without it)."""
 
     def __init__(self, cfg=GeneratorConfig(), seed=0):
         super().__init__()
@@ -141,6 +151,9 @@ class SceneDreamerGenerator(nn.Module):
         self.style_net = StyleMLP(c.style_dims, out_dim=c.interm_style_dims)
         self.denoiser = RenderCNN(c.final_feat_dim, c.interm_style_dims,
                                   hidden_channels=256, out_channels=3)
+        self.style_encoder = StyleEncoder(
+            c.style_dims, num_filters=c.style_enc_num_filters,
+            kernel_size=c.style_enc_kernel_size)
         gen = torch.Generator().manual_seed(seed)
         for mod in self.modules():
             if mod is not self and hasattr(mod, 'reset_parameters'):
@@ -154,6 +167,10 @@ class SceneDreamerGenerator(nn.Module):
         """BEV fields (NHWC) -> [B, 2] scene code."""
         return self.world_encoder(height_field, semantic_field)
 
+    def encode_style(self, image, eps=None, generator=None):
+        """NHWC image -> (mu, logvar, z)."""
+        return self.style_encoder(image, eps=eps, generator=generator)
+
     def style_forward(self, z):
         return self.style_net(z)
 
@@ -166,8 +183,9 @@ class SceneDreamerGenerator(nn.Module):
 
     def bake_hash(self, global_enc):
         """Fold the hash table for each scene code of the batch
-        (kernel K2 (a) on CUDA). A renderer bakes once per frame and
-        passes the result to `render_pixels(baked=...)`."""
+        (kernel K2 (a) on CUDA; differentiable in the table and the
+        scene code). A renderer bakes once per frame and passes the
+        result to `render_pixels(baked=...)`."""
         spec = self.cfg.hash_spec
         if not foldable(spec, global_enc.shape[-1]):
             raise NotImplementedError(
@@ -297,3 +315,44 @@ class SceneDreamerGenerator(nn.Module):
         net_out [B, H, W, C] -> (image [B, H, W, 3] in [-1, 1], raw)."""
         raw = self.denoiser(net_out, z)
         return torch.tanh(raw), raw
+
+    def forward(self, data, voxel_dims, random_style=False, pad=None,
+                generator=None, style_eps=None):
+        """The training forward (`scenedreamer.py:432-476`).
+
+        data (NHWC): voxel_id [B,H,W,M] int; depth [B,H,W,M,2];
+        hit_mask [B,H,W,M]; raydirs [B,H,W,3]; cam_ori [B,3];
+        height_field [B,S,S,1]; semantic_field [B,S,S,11];
+        pseudo_real_img [B,h,w,3] (style-encoded unless random_style).
+        generator: `torch.Generator` of the draws (style z or the
+        reparameterisation eps first, then the stratified depths);
+        style_eps [B, style_dims] replaces the style draws.
+
+        Returns dict with fake_images [B, H-pad, W-pad, 3] in [-1, 1],
+        fake_images_raw, mu, logvar (None with a random style) and the
+        `render_pixels` dict.
+        """
+        c = self.cfg
+        pad = c.pad if pad is None else pad
+        b = data['voxel_id'].shape[0]
+        global_enc = self.world_code(data['height_field'],
+                                     data['semantic_field'])
+        mu = logvar = None
+        if random_style or 'pseudo_real_img' not in data:
+            z = style_eps if style_eps is not None else torch.randn(
+                (b, c.style_dims), generator=generator,
+                device=global_enc.device)
+        else:
+            mu, logvar, z = self.encode_style(data['pseudo_real_img'],
+                                              eps=style_eps,
+                                              generator=generator)
+        z = self.style_forward(z)
+        out = self.render_pixels(
+            data['voxel_id'], data['depth'], data['hit_mask'],
+            data['raydirs'], data['cam_ori'], z, global_enc, voxel_dims,
+            generator=generator)
+        fake, fake_raw = self.refine(out['net_out'], z)
+        if pad:
+            fake = fake[:, pad // 2:-(pad // 2), pad // 2:-(pad // 2), :]
+        return {'fake_images': fake, 'fake_images_raw': fake_raw,
+                'mu': mu, 'logvar': logvar, 'render': out}

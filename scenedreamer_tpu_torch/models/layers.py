@@ -7,6 +7,8 @@ module and parameter names, so a reference state dict loads as is:
   * StyleMLP (`gancraft_base.py:91-126`), SKYMLP (`gancraft_base.py:129-169`)
   * ConditionalHashGrid world encoder (`model_utils/layers.py:6-55`)
   * RenderCNN (`gancraft_base.py:172-225`)
+  * StyleEncoder (`gancraft_base.py:228-293`), with the JAX package's
+    logvar clamp
 
 Tensors are channels-last at every public call (NHWC images, [B, ..., C]
 features); the convolutions permute to NCHW inside. Each module has
@@ -19,6 +21,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from scenedreamer_tpu_torch.ops.resize import resize_bilinear
 
 
 def leaky_relu(x):
@@ -239,3 +243,46 @@ class RenderCNN(nn.Module):
         y = leaky_relu(y * (a1 + 1.0) + b1)
         y = y + self.conv4b(leaky_relu(self.conv4a(y)))
         return self.conv4(leaky_relu(y)).permute(0, 2, 3, 1)
+
+
+class StyleEncoder(nn.Module):
+    """Image -> (mu, logvar, z), the VAE style encoder (reference
+    gancraft_base.py:228-293). Input NHWC [B, 256, 256, 3]; other sizes
+    are resized to 256 first as `jax.image.resize(..., 'bilinear')`
+    does. Six stride-2 3x3 convs (`layer1..6`), then `fc_mu` / `fc_var`
+    on the NCHW flatten (the reference's order; the JAX package flattens
+    NHWC and its converter permutes the rows). logvar is clamped to
+    [-10, logvar_clamp] (the JAX package's guard against an e^logvar
+    overflow; 0 disables it)."""
+
+    def __init__(self, style_dims=128, num_filters=64, kernel_size=3,
+                 logvar_clamp=4.0):
+        super().__init__()
+        nf = num_filters
+        chans = [3, nf, 2 * nf, 4 * nf, 8 * nf, 8 * nf, 8 * nf]
+        for i in range(6):
+            setattr(self, f'layer{i + 1}',
+                    Conv(chans[i], chans[i + 1], kernel_size, stride=2,
+                         padding=kernel_size // 2))
+        self.fc_mu = Dense(8 * nf * 4 * 4, style_dims)
+        self.fc_var = Dense(8 * nf * 4 * 4, style_dims)
+        self.logvar_clamp = logvar_clamp
+
+    def forward(self, x, eps=None, generator=None):
+        """x [B, H, W, 3]; eps [B, style_dims] standard normal draws of
+        the reparameterisation (drawn from `generator` when None)."""
+        if x.shape[1] != 256 or x.shape[2] != 256:
+            x = resize_bilinear(x, (256, 256))
+        y = x.permute(0, 3, 1, 2)
+        for i in range(6):
+            y = leaky_relu(getattr(self, f'layer{i + 1}')(y))
+        y = y.reshape(y.shape[0], -1)
+        mu = self.fc_mu(y)
+        logvar = self.fc_var(y)
+        if self.logvar_clamp > 0:
+            logvar = torch.clamp(logvar, -10.0, self.logvar_clamp)
+        std = torch.exp(0.5 * logvar)
+        if eps is None:
+            eps = torch.randn(std.shape, generator=generator,
+                              device=std.device, dtype=std.dtype)
+        return mu, logvar, mu + eps * std

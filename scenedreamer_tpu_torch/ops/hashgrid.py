@@ -1,11 +1,11 @@
-"""Multiresolution hash-grid encoding, scene-folded forward.
+"""Multiresolution hash-grid encoding, scene-folded, forward and backward.
 
 Counterpart of `scenedreamer_tpu/ops/hashgrid.py` (reference CUDA
 `gridencoder/src/gridencoder.cu` + `gridencoder/grid.py`): the same
 `HashGridSpec` (per-level resolution, table offsets, xor `fast_hash`),
-`foldable`, and the forward of `hashgrid_encode_folded`, which the
-flagship generator always takes (D=5, every level hashed at one
-power-of-two table size).
+`foldable`, `init_hashgrid_table`, and `hashgrid_encode_folded` with its
+gradients, which the flagship generator always takes (D=5, every level
+hashed at one power-of-two table size).
 
 Every point of a world shares its 2-D scene code, so per level the four
 scene-corner rows fold into one baked table,
@@ -17,11 +17,18 @@ per frame and encode many ray chunks against it:
     folded = fold_scene(spec, table, scene)     # bake: kernel K2 (a)
     feats = encode_folded(spec, folded, xyz)    # encode: kernel K2 (b)
 
-For CUDA tensors both steps launch the kernels of `csrc/hashgrid_fwd.cu`;
-for CPU tensors they run the plain PyTorch versions below (index
-arithmetic + gathers, the same float operations in the same order).
-The backward (K3), the unfolded general path (K4) and the 'paired'
-variant (K5) are not ported yet.
+Both steps are `torch.autograd.Function`s (`HashBake`, `HashEncode`),
+so gradients reach the table, the scene code (through the fold weights,
+which `scene_fold_weights` computes in plain differentiable torch) and,
+when asked, the points. Their backward is K3: `HashEncode` scatters the
+output cotangent into the baked table's rows (K3 (a), and the gradient
+through frac for the points), `HashBake` turns that into the table
+gradient with the bake itself (K3 (b): xor is its own inverse) and into
+the fold-weight gradient (K3 (c)). For CUDA tensors every step launches
+the kernels of `csrc/hashgrid_fwd.cu` and `csrc/hashgrid_bwd.cu`; for
+CPU tensors it runs the plain PyTorch versions below (index arithmetic,
+gathers and `index_add_`, the same float operations). The unfolded
+general path (K4) and the 'paired' variant (K5) are not ported yet.
 """
 import collections
 import dataclasses
@@ -119,6 +126,14 @@ def foldable(spec, scene_dim=2):
     return size & (size - 1) == 0 and spec.input_dim > scene_dim
 
 
+def init_hashgrid_table(spec, generator=None, device=None):
+    """A [table_size, C] table uniform in [-1e-4, 1e-4] (the JAX
+    package's `init_hashgrid_table`, reference grid.py:136)."""
+    table = torch.empty((spec.table_size, spec.level_dim),
+                        dtype=torch.float32, device=device)
+    return table.uniform_(-1e-4, 1e-4, generator=generator)
+
+
 def _scales(spec, device):
     return torch.tensor([spec.level_resolution(lv)[1]
                          for lv in range(spec.num_levels)],
@@ -165,16 +180,46 @@ def scene_fold_weights(spec, scene, bound=1.0):
 
 
 def fold_scene(spec, table, scene, bound=1.0):
-    """Bake the [table_size, C] table for one scene code [Ds]."""
+    """Bake the [table_size, C] table for one scene code [Ds]
+    (differentiable in the table and the scene code)."""
     masks, weights, scene_oob = scene_fold_weights(spec, scene, bound)
     table3 = table.reshape(spec.num_levels, -1, spec.level_dim)
-    if table.is_cuda:
-        baked = kernels.hash_bake(table3.contiguous(),
-                                  masks.to(torch.int32).contiguous(),
-                                  weights.contiguous())
-    else:
-        baked = bake_plain(table3, masks, weights)
-    return FoldedTable(baked, scene_oob)
+    return FoldedTable(HashBake.apply(table3, weights, masks), scene_oob)
+
+
+def _bake(table3, masks, weights):
+    if table3.is_cuda:
+        return kernels.hash_bake(table3.contiguous(),
+                                 masks.to(torch.int32).contiguous(),
+                                 weights.contiguous())
+    return bake_plain(table3, masks, weights)
+
+
+class HashBake(torch.autograd.Function):
+    """baked = bake(table3 [L,S,C], weights [L,A]; masks [L,A]).
+    Forward K2 (a); backward dT = bake(dB) (K3 (b), the same kernel) and
+    dw = bake_dw(T, dB) (K3 (c))."""
+
+    @staticmethod
+    def forward(ctx, table3, weights, masks):
+        ctx.save_for_backward(table3, weights, masks)
+        return _bake(table3, masks, weights.detach())
+
+    @staticmethod
+    def backward(ctx, grad):
+        table3, weights, masks = ctx.saved_tensors
+        grad = grad.contiguous()
+        d_table = d_weights = None
+        if ctx.needs_input_grad[0]:
+            d_table = _bake(grad, masks, weights.detach())
+        if ctx.needs_input_grad[1]:
+            if grad.is_cuda:
+                d_weights = kernels.hash_bake_dw(
+                    table3.detach().contiguous(), grad,
+                    masks.to(torch.int32).contiguous())
+            else:
+                d_weights = bake_dw_plain(table3.detach(), grad, masks)
+        return d_table, d_weights, None
 
 
 def bake_plain(table3, masks, weights):
@@ -191,15 +236,46 @@ def bake_plain(table3, masks, weights):
 
 def encode_folded(spec, folded, xyz, bound=1.0):
     """Encode points [N, 3] in [-bound, bound] against a baked table;
-    returns [N, L*C] (zeros for out-of-bounds points)."""
+    returns [N, L*C] (zeros for out-of-bounds points). Differentiable in
+    the baked table and the points."""
     if xyz.shape[-1] != 3:
         raise ValueError('the folded encode takes 3-D points')
-    scales = _scales(spec, xyz.device)
-    if xyz.is_cuda:
-        return kernels.hash_encode(folded.baked, xyz.contiguous(), scales,
-                                   _offset(spec), bound, folded.scene_oob)
-    return encode_plain(folded.baked, xyz, scales, _offset(spec), bound,
-                        folded.scene_oob)
+    return HashEncode.apply(folded.baked, xyz, _scales(spec, xyz.device),
+                            _offset(spec), bound, folded.scene_oob)
+
+
+class HashEncode(torch.autograd.Function):
+    """out = encode(baked [L,S,C], xyz [N,3]). Forward K2 (b); backward
+    K3 (a): the cotangent scattered into the baked table's rows and, when
+    the points need it, the gradient through frac (the baked table is
+    kept for that case only)."""
+
+    @staticmethod
+    def forward(ctx, baked, xyz, scales, offset, bound, scene_oob):
+        ctx.geom = (offset, bound, scene_oob, baked.shape[1])
+        keep = baked if ctx.needs_input_grad[1] else None
+        ctx.save_for_backward(xyz, scales, keep)
+        if xyz.is_cuda:
+            return kernels.hash_encode(baked.detach(), xyz.contiguous(),
+                                       scales, offset, bound, scene_oob)
+        return encode_plain(baked.detach(), xyz.detach(), scales, offset,
+                            bound, scene_oob)
+
+    @staticmethod
+    def backward(ctx, g):
+        xyz, scales, baked = ctx.saved_tensors
+        offset, bound, scene_oob, slots = ctx.geom
+        if baked is not None:
+            baked = baked.detach().contiguous()
+        if g.is_cuda:
+            d_baked, d_xyz = kernels.hash_encode_bwd(
+                g.contiguous(), xyz.detach().contiguous(), scales, offset,
+                bound, scene_oob, slots, baked)
+        else:
+            d_baked, d_xyz = encode_bwd_plain(g, xyz.detach(), scales,
+                                              offset, bound, scene_oob,
+                                              slots, baked)
+        return d_baked, d_xyz, None, None, None, None
 
 
 def encode_plain(baked, xyz, scales, offset, bound, scene_oob):
@@ -215,27 +291,97 @@ def encode_plain(baked, xyz, scales, offset, bound, scene_oob):
     oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1, keepdim=True)
     outs = []
     for level in range(lv):
-        pos = fma(x01, scales[level], offset)
-        cell = torch.floor(pos)
-        frac = pos - cell
-        u = cell.to(torch.int64)
-        h = [[u[:, d] * PRIMES[d], (u[:, d] + 1) * PRIMES[d]]
-             for d in range(3)]
-        t = [[1.0 - frac[:, d], frac[:, d]] for d in range(3)]
+        rows, ws, _ = _corners(x01, scales[level], offset, s)
         acc = torch.zeros((xyz.shape[0], c), dtype=torch.float32,
                           device=xyz.device)
-        for k in range(8):
-            idx, w = h[0][k & 1], t[0][k & 1]
-            for d in (1, 2):
-                bit = (k >> d) & 1
-                idx = idx ^ h[d][bit]
-                w = w * t[d][bit]
-            acc = acc + w[:, None] * baked[level][idx & (s - 1)]
+        for idx, w in zip(rows, ws):
+            acc = acc + w[:, None] * baked[level][idx]
         outs.append(acc)
     out = torch.cat(outs, dim=-1)
     if scene_oob:
         return torch.zeros_like(out)
     return torch.where(oob, torch.zeros_like(out), out)
+
+
+def _corners(x01, scale, offset, slots):
+    """Per level: the 8 corner rows [N] int64 and weights [N] of each
+    point, in ascending k, and the taps t[d] = (1 - frac_d, frac_d), as
+    the forward computes them."""
+    pos = fma(x01, scale, offset)
+    cell = torch.floor(pos)
+    frac = pos - cell
+    u = cell.to(torch.int64)
+    h = [[u[:, d] * PRIMES[d], (u[:, d] + 1) * PRIMES[d]] for d in range(3)]
+    t = [[1.0 - frac[:, d], frac[:, d]] for d in range(3)]
+    rows, ws = [], []
+    for k in range(8):
+        idx, w = h[0][k & 1], t[0][k & 1]
+        for d in (1, 2):
+            bit = (k >> d) & 1
+            idx = idx ^ h[d][bit]
+            w = w * t[d][bit]
+        rows.append(idx & (slots - 1))
+        ws.append(w)
+    return rows, ws, t
+
+
+def encode_bwd_plain(g, xyz, scales, offset, bound, scene_oob, slots,
+                     baked=None):
+    """Plain version of K3 (a). g [N, L*C] -> (grad [L, slots, C]:
+    grad[l, idx_k] += w_k * g[n, l] over points and corners (`index_add_`
+    per corner in ascending k), dxyz [N, 3] or None). With `baked`, dxyz
+    is the gradient through frac: per level
+    dfrac_d = sum_k gv_k * sign_{k,d} * prod_{d' != d} t_{k,d'} with
+    gv_k = sum_c g_c * baked[idx_k, c], and dxyz = sum_l scale_l *
+    dfrac / (2 bound). Out-of-bounds points give zeros."""
+    lv = scales.shape[0]
+    n, c = xyz.shape[0], g.shape[1] // lv
+    grad = torch.zeros((lv, slots, c), dtype=torch.float32, device=g.device)
+    dx01 = torch.zeros((n, 3), dtype=torch.float32, device=g.device) \
+        if baked is not None else None
+    if scene_oob or n == 0:
+        return grad, dx01
+    x01 = (xyz.to(torch.float32) + bound) / (2.0 * bound)
+    inb = ((x01 >= 0.0) & (x01 <= 1.0)).all(dim=-1, keepdim=True)
+    g = torch.where(inb, g, torch.zeros_like(g))
+    for level in range(lv):
+        rows, ws, t = _corners(x01, scales[level], offset, slots)
+        gl = g[:, level * c:(level + 1) * c]
+        gv = []
+        for idx, w in zip(rows, ws):
+            grad[level].index_add_(0, idx, w[:, None] * gl)
+            if baked is not None:
+                gv.append((gl * baked[level][idx]).sum(dim=-1))
+        if baked is None:
+            continue
+        for d in range(3):
+            s = torch.zeros_like(gv[0])
+            for k in range(8):
+                excl = torch.ones_like(s)
+                for e in range(3):
+                    if e != d:
+                        excl = excl * t[e][(k >> e) & 1]
+                term = gv[k] * excl
+                s = s + term if (k >> d) & 1 else s - term
+            dx01[:, d] += s * scales[level]
+    if dx01 is not None:
+        dx01 = dx01 / (2.0 * bound)
+    return grad, dx01
+
+
+def bake_dw_plain(table3, grad, masks):
+    """Plain version of K3 (c): dw[l, a] = sum_{j,c} table3[l, j ^ m[l,a],
+    c] * grad[l, j, c], in float64 as the kernel sums, rounded to
+    float32."""
+    lv, s, c = table3.shape
+    j = torch.arange(s, device=table3.device)
+    cols = []
+    for a in range(masks.shape[1]):
+        src = (j[None, :] ^ masks[:, a:a + 1].long()).unsqueeze(-1) \
+            .expand(lv, s, c)
+        cols.append((torch.gather(table3, 1, src).double()
+                     * grad.double()).sum(dim=(1, 2)))
+    return torch.stack(cols, dim=-1).float()
 
 
 def hashgrid_encode_folded(spec, table, xyz, scene, bound=1.0):

@@ -1,9 +1,12 @@
-"""Evaluation camera trajectories.
+"""Evaluation camera trajectories and random training poses.
 
-Copy of `EvalCameraController` from `scenedreamer_tpu/scene/camera.py`
-(reference `camctl.py:9-331`): 10 deterministic fly-through patterns
-with terrain-height clearance and asymmetric decay smoothing. The
-random training-pose samplers wait for the training slice.
+Copy of `EvalCameraController` and the random training-pose samplers
+(`neighbor_height`, `rand_camera_pose_{birdseye, firstperson,
+thirdperson, thirdperson2, thirdperson3, tour, insideout}`) from
+`scenedreamer_tpu/scene/camera.py` (reference `camctl.py:9-331` and
+`camctl.py:445-679`): 10 deterministic fly-through patterns with
+terrain-height clearance and asymmetric decay smoothing, and samplers
+that are deterministic given the passed `numpy.random.Generator`.
 
 Host-side numpy; coordinates are [y, x, z] with y up, poses are in the
 world's local (vertically cropped) frame as (ori, dir, up, f) with f a
@@ -17,6 +20,19 @@ _UP = np.array([1.0, 0.0, 0.0], np.float32)
 def _fov_focal(deg):
     """Focal length (as a fraction of image width) for a horizontal FOV."""
     return 0.5 / np.tan(np.deg2rad(deg) / 2.0)
+
+
+def neighbor_height(heightmap, x, z, minheight, neighbor_size=7):
+    """Max terrain height in a (k x k) window around (x, z), floored at
+    `minheight` (+2 clearance, reference `camctl.py:476-486`)."""
+    k = neighbor_size // 2
+    x, z = int(x), int(z)
+    x0, x1 = max(0, x - k), min(heightmap.shape[0], x + k + 1)
+    z0, z1 = max(0, z - k), min(heightmap.shape[1], z + k + 1)
+    if x0 >= x1 or z0 >= z1:
+        return float(minheight)
+    window_max = float(heightmap[x0:x1, z0:z1].max()) + 2.0
+    return max(float(minheight), window_max)
 
 
 def _pose(world, farpoint, nearpoint, up=None):
@@ -172,3 +188,134 @@ class EvalCameraController:
 
     def __iter__(self):
         return iter(self.camera_poses)
+
+
+# --------------------------------------------------------------------------
+# Random training-pose samplers
+# --------------------------------------------------------------------------
+
+def _tilted_up(rng):
+    up = rng.standard_normal(3).astype(np.float32) * 0.02
+    up[0] = 1.0
+    return up / np.linalg.norm(up)
+
+
+def rand_camera_pose_birdseye(world, rng, border=128):
+    """Upper-hemisphere direction looking at a random terrain point."""
+    d = rng.standard_normal(3).astype(np.float32)
+    d /= np.linalg.norm(d)
+    d[0] = -abs(d[0])
+    sy, sx = world.heightmap.shape
+    r0 = rng.random() * (sy - 2 * border) + border
+    r1 = rng.random() * (sx - 2 * border) + border
+    y = world.heightmap[int(r0 + 0.5), int(r1 + 0.5)] \
+        + (rng.random() - 0.5) * 5
+    target = np.array([y, r0, r1], np.float32)
+    ori = target - d * (rng.random() * 100)
+    ori[0] = max(neighbor_height(world.heightmap, ori[1], ori[2], 0,
+                                 neighbor_size=1), ori[0])
+    return world.world2local(ori), d, _UP.copy()
+
+
+def rand_camera_pose_firstperson(world, rng, border=128):
+    sy, sx = world.heightmap.shape
+    r = rng.random(5)
+    p0 = r[0] * (sy - 2 * border) + border
+    p1 = r[1] * (sx - 2 * border) + border
+    y = neighbor_height(world.heightmap, p0, p1, 0) + rng.random() * 15
+    ori = np.array([y, p0, p1], np.float32)
+    ang = r[2] * 2 * np.pi
+    target = np.array([0.0, ori[1] + np.sin(ang) * border * r[4],
+                       ori[2] + np.cos(ang) * border * r[4]], np.float32)
+    target[0] = neighbor_height(world.heightmap, target[1], target[2], 0,
+                                neighbor_size=1) - 2 + r[3] * 10
+    return world.world2local(ori), target - ori, _UP.copy()
+
+
+def _rand_far_near(world, rng, border, far_h_lo=60.0, far_h_rand=40.0,
+                   far_neighbor=5, near_neighbor=1):
+    sy, sx = world.heightmap.shape
+    r = rng.random(2)
+    fx = r[0] * (sy - 2 * border) + border
+    fz = r[1] * (sx - 2 * border) + border
+    fh = far_h_lo + rng.random() * far_h_rand
+    fh = neighbor_height(world.heightmap, fx, fz, fh,
+                         neighbor_size=far_neighbor)
+    far = np.array([fh, fx, fz], np.float32)
+    r = rng.random(2)
+    nx = r[0] * (sy - 2 * border) + border
+    nz = r[1] * (sx - 2 * border) + border
+    nh = neighbor_height(world.heightmap, nx, nz, 65,
+                         neighbor_size=near_neighbor) - 5
+    near = np.array([nh, nx, nz], np.float32)
+    return far, near
+
+
+def rand_camera_pose_thirdperson(world, rng, border=96):
+    far, near = _rand_far_near(world, rng, border)
+    ori, direc, up = _pose(world, far, near)
+    return ori, direc, up
+
+
+def rand_camera_pose_thirdperson2(world, rng, border=48):
+    far, near = _rand_far_near(world, rng, border)
+    ori, direc, _ = _pose(world, far, near)
+    return ori, direc, _tilted_up(rng)
+
+
+def rand_camera_pose_thirdperson3(world, rng, border=64):
+    """Occasional higher aerial poses; wider clearance windows."""
+    fh_rand = 60.0 if rng.random() > 0.8 else 40.0
+    far, near = _rand_far_near(world, rng, border, far_h_rand=fh_rand,
+                               far_neighbor=7, near_neighbor=3)
+    ori, direc, _ = _pose(world, far, near)
+    return ori, direc, _tilted_up(rng)
+
+
+def rand_camera_pose_tour(world, rng):
+    """Orbit-style pose pair around the scene center with random radius /
+    angle / fov (reference `camctl.py:606-640`). Returns (ori, dir, up, f);
+    f is a fraction of image width."""
+    sy, sx = world.heightmap.shape
+    size = min(sy, sx) / 2.0
+    center = (sy / 2.0, sx / 2.0)
+    rnd = rng.random(8)
+    ang = rng.random() * 2 * np.pi
+    far_radius = rnd[0] * 0.8 + 0.2
+    far = np.array([rnd[1] * 30 + 60,
+                    np.sin(ang) * size * far_radius + center[0],
+                    np.cos(ang) * size * far_radius + center[1]], np.float32)
+    far[0] = neighbor_height(world.heightmap, far[1], far[2], far[0])
+    near_rad = far_radius * rnd[2]
+    shift = np.pi * (rnd[3] - 0.5)
+    near = np.array([60 + rnd[4] * 10,
+                     np.sin(ang + shift) * size * near_rad + center[0],
+                     np.cos(ang + shift) * size * near_rad + center[1]],
+                    np.float32)
+    ori, direc, _ = _pose(world, far, near)
+    f = _fov_focal(73 * (rnd[5] * 0.75 + 0.25))
+    return ori, direc, _tilted_up(rng), f
+
+
+def rand_camera_pose_insideout(world, rng):
+    """Looking outward from near the center (reference camctl.py:645-679)."""
+    sy, sx = world.heightmap.shape
+    size = min(sy, sx) / 2.0
+    center = (sy / 2.0, sx / 2.0)
+    rnd = rng.random(8)
+    ang = rng.random() * 2 * np.pi
+    far_radius = rnd[0] * 0.8 + 0.2
+    far = np.array([rnd[1] * 10 + 60,
+                    np.sin(ang) * size * far_radius + center[0],
+                    np.cos(ang) * size * far_radius + center[1]], np.float32)
+    near_rad = far_radius * rnd[2]
+    shift = np.pi * (rnd[3] - 0.5)
+    near = np.array([60 + rnd[4] * 30,
+                     np.sin(ang + shift) * size * near_rad + center[0],
+                     np.cos(ang + shift) * size * near_rad + center[1]],
+                    np.float32)
+    near[0] = neighbor_height(world.heightmap, near[1], near[2], near[0])
+    ori = world.world2local(near)
+    f = _fov_focal(73 * (rnd[5] * 0.75 + 0.25))
+    return ori, far - near, _tilted_up(rng), f
+

@@ -1,4 +1,4 @@
-"""Flax params of the JAX package's generator -> this port's state dict.
+"""Flax variables of the JAX package's models -> this port's state dicts.
 
 The inverse of `convert_scenedreamer_generator` in
 `scenedreamer_tpu/utils/convert.py:116-209`, written against the layout
@@ -10,16 +10,21 @@ names, so the mapping is
     generator's own `Dense` already stores [out, in] and is copied);
   * ModLinear / AffineMod leaves by name;
   * world encoder `block_<i>.Conv_<j>` -> `conv_blocks.<i-1>.layers.<2j>`;
-  * style net `fc_<i>` -> `fc_layers.<i>`.
-The style encoder's leaves are skipped: it is not part of the inference
-path, and the port has no StyleEncoder yet.
+  * style net `fc_<i>` -> `fc_layers.<i>`;
+  * style encoder `fc_mu` / `fc_var` weights: the JAX package flattens
+    the last [4, 4, C] feature map NHWC, the port (and the reference)
+    NCHW, so their columns are permuted (`convert.py:184-198` there).
+`discriminator_state_dict_from_flax` and `vgg_state_dict_from_flax` map
+the JAX discriminator (with its spectral-norm power-iteration vectors)
+and VGG19 feature extractor onto `models/discriminator.py` and
+`models/vgg.py`.
 """
 import re
 
 import numpy as np
 import torch
 
-_SKIP = ('style_encoder',)
+STYLE_ENC_SPATIAL = 4       # the style encoder's last map: 256 / 2^6
 
 
 def _rename(path):
@@ -58,12 +63,60 @@ def generator_state_dict_from_flax(params):
     tree = params.get('params', params)
     sd = {}
     for path, leaf in _leaves(tree):
-        if path[0] in _SKIP:
-            continue
-        arr = np.array(leaf, dtype=np.float32)
+        arr = _torch_layout(path, leaf)
         if path[-1] == 'kernel':
             path = path[:-1] + ['weight']
-            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-        sd['.'.join(_rename(path))] = torch.from_numpy(
-            np.ascontiguousarray(arr))
+        if path[0] == 'style_encoder' and path[1] in ('fc_mu', 'fc_var') \
+                and path[-1] == 'weight':
+            hw = STYLE_ENC_SPATIAL
+            arr = arr.reshape(arr.shape[0], hw, hw, -1) \
+                .transpose(0, 3, 1, 2).reshape(arr.shape[0], -1)
+        sd['.'.join(_rename(path))] = _tensor(arr)
     return sd
+
+
+def _torch_layout(path, leaf):
+    """A flax `kernel` in torch layout (conv HWIO -> OIHW, dense
+    [in, out] -> [out, in]); any other leaf as float32."""
+    arr = np.array(leaf, dtype=np.float32)
+    if path[-1] == 'kernel':
+        arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+    return arr
+
+
+def _tensor(arr):
+    return torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+
+
+def discriminator_state_dict_from_flax(params, spectral_stats):
+    """`GANcraftDiscriminator` variables (params and the `spectral_stats`
+    collection, each with or without its top-level key) -> the state dict
+    of `models/discriminator.GANcraftDiscriminator`: `fpse.<conv>.weight`
+    [O, I, kh, kw] and `.bias`, and per spectral-normed conv the buffers
+    `weight_u` [1, O] and `weight_sigma` []."""
+    params = params.get('params', params)
+    stats = spectral_stats.get('spectral_stats', spectral_stats)
+    sd = {}
+    for name, sub in params['fpse'].items():
+        conv = sub['Conv_0']
+        sd[f'fpse.{name}.weight'] = _tensor(
+            _torch_layout(['kernel'], conv['kernel']))
+        sd[f'fpse.{name}.bias'] = _tensor(np.asarray(conv['bias'],
+                                                     np.float32))
+        sn = stats.get('fpse', {}).get(name)
+        if sn is not None:
+            sn = sn['SpectralNorm_0']
+            sd[f'fpse.{name}.weight_u'] = _tensor(
+                np.asarray(sn['Conv_0/kernel/u'], np.float32))
+            sd[f'fpse.{name}.weight_sigma'] = _tensor(
+                np.asarray(sn['Conv_0/kernel/sigma'], np.float32))
+    return sd
+
+
+def vgg_state_dict_from_flax(params):
+    """`VGG19Features` params ({'params': {'conv<i>': ...}} or the inner
+    dict) -> the state dict of `models/vgg.VGG19Features`."""
+    params = params.get('params', params)
+    return {f'{name}.{"weight" if leaf == "kernel" else leaf}':
+            _tensor(_torch_layout([leaf], v))
+            for name, sub in params.items() for leaf, v in sub.items()}

@@ -34,6 +34,14 @@ def tiny_models(key_seed=0, batch_hw=20):
     key = jax.random.PRNGKey(key_seed)
     params = jmodel.init({'params': key}, batch, world.dims, key,
                          random_style=True)
+    # the style encoder's leaves come from an init that style-encodes;
+    # every other leaf stays the golden tests' own
+    gan_batch = make_batch(world, batch_size=1, height=batch_hw,
+                           width=batch_hw, max_samples=4, pad=TINY.pad,
+                           seed=0, include_gan_data=True)
+    style = jmodel.init({'params': key}, gan_batch, world.dims, key,
+                        random_style=False)['params']['style_encoder']
+    params = {'params': {**params['params'], 'style_encoder': style}}
     params = jax.tree_util.tree_map(np.asarray, params)
     tmodel = SceneDreamerGenerator(port_config(TINY))
     tmodel.load_state_dict(generator_state_dict_from_flax(params))

@@ -1,6 +1,9 @@
 """Weights cross between the two packages without loss: flax params ->
 the port's state dict -> the JAX package's converter gives back every
-leaf exactly (the style encoder, not in the port yet, is skipped)."""
+generator leaf exactly, the style encoder's included; the
+discriminator's and VGG19's flax variables load strictly into the port's
+modules with the right layouts (their outputs are held against JAX in
+`test_torch_train_modules.py`)."""
 import numpy as np
 import pytest
 import torch
@@ -33,9 +36,9 @@ def test_round_trip_every_leaf(flax_params):
     model.load_state_dict(sd, strict=True)
     back = convert_scenedreamer_generator(
         {k: v.numpy() for k, v in model.state_dict().items()})
-    want = {p: v for p, v in _flat(flax_params['params'])
-            if p[0] != 'style_encoder'}
+    want = dict(_flat(flax_params['params']))
     got = dict(_flat(back['params']))
+    assert any(p[0] == 'style_encoder' for p in want)
     assert set(got) == set(want)
     for p, v in want.items():
         assert got[p].shape == v.shape, p
@@ -52,8 +55,43 @@ def test_layouts(flax_params):
                        torch.from_numpy(np.array(p['hash_table'])))
     assert 'world_encoder.conv_blocks.0.layers.2.weight' in sd
     assert 'style_net.fc_layers.4.weight' in sd
-    assert not any(n.startswith('style_encoder') for n in sd)
+    assert 'style_encoder.layer6.weight' in sd
+    # fc_mu reads the last [4, 4, C] map NCHW-flattened, flax NHWC
+    fw = np.asarray(p['style_encoder']['fc_mu']['weight'])
+    c = fw.shape[1] // 16
+    np.testing.assert_array_equal(
+        sd['style_encoder.fc_mu.weight'].numpy().reshape(-1, c, 4, 4)
+        .transpose(0, 2, 3, 1).reshape(fw.shape), fw)
     dense = generator_state_dict_from_flax(
         {'fc': {'kernel': np.arange(6.0).reshape(2, 3)}})
     np.testing.assert_array_equal(dense['fc.weight'].numpy(),
                                   np.arange(6.0).reshape(2, 3).T)
+
+
+def test_discriminator_and_vgg_load_strictly():
+    import jax
+    import jax.numpy as jnp
+    from scenedreamer_tpu.models.discriminator import \
+        GANcraftDiscriminator as JDis
+    from scenedreamer_tpu.train.losses import PerceptualLoss
+    from scenedreamer_tpu_torch.models.discriminator import \
+        GANcraftDiscriminator
+    from scenedreamer_tpu_torch.models.vgg import VGG19Features
+    from scenedreamer_tpu_torch.utils.convert import (
+        discriminator_state_dict_from_flax, vgg_state_dict_from_flax)
+    data = {'fake_masks': jnp.zeros((1, 16, 16, 12))}
+    v = JDis(num_labels=12, num_filters=4).init(
+        jax.random.PRNGKey(0), data, {'fake_images': jnp.zeros((1, 16, 16, 3))})
+    sd = discriminator_state_dict_from_flax(v, v)
+    GANcraftDiscriminator(num_labels=12, num_filters=4).load_state_dict(
+        sd, strict=True)
+    k = np.asarray(v['params']['fpse']['enc2']['Conv_0']['kernel'])
+    np.testing.assert_array_equal(sd['fpse.enc2.weight'].numpy(),
+                                  k.transpose(3, 2, 0, 1))
+    u = v['spectral_stats']['fpse']['enc2']['SpectralNorm_0']
+    np.testing.assert_array_equal(sd['fpse.enc2.weight_u'].numpy(),
+                                  np.asarray(u['Conv_0/kernel/u']))
+    assert 'fpse.output.weight_u' not in sd
+    perc = PerceptualLoss(layers=('relu_2_1',), weights=(1.0,))
+    VGG19Features(('relu_2_1',)).load_state_dict(
+        vgg_state_dict_from_flax(perc.params), strict=True)

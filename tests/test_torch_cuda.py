@@ -4,7 +4,9 @@ machine run `python -m pytest tests/test_torch_cuda.py`.
 
 K1 must equal its plain version exactly (ids, masks, t values and step
 counts); K2 is expected exact as well (same float32 operations in the
-same order) and is held to 1e-6."""
+same order) and is held to 1e-6. K3 (the hash backward) is held to its
+plain version with the tolerances stated in its test (its scatter adds
+atomically, in a run-dependent order)."""
 import numpy as np
 import pytest
 import torch
@@ -71,3 +73,54 @@ def test_hash_kernels_match_plain(cuda, levels, channels):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
     folded = hg.hashgrid_encode_folded(spec, table, xyz, scene)
     torch.testing.assert_close(folded, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize('levels,channels', [(4, 4), (16, 8)])
+def test_hash_backward_kernels_match_plain(cuda, levels, channels):
+    """K3 against its plain version. dT: atomics add in a run-dependent
+    order, so each slot may differ by 1e-5 of the sum of absolute
+    contributions to it (the plain path on |g|) + 1e-7; dw: float64 sums
+    on both sides, rtol 1e-5; dxyz: 1e-4 of its largest magnitude
+    (float32 atomics over levels)."""
+    spec = hg.HashGridSpec.create(input_dim=5, num_levels=levels,
+                                  level_dim=channels, log2_hashmap_size=14,
+                                  desired_resolution=2048)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    table = torch.rand((spec.table_size, channels), generator=gen,
+                       device=cuda) * 2 - 1
+    xyz = torch.rand((50000, 3), generator=gen, device=cuda) * 2.2 - 1.1
+    g = torch.randn((50000, levels * channels), generator=gen, device=cuda)
+    scene = torch.tensor([0.3, -0.6], device=cuda)
+    masks, weights, oob = hg.scene_fold_weights(spec, scene)
+    masks32 = masks.to(torch.int32)
+    table3 = table.reshape(levels, -1, channels)
+    scales, off = hg._scales(spec, cuda), hg._offset(spec)
+    baked = hg.bake_plain(table3, masks, weights)
+    slots = table3.shape[1]
+    k_grad, k_dxyz = kernels.hash_encode_bwd(g, xyz, scales, off, 1.0, oob,
+                                             slots, baked)
+    p_grad, p_dxyz = hg.encode_bwd_plain(g, xyz, scales, off, 1.0, oob,
+                                         slots, baked)
+    abs_grad, _ = hg.encode_bwd_plain(g.abs(), xyz, scales, off, 1.0, oob,
+                                      slots)
+    k_dt = kernels.hash_bake(k_grad, masks32, weights)
+    p_dt = hg.bake_plain(p_grad, masks, weights)
+    abs_dt = hg.bake_plain(abs_grad, masks, weights)
+    assert ((k_dt - p_dt).abs() <= 1e-5 * abs_dt + 1e-7).all()
+    k_dw = kernels.hash_bake_dw(table3, k_grad, masks32)
+    p_dw = hg.bake_dw_plain(table3, k_grad, masks)
+    torch.testing.assert_close(k_dw, p_dw, rtol=1e-5, atol=0)
+    assert (k_dxyz - p_dxyz).abs().max() <= 1e-4 * p_dxyz.abs().max()
+    # the autograd path launches the same kernels
+    t = table.clone().requires_grad_(True)
+    s = scene.clone().requires_grad_(True)
+    before = kernels.launch_counts()
+    out = hg.hashgrid_encode_folded(spec, t, xyz, s)
+    dt, ds = torch.autograd.grad(out, (t, s), g)
+    after = kernels.launch_counts()
+    for name in ('hash_encode_bwd', 'hash_bake_dw'):
+        assert after[name] == before[name] + 1, name
+    assert after['hash_bake'] == before['hash_bake'] + 2     # fwd + dT
+    assert ((dt.reshape(table3.shape) - p_dt).abs()
+            <= 1e-5 * abs_dt + 1e-7).all()
+    assert torch.isfinite(ds).all() and (ds != 0).any()
