@@ -28,8 +28,9 @@ of the repository. Phases, each fatal on failure:
   6. K3 (the hash backward: scatter, dT bake, dw reduction) against its
      plain version at the flagship spec on the sample points of one
      training batch (crop 256 + pad 6, 262x262 rays, 24 samples), table
-     uniform in [-1, 1], seeded normal cotangent; dT, dw and dxyz held
-     to the tolerances printed with their reasons;
+     uniform in [-1, 1], seeded normal cotangent; the scattered
+     gradient G, dT, dw and dxyz held to the tolerances printed with
+     their reasons;
   7. the training path: `GANTrainer` at the flagship training width of
      configs/scenedreamer_train.yaml (`GeneratorConfig()`: hash 16 x
      2^19 x 8, MLP 256, style 128/256, feature 64, 24 samples, M=6,
@@ -91,11 +92,13 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
-def k3_check(torch, kernels, hg, sample_depth, fma, spec, cfg, batch, dims,
-             dev):
-    """Phase 6: K3 (a)-(c) against the plain versions on the sample points
-    of one training batch; returns errors, timings and bounds."""
-    b, h, w, m = batch['voxel_id'].shape
+def sample_points(batch, cfg, dims):
+    """The field points [N, 3] in [-1, 1] of a training batch's rays at
+    deterministic sample depths: K3's input at training shapes."""
+    import torch
+    from scenedreamer_tpu_torch.ops.rounding import fma
+    from scenedreamer_tpu_torch.ops.sampling import sample_depth
+    m = batch['voxel_id'].shape[-1]
     rdepth, _, _ = sample_depth(batch['depth'].reshape(-1, m, 2),
                                 batch['hit_mask'].reshape(-1, m),
                                 cfg.num_samples + 1, deterministic=True,
@@ -103,8 +106,32 @@ def k3_check(torch, kernels, hg, sample_depth, fma, spec, cfg, batch, dims,
                                 sample_depth_clip=cfg.sample_depth)
     wc = fma(batch['raydirs'].reshape(-1, 1, 3), rdepth[..., None],
              batch['cam_ori'][0])
-    dims_t = torch.tensor(dims, dtype=torch.float32, device=dev)
-    xyz = (wc / dims_t * 2.0 - 1.0).reshape(-1, 3).contiguous()
+    dims_t = torch.tensor(dims, dtype=torch.float32, device=wc.device)
+    return (wc / dims_t * 2.0 - 1.0).reshape(-1, 3).contiguous()
+
+
+def make_trainer(cfg, dims, dev, seed=SEED):
+    """The flagship training models of configs/scenedreamer_train.yaml
+    from seeded random weights: generator `cfg`, D with 128 filters and
+    `cfg`'s labels, VGG19 perceptual loss; the yaml's loss weights and
+    optimizers (the `GANTrainer` defaults)."""
+    from scenedreamer_tpu_torch.models.discriminator import \
+        GANcraftDiscriminator
+    from scenedreamer_tpu_torch.models.generator import SceneDreamerGenerator
+    from scenedreamer_tpu_torch.train.losses import PerceptualLoss
+    from scenedreamer_tpu_torch.train.trainer import GANTrainer
+    return GANTrainer(
+        SceneDreamerGenerator(cfg, seed=seed).to(dev),
+        GANcraftDiscriminator(num_labels=cfg.num_reduced_labels,
+                              num_filters=128, seed=seed).to(dev),
+        dims, perceptual=PerceptualLoss(seed=seed).to(dev))
+
+
+def k3_check(torch, kernels, hg, cfg, batch, dims, dev):
+    """Phase 6: K3 (a)-(c) against the plain versions on the sample points
+    of one training batch; returns errors, timings and bounds."""
+    spec = cfg.hash_spec
+    xyz = sample_points(batch, cfg, dims)
     n = xyz.shape[0]
     gen = torch.Generator(device=dev).manual_seed(SEED)
     table3 = (torch.rand((spec.table_size, spec.level_dim), generator=gen,
@@ -123,12 +150,14 @@ def k3_check(torch, kernels, hg, sample_depth, fma, spec, cfg, batch, dims,
                                          slots, baked)
     abs_grad, _ = hg.encode_bwd_plain(g.abs(), xyz, scales, off, 1.0, oob,
                                       slots)
-    k_dt = kernels.hash_bake(k_grad, masks32, weights)
+    k_dt = kernels.hash_bake(k_grad, masks32, weights, 'hash_bake_bwd')
     p_dt = hg.bake_plain(p_grad, masks, weights)
     abs_dt = hg.bake_plain(abs_grad, masks, weights)
     k_dw = kernels.hash_bake_dw(table3, k_grad, masks32)
     p_dw = hg.bake_dw_plain(table3, k_grad, masks)
     torch.cuda.synchronize()
+    g_excess = float(((k_grad - p_grad).abs() - 1e-5 * abs_grad
+                      - 1e-7).max())
     dt_excess = float(((k_dt - p_dt).abs() - 1e-5 * abs_dt - 1e-7).max())
     dt_err = float((k_dt - p_dt).abs().max())
     g_err = float((k_grad - p_grad).abs().max())
@@ -138,14 +167,16 @@ def k3_check(torch, kernels, hg, sample_depth, fma, spec, cfg, batch, dims,
               .all(-1).sum())
     log(f'[K3] {n} points ({inb} in bounds), spec {spec.num_levels} x '
         f'{slots} x {spec.level_dim}')
-    log(f'[K3] G (scatter) max abs err {g_err:.3g}; dT max abs err '
-        f'{dt_err:.3g}; tolerance 1e-5 x (sum of |w g| '
+    log(f'[K3] G (scatter) max abs err {g_err:.3g}, dT max abs err '
+        f'{dt_err:.3g}; tolerance for each, per slot: 1e-5 x (sum of |w g| '
         f'into the slot, plain path) + 1e-7, because float32 atomics add in '
-        f'a run-dependent order: worst margin {dt_excess:.3g} (<= 0 passes)')
+        f'a run-dependent order: worst margin G {g_excess:.3g}, dT '
+        f'{dt_excess:.3g} (<= 0 passes)')
     log(f'[K3] dw max rel err {dw_rel:.3g}; tolerance 1e-5 (float64 sums '
         f'on both sides, the kernel in a fixed block order)')
     log(f'[K3] dxyz max err / max|dxyz| {dx_rel:.3g}; tolerance 1e-4 '
         f'(float32 atomics over the 16 levels)')
+    assert g_excess <= 0, 'K3 G differs from plain'
     assert dt_excess <= 0, 'K3 dT differs from plain'
     assert dw_rel <= 1e-5, 'K3 dw differs from plain'
     assert dx_rel <= 1e-4, 'K3 dxyz differs from plain'
@@ -154,7 +185,8 @@ def k3_check(torch, kernels, hg, sample_depth, fma, spec, cfg, batch, dims,
         g, xyz, scales, off, 1.0, oob, slots))
     t_enc_plain = median_ms(lambda: hg.encode_bwd_plain(
         g, xyz, scales, off, 1.0, oob, slots))
-    t_dt = median_ms(lambda: kernels.hash_bake(k_grad, masks32, weights))
+    t_dt = median_ms(lambda: kernels.hash_bake(k_grad, masks32, weights,
+                                               'hash_bake_bwd'))
     t_dt_plain = median_ms(lambda: hg.bake_plain(k_grad, masks, weights))
     t_dw = median_ms(lambda: kernels.hash_bake_dw(table3, k_grad, masks32))
     t_dw_plain = median_ms(lambda: hg.bake_dw_plain(table3, k_grad, masks))
@@ -178,16 +210,8 @@ def k3_check(torch, kernels, hg, sample_depth, fma, spec, cfg, batch, dims,
 def train_path(torch, kernels, cfg, world, voxel, dev):
     """Phase 7: the training step at the flagship training width."""
     from scenedreamer_tpu_torch.data.synthetic import make_batch
-    from scenedreamer_tpu_torch.models.discriminator import \
-        GANcraftDiscriminator
-    from scenedreamer_tpu_torch.models.generator import SceneDreamerGenerator
-    from scenedreamer_tpu_torch.train.losses import PerceptualLoss
-    from scenedreamer_tpu_torch.train.trainer import GANTrainer
-    gen_model = SceneDreamerGenerator(cfg, seed=SEED).to(dev)
-    dis = GANcraftDiscriminator(num_labels=cfg.num_reduced_labels,
-                                num_filters=128, seed=SEED).to(dev)
-    trainer = GANTrainer(gen_model, dis, world.dims,
-                         perceptual=PerceptualLoss(seed=SEED).to(dev))
+    trainer = make_trainer(cfg, world.dims, dev)
+    gen_model, dis = trainer.gen, trainer.dis
     draws = torch.Generator(device=dev).manual_seed(SEED)
     hw = TRAIN_CROP + cfg.pad
     watched = {'hash_encoder.embeddings': gen_model.hash_encoder.embeddings,
@@ -232,7 +256,7 @@ def train_path(torch, kernels, cfg, world, voxel, dev):
         f'samples; train_step {step_s[-1]:.3f} s; peak memory '
         f'{peak_gb:.1f} GB; launches {counts} over {steps} steps')
     for name in ('dda', 'hash_bake', 'hash_encode', 'hash_encode_bwd',
-                 'hash_bake_dw'):
+                 'hash_bake_bwd', 'hash_bake_dw'):
         assert counts[name] > 0, f'kernel {name} never launched in training'
     return dict(counts=counts, steps=steps, s_per_iter=spi,
                 peak_gb=peak_gb, rays=hw * hw)
@@ -240,18 +264,20 @@ def train_path(torch, kernels, cfg, world, voxel, dev):
 
 def kernel_rows(serving, k3, train):
     """The `kernels` JSON rows: K1, K2a, K2b on the serving path and
-    K3a-c on the training path, with launches per frame and per step."""
+    K3a-c on the training path, with launches per frame and per step,
+    each read from the kernel's own counter. `launches` is the count of
+    the path the kernel was ported for: serving for K1/K2, training for
+    K3 (K3b is K2a's kernel on G, counted as 'hash_bake_bwd')."""
     counts, tcounts = serving['counts'], train['counts']
 
-    def row(name, source, replaces, err, ms, plain, bound, by, launches,
-            counter, **extra):
+    def row(name, source, replaces, err, ms, plain, bound, by, path,
+            **extra):
         return dict(name=name, route='cuda', source=source,
-                    replaces=replaces, launches=launches, max_abs_err=err,
+                    replaces=replaces, launches=path[name], max_abs_err=err,
                     ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                     library_ms=None,
-                    launches_per_frame=counts[counter] / serving['n_frames']
-                    if counter in counts and name != 'hash_bake_bwd' else 0,
-                    launches_per_step=tcounts[counter] / train['steps'],
+                    launches_per_frame=counts[name] / serving['n_frames'],
+                    launches_per_step=tcounts[name] / train['steps'],
                     **extra)
 
     ms, errs, extra = serving['ms'], serving['errs'], serving['extra']
@@ -260,23 +286,18 @@ def kernel_rows(serving, k3, train):
     return [
         row('dda', 'scenedreamer_tpu_torch/csrc/dda.cu',
             'scenedreamer_tpu/ops/ray_voxel.py:456', errs['dda'],
-            *ms['dda'], counts['dda'], 'dda', **extra['dda']),
+            *ms['dda'], counts, **extra['dda']),
         row('hash_bake', fwd, 'scenedreamer_tpu/ops/hashgrid.py:626',
-            errs['hash_bake'], *ms['hash_bake'], counts['hash_bake'],
-            'hash_bake'),
+            errs['hash_bake'], *ms['hash_bake'], counts),
         row('hash_encode', fwd, 'scenedreamer_tpu/ops/hashgrid.py:848',
-            errs['hash_encode'], *ms['hash_encode'], counts['hash_encode'],
-            'hash_encode', **extra['hash_encode']),
+            errs['hash_encode'], *ms['hash_encode'], counts,
+            **extra['hash_encode']),
         row('hash_encode_bwd', bwd, 'scenedreamer_tpu/ops/hashgrid.py:361',
-            *k3['hash_encode_bwd'], tcounts['hash_encode_bwd'],
-            'hash_encode_bwd', points=k3['points']),
-        # K3 (b) is K2a's kernel on G: one launch per encode backward,
-        # counted by the hash_bake counter
+            *k3['hash_encode_bwd'], tcounts, points=k3['points']),
         row('hash_bake_bwd', fwd, 'scenedreamer_tpu/ops/hashgrid.py:642',
-            *k3['hash_bake_bwd'], tcounts['hash_encode_bwd'],
-            'hash_encode_bwd', counted_as='hash_bake'),
+            *k3['hash_bake_bwd'], tcounts),
         row('hash_bake_dw', bwd, 'scenedreamer_tpu/ops/hashgrid.py:642',
-            *k3['hash_bake_dw'], tcounts['hash_bake_dw'], 'hash_bake_dw'),
+            *k3['hash_bake_dw'], tcounts),
     ]
 
 
@@ -419,7 +440,7 @@ def main():
         assert np.abs(img).max() <= 1.0, 'frame outside [-1, 1]'
     for name in ('dda', 'hash_bake', 'hash_encode'):
         assert counts[name] > 0, f'kernel {name} never launched on the main path'
-    for name in ('hash_encode_bwd', 'hash_bake_dw'):
+    for name in ('hash_encode_bwd', 'hash_bake_bwd', 'hash_bake_dw'):
         assert counts[name] == 0, f'the serving path launched {name}'
 
     renderer = TiledRenderer(model, world, num_samples=SAMPLES,
@@ -500,13 +521,11 @@ def main():
 
     # 6. K3 vs plain -------------------------------------------------------
     tcfg = GeneratorConfig()
-    tspec = tcfg.hash_spec
     hw = TRAIN_CROP + tcfg.pad
     batch = make_batch(world, batch_size=1, height=hw, width=hw,
                        max_samples=tcfg.num_blocks_early_stop, pad=tcfg.pad,
                        seed=SEED, device=dev, voxel=voxel)
-    k3 = k3_check(torch, kernels, hg, sample_depth, fma, tspec, tcfg, batch,
-                  world.dims, dev)
+    k3 = k3_check(torch, kernels, hg, tcfg, batch, world.dims, dev)
     torch.cuda.empty_cache()
 
     # 7. the training path -------------------------------------------------

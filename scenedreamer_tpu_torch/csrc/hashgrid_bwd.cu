@@ -14,14 +14,17 @@
 //      the cell, the frac, the 8 corner hashes and the 8 weights exactly
 //      as `hashgrid_fwd.cu` does (same intrinsics, -fmad=false), reads
 //      g[n, l*C:(l+1)*C] and atomically adds w_k * g_c into
-//      G_l[idx_k, c] (G zero-filled by the caller). Points out of bounds,
+//      G_l[idx_k, c] (G zero-filled by the caller), four channels per
+//      atomic (sm_90's float4 `atomicAdd` on global memory; rows are
+//      C * 4 bytes, so 16-byte aligned). Points out of bounds,
 //      and every point when the scene code is out of bounds, are skipped:
 //      the forward wrote zeros there. With the baked table B it also
 //      adds, per level, the gradient through frac to dxyz:
 //        dxyz[n,d] += (scale_l / 2 bound) * sum_k gv_k * sign_{k,d}
 //                     * prod_{d' != d} t_{k,d'},  gv_k = sum_c g_c B_l[idx_k,c].
 //  (b) dT_l[s] = sum_a w_a * G_l[s ^ m_a] is the bake applied to G (xor is
-//      its own inverse): the caller launches `sd_hash_bake` on G.
+//      its own inverse): the caller launches `sd_hash_bake` on G (its
+//      wrapper counts that launch as 'hash_bake_bwd').
 //  (c) sd_hash_bake_dw: dw_{l,a} = sum_{j,c} T_l[j ^ m_a, c] * G_l[j, c],
 //      the gradient of the scene-fold weights (how the world encoder's
 //      scene code trains). Blocks of one level stride over its S*C/4
@@ -31,14 +34,13 @@
 //      fixed, so dw is deterministic; float64 products and sums make it
 //      exact to float32 rounding of the result.
 //
-// What bounds it: (a) is a scatter, 8 * C float atomics per point and
-// level plus g's N*L*C*4 bytes; the coarse levels (17^3 = 4,913 distinct
-// slots at level 0) put thousands of atomics on each slot, so contention,
-// not bytes, is expected to set its time. This first version issues
-// scalar atomics; privatised or warp-aggregated accumulation is the
-// redesign target. (c) streams G once and reads T through 4 xor
-// permutations of 32-byte rows that stay within one level's 16 MB (L2
-// resident), so device-memory bytes bound it.
+// What bounds it: (a) is a scatter, 8 * C / 4 vector atomics per point
+// and level plus g's N*L*C*4 bytes; the coarse levels (17^3 = 4,913
+// distinct slots at level 0) put thousands of atomics on each slot, so
+// contention, not bytes, sets its time. Privatised or warp-aggregated
+// accumulation is the redesign target. (c) streams G once and reads T
+// through 4 xor permutations of 32-byte rows that stay within one
+// level's 16 MB (L2 resident), so device-memory bytes bound it.
 //
 // C ABI (ctypes): each entry point returns cudaGetLastError().
 #include <cstdint>
@@ -107,8 +109,14 @@ __global__ void encode_bwd_kernel(const float* __restrict__ g,
       w = __fmul_rn(w, bit ? t1[d] : t0[d]);
     }
     const long long row = (long long)(h & mask) * C;
+    // sm_90's 16-byte vector atomic: C / 4 per corner instead of C
+    float4* g4 = reinterpret_cast<float4*>(gl + row);
 #pragma unroll
-    for (int c = 0; c < C; ++c) atomicAdd(gl + row + c, __fmul_rn(w, gc[c]));
+    for (int q = 0; q < C / 4; ++q)
+      atomicAdd(g4 + q, make_float4(__fmul_rn(w, gc[4 * q]),
+                                    __fmul_rn(w, gc[4 * q + 1]),
+                                    __fmul_rn(w, gc[4 * q + 2]),
+                                    __fmul_rn(w, gc[4 * q + 3])));
     if (bl) {
       float s = 0.f;
 #pragma unroll

@@ -42,7 +42,7 @@ _LOCK = threading.Lock()
 _LIBS = {}
 BUILD_LOGS = {}     # nvcc output (ptxas registers / spills) per source
 _LAUNCHES = {'dda': 0, 'hash_bake': 0, 'hash_encode': 0,
-             'hash_encode_bwd': 0, 'hash_bake_dw': 0}
+             'hash_encode_bwd': 0, 'hash_bake_bwd': 0, 'hash_bake_dw': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -150,9 +150,13 @@ def dda(voxel, cam_ori, raydirs, max_samples, max_steps, with_steps=False):
     return out_id, out_t, hit
 
 
-def hash_bake(table3, masks, weights):
+def hash_bake(table3, masks, weights, counter='hash_bake'):
     """K2 (a). table3 [L, S, C] float32, masks [L, A] int32, weights
-    [L, A] float32 -> baked [L, S, C]."""
+    [L, A] float32 -> baked [L, S, C]. `counter` names the launch count
+    it adds to: 'hash_bake' for the forward bake, 'hash_bake_bwd' for the
+    same kernel run on the baked table's gradient (K3 (b))."""
+    if counter not in ('hash_bake', 'hash_bake_bwd'):
+        raise ValueError(f'unknown bake counter {counter!r}')
     _require(table3, torch.float32, 'table', 3)
     _require(masks, torch.int32, 'masks', 2)
     _require(weights, torch.float32, 'weights', 2)
@@ -162,7 +166,7 @@ def hash_bake(table3, masks, weights):
         raise ValueError('bake needs C % 4 == 0, a power-of-two S and '
                          '[L, A] masks/weights')
     baked = torch.empty_like(table3)
-    _launch('hashgrid_fwd', 'sd_hash_bake', 'hash_bake', table3.device,
+    _launch('hashgrid_fwd', 'sd_hash_bake', counter, table3.device,
             table3.data_ptr(), masks.data_ptr(), weights.data_ptr(),
             baked.data_ptr(), lv, s, c, masks.shape[1])
     return baked

@@ -187,18 +187,18 @@ def fold_scene(spec, table, scene, bound=1.0):
     return FoldedTable(HashBake.apply(table3, weights, masks), scene_oob)
 
 
-def _bake(table3, masks, weights):
+def _bake(table3, masks, weights, counter='hash_bake'):
     if table3.is_cuda:
         return kernels.hash_bake(table3.contiguous(),
                                  masks.to(torch.int32).contiguous(),
-                                 weights.contiguous())
+                                 weights.contiguous(), counter)
     return bake_plain(table3, masks, weights)
 
 
 class HashBake(torch.autograd.Function):
     """baked = bake(table3 [L,S,C], weights [L,A]; masks [L,A]).
-    Forward K2 (a); backward dT = bake(dB) (K3 (b), the same kernel) and
-    dw = bake_dw(T, dB) (K3 (c))."""
+    Forward K2 (a); backward dT = bake(dB) (K3 (b), the same kernel,
+    counted as 'hash_bake_bwd') and dw = bake_dw(T, dB) (K3 (c))."""
 
     @staticmethod
     def forward(ctx, table3, weights, masks):
@@ -211,7 +211,7 @@ class HashBake(torch.autograd.Function):
         grad = grad.contiguous()
         d_table = d_weights = None
         if ctx.needs_input_grad[0]:
-            d_table = _bake(grad, masks, weights.detach())
+            d_table = _bake(grad, masks, weights.detach(), 'hash_bake_bwd')
         if ctx.needs_input_grad[1]:
             if grad.is_cuda:
                 d_weights = kernels.hash_bake_dw(

@@ -9,10 +9,12 @@ batch-1 crops of 256 + pad 6 from `data/synthetic.make_batch`, and
 prints: seconds per `train_step_shared` (host clock around synchronised
 steps, after two warm-up steps), the device time by kernel name over
 one profiled step (torch.profiler), the device busy share of that step,
-and peak device memory. Last, the hash scatter K3a alone on one crop's
-sample points in ray order (as training feeds it) and in a random
-order, to show how much of its time is atomic contention between
-neighbouring samples. Float32 throughout (TF32 off). Needs CUDA.
+and peak device memory. With `--scatter_order`, last the hash scatter K3a
+alone on one crop's sample points in ray order (as training feeds it)
+and in a random order, to show how much of its time is atomic
+contention between neighbouring samples. The models and the sample
+points come from `chip_smoke.py` (`make_trainer`, `sample_points`).
+Float32 throughout (TF32 off). Needs CUDA.
 """
 import argparse
 import os
@@ -23,6 +25,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from chip_smoke import make_trainer, sample_points  # noqa: E402
+
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
@@ -30,6 +34,8 @@ def main(argv=None):
     p.add_argument('--seed', type=int, default=8888)
     p.add_argument('--steps', type=int, default=3)
     p.add_argument('--top', type=int, default=30)
+    p.add_argument('--scatter_order', action='store_true',
+                   help='also time K3a in ray order and shuffled')
     a = p.parse_args(argv)
 
     import torch
@@ -37,14 +43,9 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
     from scenedreamer_tpu_torch import kernels
     from scenedreamer_tpu_torch.data.synthetic import make_batch
-    from scenedreamer_tpu_torch.models.discriminator import \
-        GANcraftDiscriminator
-    from scenedreamer_tpu_torch.models.generator import (
-        GeneratorConfig, SceneDreamerGenerator)
+    from scenedreamer_tpu_torch.models.generator import GeneratorConfig
     from scenedreamer_tpu_torch.scene.terrain import generate_terrain
     from scenedreamer_tpu_torch.scene.voxel_world import build_voxel_world
-    from scenedreamer_tpu_torch.train.losses import PerceptualLoss
-    from scenedreamer_tpu_torch.train.trainer import GANTrainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -60,11 +61,7 @@ def main(argv=None):
     voxel = torch.from_numpy(world.voxel).to(dev)
     print(f'world {world.dims} in {time.time() - t0:.1f} s', flush=True)
     cfg = GeneratorConfig()
-    trainer = GANTrainer(
-        SceneDreamerGenerator(cfg, seed=a.seed).to(dev),
-        GANcraftDiscriminator(cfg.num_reduced_labels, 128,
-                              seed=a.seed).to(dev), world.dims,
-        perceptual=PerceptualLoss(seed=a.seed).to(dev))
+    trainer = make_trainer(cfg, world.dims, dev, seed=a.seed)
     draws = torch.Generator(device=dev).manual_seed(a.seed)
     hw = 256 + cfg.pad
     batches = [make_batch(world, batch_size=1, height=hw, width=hw,
@@ -113,25 +110,15 @@ def main(argv=None):
           f'{1 - busy / wall:.3f}')
     for e in events[:a.top]:
         print(f'  {dev_us(e) / 1e3:10.2f} ms  {e.count:6d}x  {e.key[:90]}')
-    scatter_order(torch, kernels, cfg, batches[-1], world.dims, a.seed)
+    if a.scatter_order:
+        scatter_order(torch, kernels, cfg, batches[-1], world.dims, a.seed)
 
 
 def scatter_order(torch, kernels, cfg, batch, dims, seed):
     """K3a on the crop's sample points, in ray order and shuffled."""
     from scenedreamer_tpu_torch.ops import hashgrid as hg
-    from scenedreamer_tpu_torch.ops.rounding import fma
-    from scenedreamer_tpu_torch.ops.sampling import sample_depth
     spec, dev = cfg.hash_spec, batch['depth'].device
-    m = batch['depth'].shape[3]
-    rdepth, _, _ = sample_depth(batch['depth'].reshape(-1, m, 2),
-                                batch['hit_mask'].reshape(-1, m),
-                                cfg.num_samples + 1, deterministic=True,
-                                use_box_boundaries=False,
-                                sample_depth_clip=cfg.sample_depth)
-    wc = fma(batch['raydirs'].reshape(-1, 1, 3), rdepth[..., None],
-             batch['cam_ori'][0])
-    xyz = (wc / torch.tensor(dims, dtype=torch.float32, device=dev) * 2.0
-           - 1.0).reshape(-1, 3).contiguous()
+    xyz = sample_points(batch, cfg, dims)
     gen = torch.Generator(device=dev).manual_seed(seed)
     g = torch.randn((xyz.shape[0], spec.output_dim), generator=gen,
                     device=dev)

@@ -77,11 +77,11 @@ def test_hash_kernels_match_plain(cuda, levels, channels):
 
 @pytest.mark.parametrize('levels,channels', [(4, 4), (16, 8)])
 def test_hash_backward_kernels_match_plain(cuda, levels, channels):
-    """K3 against its plain version. dT: atomics add in a run-dependent
-    order, so each slot may differ by 1e-5 of the sum of absolute
-    contributions to it (the plain path on |g|) + 1e-7; dw: float64 sums
-    on both sides, rtol 1e-5; dxyz: 1e-4 of its largest magnitude
-    (float32 atomics over levels)."""
+    """K3 against its plain version. G and dT: atomics add in a
+    run-dependent order, so each slot may differ by 1e-5 of the sum of
+    absolute contributions to it (the plain path on |g|) + 1e-7; dw:
+    float64 sums on both sides, rtol 1e-5; dxyz: 1e-4 of its largest
+    magnitude (float32 atomics over levels)."""
     spec = hg.HashGridSpec.create(input_dim=5, num_levels=levels,
                                   level_dim=channels, log2_hashmap_size=14,
                                   desired_resolution=2048)
@@ -103,7 +103,8 @@ def test_hash_backward_kernels_match_plain(cuda, levels, channels):
                                          slots, baked)
     abs_grad, _ = hg.encode_bwd_plain(g.abs(), xyz, scales, off, 1.0, oob,
                                       slots)
-    k_dt = kernels.hash_bake(k_grad, masks32, weights)
+    assert ((k_grad - p_grad).abs() <= 1e-5 * abs_grad + 1e-7).all()
+    k_dt = kernels.hash_bake(k_grad, masks32, weights, 'hash_bake_bwd')
     p_dt = hg.bake_plain(p_grad, masks, weights)
     abs_dt = hg.bake_plain(abs_grad, masks, weights)
     assert ((k_dt - p_dt).abs() <= 1e-5 * abs_dt + 1e-7).all()
@@ -118,9 +119,9 @@ def test_hash_backward_kernels_match_plain(cuda, levels, channels):
     out = hg.hashgrid_encode_folded(spec, t, xyz, s)
     dt, ds = torch.autograd.grad(out, (t, s), g)
     after = kernels.launch_counts()
-    for name in ('hash_encode_bwd', 'hash_bake_dw'):
+    for name in ('hash_bake', 'hash_encode', 'hash_encode_bwd',
+                 'hash_bake_bwd', 'hash_bake_dw'):
         assert after[name] == before[name] + 1, name
-    assert after['hash_bake'] == before['hash_bake'] + 2     # fwd + dT
     assert ((dt.reshape(table3.shape) - p_dt).abs()
             <= 1e-5 * abs_dt + 1e-7).all()
     assert torch.isfinite(ds).all() and (ds != 0).any()
