@@ -41,10 +41,27 @@ of the repository. Phases, each fatal on failure:
      and 3 timed `train_step_shared`, then one `train_step`. Losses and
      gradient norms must be finite, the hash table, the world encoder
      and a D conv must move, and every kernel's launch count must rise;
-     s/iteration, rays/s (forward + backward) and peak memory printed.
+     s/iteration, rays/s (forward + backward) and peak memory printed;
+  8. K5 (the paired hash variant: shift bake, paired encode, paired
+     scatter, dT shift bake, dw reduction) against its plain versions at
+     the flagship spec with `hash_variant='paired'` on the sample points
+     of phase 6's training batch, tolerances as phases 3 and 6, then the
+     timings and bounds of K5 (a)-(d);
+  9. the training loop: writes a terrain cache of the scene-1024 world
+     and 16 synthetic 320x320 PNG pairs under `smoke_out/`, and runs
+     `scenedreamer_tpu_torch.cli.train.main` on
+     configs/scenedreamer_train.yaml with `gen.hash_variant: paired`
+     (crop 256, 24 samples, hash 16 x 2^19 x 8, MLP 256, D 128, SPADE
+     512 with 128 filters in bf16 from seeded random weights, batch 1)
+     for 6 iterations, again with `--resume` to 8, then 3 iterations
+     with the unmodified (xor) yaml, then 3 with `--speed-benchmark`.
+     Every meter must be finite, the checkpoints and
+     `latest_checkpoint.txt` must exist, the second run must resume at
+     iteration 6, the hash table must move, the paired run must launch
+     K1 and all of K5 and none of K2/K3, the xor run the reverse.
 
-Then one `kernels` JSON line covering K1-K3, the card's name and power
-limit (nvidia-smi), and last the line {"ok": true, "device": {...}}.
+Then one `kernels` JSON line covering K1-K3 and K5, the card's name and
+power limit (nvidia-smi), and last the line {"ok": true, "device": {...}}.
 Float32 everywhere: TF32 is switched off for matmuls and convolutions.
 """
 import json
@@ -61,6 +78,10 @@ FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 SCENE, SEED = 1024, 8888
 RES, PAD, SAMPLES, M = (540, 960), 30, 40, 6
 TRAIN_CROP, TRAIN_STEPS = 256, 3
+PAIRED = ('hash_shift_bake', 'hash_encode_paired', 'hash_encode_paired_bwd',
+          'hash_shift_bake_bwd', 'hash_shift_bake_dw')
+XOR = ('hash_bake', 'hash_encode', 'hash_encode_bwd', 'hash_bake_bwd',
+       'hash_bake_dw')
 
 
 def log(*a):
@@ -127,10 +148,15 @@ def make_trainer(cfg, dims, dev, seed=SEED):
         dims, perceptual=PerceptualLoss(seed=seed).to(dev))
 
 
-def k3_check(torch, kernels, hg, cfg, batch, dims, dev):
-    """Phase 6: K3 (a)-(c) against the plain versions on the sample points
-    of one training batch; returns errors, timings and bounds."""
+def backward_check(torch, kernels, hg, cfg, batch, dims, dev, tag):
+    """Phases 6 and 8: the hash kernels of `cfg.hash_variant` against the
+    plain versions on the sample points of one training batch; returns
+    errors, timings and bounds by kernel name. For 'xor' that is K3
+    (a)-(c) (K2 is held by phase 3); for 'paired' K5 (a)-(d), forward
+    included."""
     spec = cfg.hash_spec
+    variant = spec.hash_variant
+    paired = variant == 'paired'
     xyz = sample_points(batch, cfg, dims)
     n = xyz.shape[0]
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -143,68 +169,121 @@ def k3_check(torch, kernels, hg, cfg, batch, dims, dev):
     masks32 = masks.to(torch.int32).contiguous()
     scales, off = hg._scales(spec, dev), hg._offset(spec)
     slots = table3.shape[1]
-    baked = kernels.hash_bake(table3, masks32, weights)
-    k_grad, k_dxyz = kernels.hash_encode_bwd(g, xyz, scales, off, 1.0, oob,
-                                             slots, baked)
+    # the adjoint fold: xor is its own inverse, a shift is undone by S - m
+    inv = ((slots - masks) & (slots - 1)) if paired else masks
+    inv32 = inv.to(torch.int32).contiguous()
+    if paired:
+        names = dict(zip(('bake', 'enc', 'bwd', 'dt', 'dw'), PAIRED))
+        k_bake = kernels.hash_shift_bake
+        k_enc = kernels.hash_encode_paired
+        k_bwd = kernels.hash_encode_paired_bwd
+        k_dw = kernels.hash_shift_bake_dw
+    else:
+        names = dict(zip(('bake', 'enc', 'bwd', 'dt', 'dw'), XOR))
+        k_bake, k_enc = kernels.hash_bake, kernels.hash_encode
+        k_bwd, k_dw = kernels.hash_encode_bwd, kernels.hash_bake_dw
+    out = dict(points=n)
+    baked = k_bake(table3, masks32, weights)
+    if paired:
+        p_baked = hg.bake_plain(table3, masks, weights, variant)
+        k_feat = k_enc(baked, xyz, scales, off, 1.0, oob)
+        p_feat = hg.encode_plain(p_baked, xyz, scales, off, 1.0, oob, variant)
+        bake_err = float((baked - p_baked).abs().max())
+        enc_err = float((k_feat - p_feat).abs().max())
+        log(f'[{tag}] shift bake max abs err {bake_err:.3g}; paired encode '
+            f'max abs err {enc_err:.3g} (tolerance 1e-5: the same float32 '
+            f'operations in the same order), out mean |x| '
+            f'{float(k_feat.abs().mean()):.3f}')
+        assert bake_err <= 1e-5 and enc_err <= 1e-5, \
+            f'{tag} forward differs from plain'
+        del p_baked, k_feat, p_feat
+    k_grad, k_dxyz = k_bwd(g, xyz, scales, off, 1.0, oob, slots, baked)
     p_grad, p_dxyz = hg.encode_bwd_plain(g, xyz, scales, off, 1.0, oob,
-                                         slots, baked)
+                                         slots, baked, variant)
     abs_grad, _ = hg.encode_bwd_plain(g.abs(), xyz, scales, off, 1.0, oob,
-                                      slots)
-    k_dt = kernels.hash_bake(k_grad, masks32, weights, 'hash_bake_bwd')
-    p_dt = hg.bake_plain(p_grad, masks, weights)
-    abs_dt = hg.bake_plain(abs_grad, masks, weights)
-    k_dw = kernels.hash_bake_dw(table3, k_grad, masks32)
-    p_dw = hg.bake_dw_plain(table3, k_grad, masks)
+                                      slots, None, variant)
+    k_dt = k_bake(k_grad, inv32, weights, names['dt'])
+    p_dt = hg.bake_plain(p_grad, inv, weights, variant)
+    abs_dt = hg.bake_plain(abs_grad, inv, weights, variant)
+    k_dwv = k_dw(table3, k_grad, masks32)
+    p_dwv = hg.bake_dw_plain(table3, k_grad, masks, variant)
     torch.cuda.synchronize()
     g_excess = float(((k_grad - p_grad).abs() - 1e-5 * abs_grad
                       - 1e-7).max())
     dt_excess = float(((k_dt - p_dt).abs() - 1e-5 * abs_dt - 1e-7).max())
     dt_err = float((k_dt - p_dt).abs().max())
     g_err = float((k_grad - p_grad).abs().max())
-    dw_rel = float(((k_dw - p_dw).abs() / p_dw.abs()).max())
+    dw_rel = float(((k_dwv - p_dwv).abs() / p_dwv.abs()).max())
     dx_rel = float((k_dxyz - p_dxyz).abs().max() / p_dxyz.abs().max())
     inb = int((((xyz + 1.0) / 2.0 >= 0) & ((xyz + 1.0) / 2.0 <= 1))
               .all(-1).sum())
-    log(f'[K3] {n} points ({inb} in bounds), spec {spec.num_levels} x '
-        f'{slots} x {spec.level_dim}')
-    log(f'[K3] G (scatter) max abs err {g_err:.3g}, dT max abs err '
+    log(f'[{tag}] {n} points ({inb} in bounds), spec {spec.num_levels} x '
+        f'{slots} x {spec.level_dim}, variant {variant}')
+    log(f'[{tag}] G (scatter) max abs err {g_err:.3g}, dT max abs err '
         f'{dt_err:.3g}; tolerance for each, per slot: 1e-5 x (sum of |w g| '
         f'into the slot, plain path) + 1e-7, because float32 atomics add in '
         f'a run-dependent order: worst margin G {g_excess:.3g}, dT '
         f'{dt_excess:.3g} (<= 0 passes)')
-    log(f'[K3] dw max rel err {dw_rel:.3g}; tolerance 1e-5 (float64 sums '
+    log(f'[{tag}] dw max rel err {dw_rel:.3g}; tolerance 1e-5 (float64 sums '
         f'on both sides, the kernel in a fixed block order)')
-    log(f'[K3] dxyz max err / max|dxyz| {dx_rel:.3g}; tolerance 1e-4 '
+    log(f'[{tag}] dxyz max err / max|dxyz| {dx_rel:.3g}; tolerance 1e-4 '
         f'(float32 atomics over the 16 levels)')
-    assert g_excess <= 0, 'K3 G differs from plain'
-    assert dt_excess <= 0, 'K3 dT differs from plain'
-    assert dw_rel <= 1e-5, 'K3 dw differs from plain'
-    assert dx_rel <= 1e-4, 'K3 dxyz differs from plain'
+    assert g_excess <= 0, f'{tag} G differs from plain'
+    assert dt_excess <= 0, f'{tag} dT differs from plain'
+    assert dw_rel <= 1e-5, f'{tag} dw differs from plain'
+    assert dx_rel <= 1e-4, f'{tag} dxyz differs from plain'
+    del p_grad, p_dxyz, abs_grad, p_dt, abs_dt, k_dt, k_dxyz
 
-    t_enc = median_ms(lambda: kernels.hash_encode_bwd(
-        g, xyz, scales, off, 1.0, oob, slots))
-    t_enc_plain = median_ms(lambda: hg.encode_bwd_plain(
-        g, xyz, scales, off, 1.0, oob, slots))
-    t_dt = median_ms(lambda: kernels.hash_bake(k_grad, masks32, weights,
-                                               'hash_bake_bwd'))
-    t_dt_plain = median_ms(lambda: hg.bake_plain(k_grad, masks, weights))
-    t_dw = median_ms(lambda: kernels.hash_bake_dw(table3, k_grad, masks32))
-    t_dw_plain = median_ms(lambda: hg.bake_dw_plain(table3, k_grad, masks))
     tbytes = table3.numel() * 4
+    fold_flops = table3.numel() * masks.shape[1] * 2
+    fold_bound = bound_ms(2 * tbytes, fold_flops)
+    if paired:
+        t_bake = median_ms(lambda: k_bake(table3, masks32, weights))
+        t_bake_plain = median_ms(lambda: hg.bake_plain(table3, masks,
+                                                       weights, variant))
+        t_fwd = median_ms(lambda: k_enc(baked, xyz, scales, off, 1.0, oob))
+        t_fwd_plain = median_ms(lambda: hg.encode_plain(
+            baked, xyz, scales, off, 1.0, oob, variant))
+        # encode: points in, the distinct baked rows this batch reads
+        # (each once) and the features out
+        x01 = (xyz + 1.0) / 2.0
+        ok = ((x01 >= 0) & (x01 <= 1)).all(-1)
+        rows_read = 0
+        for lv in range(spec.num_levels):
+            rows, _, _ = hg._corners(x01[ok], scales[lv], off, slots,
+                                     variant)
+            rows_read += int(torch.unique(torch.cat(rows)).numel())
+        fwd_bound = bound_ms(
+            n * 12 + rows_read * spec.level_dim * 4
+            + n * spec.output_dim * 4,
+            inb * spec.num_levels * 8 * (2 * spec.level_dim + 3))
+        log(f'[{tag}] (a) shift bake {t_bake:.3f} ms (plain '
+            f'{t_bake_plain:.2f}, bound {fold_bound[0]:.3f}); (b) paired '
+            f'encode {t_fwd:.3f} ms (plain {t_fwd_plain:.1f}, bound '
+            f'{fwd_bound[0]:.3f}, {rows_read} distinct rows)')
+        out[names['bake']] = (bake_err, t_bake, t_bake_plain, *fold_bound)
+        out[names['enc']] = (enc_err, t_fwd, t_fwd_plain, *fwd_bound)
+    t_enc = median_ms(lambda: k_bwd(g, xyz, scales, off, 1.0, oob, slots))
+    t_enc_plain = median_ms(lambda: hg.encode_bwd_plain(
+        g, xyz, scales, off, 1.0, oob, slots, None, variant))
+    t_dt = median_ms(lambda: k_bake(k_grad, inv32, weights, names['dt']))
+    t_dt_plain = median_ms(lambda: hg.bake_plain(k_grad, inv, weights,
+                                                 variant))
+    t_dw = median_ms(lambda: k_dw(table3, k_grad, masks32))
+    t_dw_plain = median_ms(lambda: hg.bake_dw_plain(table3, k_grad, masks,
+                                                    variant))
     # scatter: g rows of in-bounds points and xyz read once, G written once
     enc_bound = bound_ms(inb * spec.output_dim * 4 + n * 12 + tbytes,
                          inb * spec.num_levels * 8 * spec.level_dim * 2)
-    dt_bound = bound_ms(2 * tbytes, table3.numel() * masks.shape[1] * 2)
-    dw_bound = bound_ms(2 * tbytes, table3.numel() * masks.shape[1] * 2)
-    log(f'[K3] (a) scatter {t_enc:.3f} ms (plain {t_enc_plain:.2f} ms, bound '
-        f'{enc_bound[0]:.3f} ms); (b) dT bake {t_dt:.3f} ms (plain '
-        f'{t_dt_plain:.2f}); (c) dw {t_dw:.3f} ms (plain {t_dw_plain:.2f}, '
-        f'bound {dw_bound[0]:.3f} ms)')
-    return dict(points=n, in_bounds=inb,
-                hash_encode_bwd=(g_err, t_enc, t_enc_plain,
-                                 *enc_bound),
-                hash_bake_bwd=(dt_err, t_dt, t_dt_plain, *dt_bound),
-                hash_bake_dw=(dw_rel, t_dw, t_dw_plain, *dw_bound))
+    log(f'[{tag}] scatter {t_enc:.3f} ms (plain {t_enc_plain:.2f} ms, bound '
+        f'{enc_bound[0]:.3f} ms); dT bake {t_dt:.3f} ms (plain '
+        f'{t_dt_plain:.2f}, bound {fold_bound[0]:.3f}); dw {t_dw:.3f} ms '
+        f'(plain {t_dw_plain:.2f}, bound {fold_bound[0]:.3f} ms)')
+    out.update(in_bounds=inb)
+    out[names['bwd']] = (g_err, t_enc, t_enc_plain, *enc_bound)
+    out[names['dt']] = (dt_err, t_dt, t_dt_plain, *fold_bound)
+    out[names['dw']] = (dw_rel, t_dw, t_dw_plain, *fold_bound)
+    return out
 
 
 def train_path(torch, kernels, cfg, world, voxel, dev):
@@ -258,46 +337,242 @@ def train_path(torch, kernels, cfg, world, voxel, dev):
     for name in ('dda', 'hash_bake', 'hash_encode', 'hash_encode_bwd',
                  'hash_bake_bwd', 'hash_bake_dw'):
         assert counts[name] > 0, f'kernel {name} never launched in training'
+    for name in PAIRED:
+        assert counts[name] == 0, f'the xor training step launched {name}'
     return dict(counts=counts, steps=steps, s_per_iter=spi,
                 peak_gb=peak_gb, rays=hw * hw)
 
 
-def kernel_rows(serving, k3, train):
-    """The `kernels` JSON rows: K1, K2a, K2b on the serving path and
-    K3a-c on the training path, with launches per frame and per step,
+class _Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self):
+        return ''.join(self.parts)
+
+
+def _run_cli(torch, kernels, argv):
+    """One `cli.train.main(argv)`: (its printed output, launch counts,
+    the run's log directory, its metrics.jsonl records by name, seconds,
+    peak GB)."""
+    import contextlib
+    import gc
+    import glob
+    from scenedreamer_tpu_torch.cli import train as cli
+    logs = argv[argv.index('--logdir') + 1]
+    before = set(glob.glob(os.path.join(logs, '*')))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    tee = _Tee(sys.stdout)
+    t0 = time.time()
+    with contextlib.redirect_stdout(tee):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    (logdir,) = set(glob.glob(os.path.join(logs, '*'))) - before
+    series = {}
+    with open(os.path.join(logdir, 'metrics.jsonl')) as f:
+        for line in f:
+            rec = json.loads(line)
+            for k, v in rec.items():
+                if k not in ('t', 'step'):
+                    series.setdefault(k, []).append((rec['step'], v))
+    return tee.text(), counts, logdir, series, seconds, peak_gb
+
+
+def _check_counts(counts, ran, idle, what):
+    log(f'[loop] {what}: launches {counts}')
+    for name in ('dda',) + ran:
+        assert counts[name] > 0, f'{what}: kernel {name} never launched'
+    for name in idle:
+        assert counts[name] == 0, f'{what}: launched {name}'
+
+
+def loop_path(torch, kernels, world, dev):
+    """Phase 9: the training CLI at the flagship training width, on the
+    paired variant (6 iterations, then a resume to 8), on the xor
+    variant (3) and with `--speed-benchmark` (3)."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import yaml
+    from scenedreamer_tpu_torch.data.synthetic import make_paired_folder
+    from scenedreamer_tpu_torch.scene.voxel_world import (SAMPLE_HEIGHT,
+                                                          save_world_cache)
+    root = os.path.join(REPO, 'smoke_out', 'loop')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.time()
+    # the cache holds uncropped worlds; rows outside [ground, sky) are
+    # dropped again on load, so zeros there give the same world back
+    full = np.zeros((SAMPLE_HEIGHT,) + world.voxel.shape[1:], np.int8)
+    full[world.y_offset:world.y_offset + world.voxel.shape[0]] = world.voxel
+    save_world_cache(dataclasses.replace(world, voxel=full, y_offset=0),
+                     os.path.join(root, 'cache', '000000'))
+    make_paired_folder(os.path.join(root, 'data'), n=16, size=320, seed=SEED)
+    with open(os.path.join(REPO, 'configs', 'scenedreamer_train.yaml')) as f:
+        base = yaml.safe_load(f)
+    base.update(logging_iter=1, snapshot_save_iter=3, image_save_iter=4)
+    configs = {}
+    for variant in ('paired', 'xor'):
+        cfg = json.loads(json.dumps(base))
+        if variant == 'paired':
+            cfg['gen']['hash_variant'] = 'paired'
+        configs[variant] = os.path.join(root, f'train_{variant}.yaml')
+        with open(configs[variant], 'w') as f:
+            yaml.safe_dump(cfg, f)
+    log(f'[loop] terrain cache + 16 PNG pairs + yamls in '
+        f'{time.time() - t0:.1f} s under {root}')
+
+    def argv(variant, logs, *extra):
+        return ['--config', configs[variant], '--data-root',
+                os.path.join(root, 'data'), '--terrain-cache',
+                os.path.join(root, 'cache'), '--logdir',
+                os.path.join(root, logs), '--seed', str(SEED)] + list(extra)
+
+    def finite(series, what):
+        assert series, f'{what}: no metrics written'
+        for name, points in series.items():
+            for step, v in points:
+                assert math.isfinite(v), f'{what}: {name} = {v} at {step}'
+
+    # paired: 6 iterations -------------------------------------------------
+    text, counts, logdir, series, secs, peak = _run_cli(
+        torch, kernels, argv('paired', 'logs_paired', '--max-iter', '6'))
+    _check_counts(counts, PAIRED, XOR, 'paired, 6 iterations')
+    finite(series, 'paired')
+    assert [s for s, _ in series['gen/total']] == [1, 2, 3, 4, 5, 6]
+    ckpts = os.path.join(logdir, 'checkpoints')
+    with open(os.path.join(ckpts, 'latest_checkpoint.txt')) as f:
+        assert f.read().strip() == 'step_00000006.pt'
+    tables = [torch.load(os.path.join(ckpts, f'step_{i:08d}.pt'),
+                         map_location='cpu', weights_only=True)
+              ['generator']['hash_encoder.embeddings'] for i in (3, 6)]
+    moved = float((tables[1] - tables[0]).abs().max())
+    log(f'[loop] hash table change between iterations 3 and 6 (max abs): '
+        f'{moved:.3g}')
+    assert moved > 0, 'the hash table did not move'
+    del tables
+    assert os.path.exists(os.path.join(logdir, 'images',
+                                       'train_snapshot_00000004.png'))
+    ips = [v for _, v in series['perf/iters_per_s']]
+    paired_spi = statistics.median(1.0 / v for v in ips[1:])
+    fallback = series['sampler/fallback_rate'][-1][1]
+    log(f'[loop] paired: {paired_spi:.3f} s/iteration (median of iterations '
+        f'2-6, batch build prefetched; all {[round(1 / v, 3) for v in ips]}), '
+        f'run {secs:.1f} s with set-up and checkpoints, peak memory '
+        f'{peak:.1f} GB, sampler/fallback_rate {fallback}')
+    loop = dict(counts=counts, iterations=6, s_per_iter=paired_spi,
+                peak_gb=peak, fallback_rate=fallback)
+
+    # paired: resume to 8 --------------------------------------------------
+    text, counts, logdir2, series, secs, _ = _run_cli(
+        torch, kernels, argv('paired', 'logs_paired', '--max-iter', '8',
+                             '--resume'))
+    assert 'resumed at iteration 6' in text, 'the run did not resume at 6'
+    _check_counts(counts, PAIRED, XOR, 'paired, resumed to 8')
+    finite(series, 'paired resumed')
+    assert [s for s, _ in series['gen/total']] == [7, 8]
+    with open(os.path.join(logdir2, 'checkpoints',
+                           'latest_checkpoint.txt')) as f:
+        assert f.read().strip() == 'step_00000008.pt'
+
+    # xor: 3 iterations ----------------------------------------------------
+    text, counts, _, series, secs, xpeak = _run_cli(
+        torch, kernels, argv('xor', 'logs_xor', '--max-iter', '3'))
+    _check_counts(counts, XOR, PAIRED, 'xor, 3 iterations')
+    finite(series, 'xor')
+    ips = [v for _, v in series['perf/iters_per_s']]
+    xor_spi = statistics.median(1.0 / v for v in ips[1:])
+    log(f'[loop] xor: {xor_spi:.3f} s/iteration (median of iterations 2-3; '
+        f'all {[round(1 / v, 3) for v in ips]}), peak memory {xpeak:.1f} GB')
+    loop.update(xor_counts=counts, xor_iterations=3, xor_s_per_iter=xor_spi)
+
+    # paired with --speed-benchmark: 3 iterations ---------------------------
+    text, counts, _, series, secs, _ = _run_cli(
+        torch, kernels, argv('paired', 'logs_speed', '--max-iter', '3',
+                             '--speed-benchmark'))
+    finite(series, 'speed benchmark')
+    phases = {}
+    for name in ('world_sample', 'batch_build', 'train_step'):
+        vals = [v for step, v in series[f'speed/{name}_ms'] if step > 1]
+        phases[name] = statistics.mean(vals)
+    total = sum(phases.values())
+    log('[loop] --speed-benchmark, no prefetch, mean of iterations 2-3 '
+        '(ms): ' + ', '.join(f'{k} {v:.1f}' for k, v in phases.items())
+        + f'; host-side batch share (world_sample + batch_build) '
+        f'{(total - phases["train_step"]) / total:.3f} of {total:.1f} ms')
+    loop.update(phases_ms=phases)
+    return loop
+
+
+def kernel_rows(serving, k3, train, k5, loop):
+    """The `kernels` JSON rows: K1, K2a, K2b on the serving path, K3a-c
+    on the training path and K5a-d on the training loop's paired run,
     each read from the kernel's own counter. `launches` is the count of
-    the path the kernel was ported for: serving for K1/K2, training for
-    K3 (K3b is K2a's kernel on G, counted as 'hash_bake_bwd')."""
+    the path the kernel was ported for: serving for K1/K2, the training
+    step for K3 (K3b is K2a's kernel on G, counted as 'hash_bake_bwd'),
+    the paired loop run for K5 (K5d's table half is K5a's kernel on G
+    with the inverse shifts, counted as 'hash_shift_bake_bwd')."""
     counts, tcounts = serving['counts'], train['counts']
+    lcounts, xcounts = loop['counts'], loop['xor_counts']
 
     def row(name, source, replaces, err, ms, plain, bound, by, path,
             **extra):
+        per_loop = xcounts[name] / loop['xor_iterations'] if name in XOR \
+            else lcounts[name] / loop['iterations']
         return dict(name=name, route='cuda', source=source,
                     replaces=replaces, launches=path[name], max_abs_err=err,
                     ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                     library_ms=None,
                     launches_per_frame=counts[name] / serving['n_frames'],
                     launches_per_step=tcounts[name] / train['steps'],
-                    **extra)
+                    launches_per_loop_iteration=per_loop, **extra)
 
     ms, errs, extra = serving['ms'], serving['errs'], serving['extra']
     fwd = 'scenedreamer_tpu_torch/csrc/hashgrid_fwd.cu'
     bwd = 'scenedreamer_tpu_torch/csrc/hashgrid_bwd.cu'
+    paired = 'scenedreamer_tpu_torch/csrc/hashgrid_paired.cu'
+    jax_hg = 'scenedreamer_tpu/ops/hashgrid.py'
     return [
         row('dda', 'scenedreamer_tpu_torch/csrc/dda.cu',
             'scenedreamer_tpu/ops/ray_voxel.py:456', errs['dda'],
             *ms['dda'], counts, **extra['dda']),
-        row('hash_bake', fwd, 'scenedreamer_tpu/ops/hashgrid.py:626',
+        row('hash_bake', fwd, f'{jax_hg}:626',
             errs['hash_bake'], *ms['hash_bake'], counts),
-        row('hash_encode', fwd, 'scenedreamer_tpu/ops/hashgrid.py:848',
+        row('hash_encode', fwd, f'{jax_hg}:848',
             errs['hash_encode'], *ms['hash_encode'], counts,
             **extra['hash_encode']),
-        row('hash_encode_bwd', bwd, 'scenedreamer_tpu/ops/hashgrid.py:361',
+        row('hash_encode_bwd', bwd, f'{jax_hg}:361',
             *k3['hash_encode_bwd'], tcounts, points=k3['points']),
-        row('hash_bake_bwd', fwd, 'scenedreamer_tpu/ops/hashgrid.py:642',
+        row('hash_bake_bwd', fwd, f'{jax_hg}:642',
             *k3['hash_bake_bwd'], tcounts),
-        row('hash_bake_dw', bwd, 'scenedreamer_tpu/ops/hashgrid.py:642',
+        row('hash_bake_dw', bwd, f'{jax_hg}:642',
             *k3['hash_bake_dw'], tcounts),
+        row('hash_shift_bake', paired, f'{jax_hg}:664',
+            *k5['hash_shift_bake'], lcounts),
+        row('hash_encode_paired', paired, f'{jax_hg}:458',
+            *k5['hash_encode_paired'], lcounts, points=k5['points']),
+        row('hash_encode_paired_bwd', paired, f'{jax_hg}:427',
+            *k5['hash_encode_paired_bwd'], lcounts, points=k5['points']),
+        row('hash_shift_bake_bwd', paired, f'{jax_hg}:642',
+            *k5['hash_shift_bake_bwd'], lcounts),
+        row('hash_shift_bake_dw', paired, f'{jax_hg}:642',
+            *k5['hash_shift_bake_dw'], lcounts),
     ]
 
 
@@ -525,13 +800,25 @@ def main():
     batch = make_batch(world, batch_size=1, height=hw, width=hw,
                        max_samples=tcfg.num_blocks_early_stop, pad=tcfg.pad,
                        seed=SEED, device=dev, voxel=voxel)
-    k3 = k3_check(torch, kernels, hg, tcfg, batch, world.dims, dev)
+    k3 = backward_check(torch, kernels, hg, tcfg, batch, world.dims, dev,
+                        'K3')
     torch.cuda.empty_cache()
 
     # 7. the training path -------------------------------------------------
     train = train_path(torch, kernels, tcfg, world, voxel, dev)
+    torch.cuda.empty_cache()
 
-    table_rows = kernel_rows(serving, k3, train)
+    # 8. K5 vs plain -------------------------------------------------------
+    k5 = backward_check(torch, kernels, hg,
+                        GeneratorConfig(hash_variant='paired'), batch,
+                        world.dims, dev, 'K5')
+    del batch, voxel
+    torch.cuda.empty_cache()
+
+    # 9. the training loop -------------------------------------------------
+    loop = loop_path(torch, kernels, world, dev)
+
+    table_rows = kernel_rows(serving, k3, train, k5, loop)
     log(json.dumps({'kernels': table_rows}))
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',

@@ -1,0 +1,555 @@
+"""Training CLI: the SceneDreamer GAN training loop, in PyTorch.
+
+Counterpart of `scenedreamer_tpu/cli/train.py` (reference `train.py:50-164`):
+config loading, seeding, dataloader / model / trainer construction, the
+epoch / iteration loop with the D and G updates, metric logging, image
+snapshots, checkpoint cadence, resume from `latest_checkpoint.txt`, and a
+checkpoint on SIGTERM / SIGINT.
+
+The per-iteration flow mirrors `trainers/gancraft.py:139-156`: sample a
+cached world, rejection-sample cameras (kernel K1), make the SPADE
+pseudo ground truth and the masks, outside autograd; then run the
+training step (kernels K2/K3, or K5 with `gen.hash_variant: paired`).
+The same yaml keys and flags as the JAX package's CLI, plus `--device`
+(default 'cuda'; raises without a GPU unless 'cpu' is asked for). One
+process, one device; float32 (`trainer.amp_config.enabled: true` raises).
+
+Usage:
+    python -m scenedreamer_tpu_torch.cli.train \\
+        --config configs/scenedreamer_train.yaml \\
+        --data-root data/lhq --terrain-cache data/terrain_cache \\
+        --logdir logs
+"""
+import argparse
+import glob
+import os
+import signal
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
+
+import numpy as np
+import torch
+
+from scenedreamer_tpu_torch.data.paired_dataset import (AugmentConfig,
+                                                        DataLoader,
+                                                        PairedImageDataset)
+from scenedreamer_tpu_torch.device import resolve_device
+from scenedreamer_tpu_torch.models.discriminator import GANcraftDiscriminator
+from scenedreamer_tpu_torch.models.generator import (GeneratorConfig,
+                                                     SceneDreamerGenerator)
+from scenedreamer_tpu_torch.models.spade import SPADEWrapper
+from scenedreamer_tpu_torch.scene.voxel_world import WorldCache
+from scenedreamer_tpu_torch.train import losses as L
+from scenedreamer_tpu_torch.train import optim
+from scenedreamer_tpu_torch.train.sampling import (CameraBatchSampler,
+                                                   CameraSamplerConfig,
+                                                   PseudoGTGenerator,
+                                                   TrainingBatchBuilder)
+from scenedreamer_tpu_torch.train.trainer import (GANTrainer, TrainerConfig,
+                                                  load_checkpoint,
+                                                  save_checkpoint)
+from scenedreamer_tpu_torch.utils.config import Config
+from scenedreamer_tpu_torch.utils.meters import (MetricsWriter,
+                                                 make_logging_dir)
+from scenedreamer_tpu_torch.utils.profiling import PhaseTimer
+from scenedreamer_tpu_torch.utils.visualization import (image_grid,
+                                                        tensor2im,
+                                                        tensor2label)
+
+
+def build_everything(cfg, args, device):
+    """Models, loader, world cache, batch builder and trainer from the
+    config and the parsed flags, on `device`."""
+    gen_cfg = cfg.get('gen', {})
+    crop = tuple(gen_cfg.get('crop_size', (256, 256)))
+    pad = int(gen_cfg.get('pad', 6))
+
+    # `trainer.amp_config.enabled` (reference
+    # `configs/scenedreamer_train.yaml:11-12`): the shipped config trains
+    # with it off; bf16 mixed precision is not ported
+    if bool(cfg.get('trainer', {}).get('amp_config', {})
+            .get('enabled', False)):
+        raise NotImplementedError(
+            'trainer.amp_config.enabled: true (bf16 mixed precision) is '
+            'not ported; the port trains in float32')
+
+    gcfg = GeneratorConfig(
+        style_dims=int(gen_cfg.get('style_dims', 128)),
+        interm_style_dims=int(gen_cfg.get('interm_style_dims', 256)),
+        final_feat_dim=int(gen_cfg.get('final_feat_dim', 64)),
+        pad=pad,
+        num_blocks_early_stop=int(gen_cfg.get('num_blocks_early_stop', 6)),
+        num_samples=int(gen_cfg.get('num_samples', 24)),
+        sample_depth=float(gen_cfg.get('sample_depth', 3.0)),
+        raw_noise_std=float(gen_cfg.get('raw_noise_std', 0.0)),
+        dists_scale=float(gen_cfg.get('dists_scale', 0.25)),
+        # extensions over the reference yaml: the hash-grid / MLP sizes
+        # (hard-coded at scenedreamer.py:51 upstream)
+        hash_num_levels=int(gen_cfg.get('hash_num_levels', 16)),
+        hash_level_dim=int(gen_cfg.get('hash_level_dim', 8)),
+        hash_log2_size=int(gen_cfg.get('hash_log2_size', 19)),
+        hash_desired_resolution=int(gen_cfg.get('hash_desired_resolution',
+                                                2048)),
+        hash_variant=str(gen_cfg.get('hash_variant', 'xor')),
+        mlp_hidden=int(gen_cfg.get('mlp_hidden', 256)),
+        style_enc_num_filters=int(
+            gen_cfg.get('style_enc', {}).get('num_filters', 64)),
+    )
+    generator = SceneDreamerGenerator(gcfg, seed=args.seed).to(device)
+
+    dis_cfg = cfg.get('dis', {})
+    if not bool(dis_cfg.get('smooth_resample', True)):
+        raise NotImplementedError(
+            'dis.smooth_resample: false is not ported (the shipped '
+            'configs keep it on)')
+    discriminator = GANcraftDiscriminator(
+        num_labels=int(dis_cfg.get('num_labels', 12)),
+        num_filters=int(dis_cfg.get('num_filters', 128)),
+        seed=args.seed).to(device)
+
+    dataset = PairedImageDataset(
+        args.data_root, dataset_type=args.dataset_type,
+        augment=AugmentConfig(random_crop_h_w=crop))
+    loader = DataLoader(dataset, batch_size=args.batch_size,
+                        seed=args.seed,
+                        num_workers=int(cfg.get('data', {})
+                                        .get('num_workers', 4)))
+
+    world_cache = WorldCache(args.terrain_cache)
+
+    spade_apply = _load_spade_oracle(args, device)
+    sampler, pseudo_gt, builder = _build_sampler_and_pgt(
+        cfg, args, spade_apply, device,
+        num_blocks_early_stop=gcfg.num_blocks_early_stop)
+
+    # losses / trainer
+    lw = dict(cfg.get('trainer', {}).get('loss_weight',
+                                         L.DEFAULT_LOSS_WEIGHTS))
+    if not lw:
+        # Config injects an empty loss_weight default; an empty dict
+        # would train with a constant-zero objective
+        lw = dict(L.DEFAULT_LOSS_WEIGHTS)
+    perc_cfg = cfg.get('trainer', {}).get('perceptual_loss', None)
+    perceptual = None
+    if 'perceptual' in lw:
+        kwargs = {}
+        if perc_cfg:
+            kwargs = dict(layers=tuple(perc_cfg['layers']),
+                          weights=tuple(perc_cfg['weights']))
+        perceptual = L.PerceptualLoss(seed=args.seed, **kwargs).to(device)
+    ema_cfg = cfg.get('trainer', {}).get('model_average_config', {})
+    ema_beta = 0.0
+    if ema_cfg.get('enabled', False):
+        if 'g_smooth_img' in ema_cfg:
+            # half-life parameterization (`utils/trainer.py:158-167`):
+            # beta = 0.5 ** (global_batch / g_smooth_img)
+            ema_beta = 0.5 ** (args.batch_size
+                               / float(ema_cfg['g_smooth_img']))
+        else:
+            ema_beta = float(ema_cfg.get('beta', 0.9999))
+    # grad clip/skip (reference `gen_opt.clip_grad_norm` +
+    # `gen_opt.skip_grad`, `trainers/base.py:701-721`): trainer.* keys
+    # take precedence, gen_opt.* accepted for reference-yaml compatibility
+    tcfg = cfg.get('trainer', {})
+    gocfg = cfg.get('gen_opt', {})
+    clip = float(tcfg.get('grad_clip_norm',
+                          gocfg.get('clip_grad_norm', 0.0) or 0.0)
+                 if not gocfg.get('skip_grad', False) else 0.0)
+    skip_norm = float(tcfg.get(
+        'skip_grad_norm',
+        (gocfg.get('clip_grad_norm', 0.0) or 0.0)
+        if gocfg.get('skip_grad', False) else 0.0))
+    do = cfg.get('dis_opt', {})
+    iters_per_epoch = max(len(loader), 1)
+    d_opt = optim.make_discriminator_optimizer(
+        discriminator, lr=float(do.get('lr', optim.DIS_LR)),
+        lr_policy=dict(do['lr_policy']) if do.get('lr_policy') else None,
+        iters_per_epoch=iters_per_epoch)
+    trainer = GANTrainer(
+        generator, discriminator, voxel_dims=None,  # set per world
+        cfg=TrainerConfig(
+            loss_weights=lw,
+            grad_clip_norm=clip,
+            skip_grad_norm=skip_norm,
+            aug_policy=str(tcfg.get('aug_policy', '') or ''),
+            ema_beta=ema_beta),
+        perceptual=perceptual, d_opt=d_opt,
+        iters_per_epoch=iters_per_epoch)
+    if float(do.get('lr', optim.DIS_LR)) != optim.DIS_LR:
+        print(f"[train] dis lr override: {do.get('lr')}")
+    if clip or skip_norm:
+        print(f'[train] grad guard: clip_norm={clip} '
+              f'skip_norm={skip_norm}')
+    return (generator, discriminator, loader, world_cache, builder,
+            trainer, gcfg)
+
+
+def _load_spade_oracle(args, device):
+    """Build the frozen SPADE pseudo-GT oracle's apply function:
+    (label one-hot [B, R, R, 185], torch generator) -> image [B, R, R, 3].
+    184 labels: the pseudo-GT one-hot is 185-ch but the oracle consumes
+    label[..., :-1] exactly like the reference
+    (`trainers/gancraft.py:53`). Weights are a state dict of
+    `models/spade.SPADEWrapper` saved with `torch.save`
+    (`--spade-checkpoint`), else a seeded random init. `args` needs
+    spade_checkpoint / spade_size / spade_res / spade_filters /
+    spade_oracle_f32."""
+    sd = None
+    nf, sf, zd = args.spade_filters, 128, 256
+    if args.spade_checkpoint:
+        sd = torch.load(args.spade_checkpoint, map_location='cpu',
+                        weights_only=True)
+        head = sd['spade_generator.head_0.layers.conv.weight']
+        if head.shape[1] != 184:
+            raise SystemExit(
+                f'--spade-checkpoint has a {head.shape[1]}-label oracle; '
+                'the pseudo-GT path (like the reference, '
+                'trainers/gancraft.py:53) feeds a 184-label SPADE with '
+                'label[..., :-1]. Re-export the checkpoint at 184 labels.')
+        # architecture widths come from the checkpoint when one is
+        # loaded; the flags only describe the default reference shape
+        nf = head.shape[0] // 8
+        sf = sd['spade_generator.head_1.conv_block_0.layers.norm.mlps.0.0'
+                '.layers.conv.weight'].shape[0]
+        zd = sd['spade_generator.fc_0.layers.conv.weight'].shape[1]
+    spade = SPADEWrapper(num_labels=184, out_size=args.spade_size,
+                         num_filters=nf, spade_filters=sf, style_dims=zd,
+                         seed=0)
+    if sd is not None:
+        spade.load_state_dict(sd)
+        print('[train] loaded SPADE oracle weights')
+    else:
+        print('[train] WARNING: SPADE oracle randomly initialized '
+              '(provide --spade-checkpoint for real pseudo-GT)')
+    spade = spade.to(device).eval().requires_grad_(False)
+    if not args.spade_oracle_f32:
+        # the reference evals its frozen oracle half-precision
+        # unconditionally (`trainers/gancraft.py:41` calls `.half()`
+        # whether or not AMP is on); bf16 as in the JAX package. The
+        # wrapper casts the labels to the weights' type and
+        # `PseudoGTGenerator` casts the image back to float32.
+        spade = spade.to(torch.bfloat16)
+
+    def spade_apply(masks, generator):
+        with torch.no_grad():
+            return spade({'label': masks[..., :-1]}, random_style=True,
+                         generator=generator)['fake_images']
+    return spade_apply
+
+
+def _build_sampler_and_pgt(cfg, args, spade_apply, device,
+                           num_blocks_early_stop=6):
+    """Camera sampler + pseudo-GT + batch builder from a config dict."""
+    gen_cfg = cfg.get('gen', {})
+    crop = tuple(gen_cfg.get('crop_size', (256, 256)))
+    pad = int(gen_cfg.get('pad', 6))
+    sampler = CameraBatchSampler(CameraSamplerConfig(
+        cam_res=tuple(gen_cfg.get('cam_res', (360, 640))),
+        crop_size=crop, pad=pad,
+        num_blocks_early_stop=num_blocks_early_stop,
+        camera_sampler_type=gen_cfg.get('camera_sampler_type',
+                                        'traditional'),
+        camera_rej_avg_depth=float(gen_cfg.get('camera_rej_avg_depth',
+                                               2.0)),
+        camera_min_entropy=float(gen_cfg.get('camera_min_entropy', 0.75)),
+        label_smooth_dia=int(gen_cfg.get('label_smooth_dia', 11))),
+        device=device)
+    pseudo_gt = PseudoGTGenerator(
+        spade_apply, pad=pad, spade_res=args.spade_res,
+        use_label_smooth_pgt=bool(gen_cfg.get('use_label_smooth_pgt',
+                                              True)),
+        label_smooth_dia=int(gen_cfg.get('label_smooth_dia', 11)))
+    builder = TrainingBatchBuilder(sampler, pseudo_gt)
+    return sampler, pseudo_gt, builder
+
+
+def _parser():
+    p = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument('--config', default=None)
+    p.add_argument('--data-root', required=True)
+    p.add_argument('--dataset-type', default='folder',
+                   choices=['folder', 'lmdb'])
+    p.add_argument('--terrain-cache', required=True)
+    p.add_argument('--spade-checkpoint', default='')
+    p.add_argument('--spade-size', type=int, default=512,
+                   choices=[256, 512, 1024],
+                   help='SPADE architecture variant (512 = reference)')
+    p.add_argument('--spade-res', type=int, default=512,
+                   help='resolution the oracle is evaluated at '
+                        '(512 = reference)')
+    p.add_argument('--spade-filters', type=int, default=128)
+    p.add_argument('--world-switch-every', type=int, default=1,
+                   help='resample the PCG world every N iterations '
+                        '(1 = the reference per-iteration semantics, '
+                        'scenedreamer.py:88)')
+    p.add_argument('--spade-oracle-f32', action='store_true',
+                   help='keep the frozen SPADE oracle in float32 (the '
+                        'reference runs it half-precision always, '
+                        'trainers/gancraft.py:41, so bf16 is the default)')
+    p.add_argument('--logdir', default='logs')
+    p.add_argument('--batch-size', type=int, default=1)
+    p.add_argument('--max-epoch', type=int, default=None)
+    p.add_argument('--max-iter', type=int, default=None)
+    p.add_argument('--seed', type=int, default=0)
+    p.add_argument('--resume', action='store_true')
+    p.add_argument('--two-forward', dest='shared_fwd',
+                   action='store_false', default=True,
+                   help='render the generator twice per iteration '
+                        '(separate D/G forwards, the reference shape); '
+                        'default is the single-forward step '
+                        '(train_step_shared). Env override: '
+                        'SCENEDREAMER_SHARED_FWD=0')
+    p.add_argument('--speed-benchmark', action='store_true',
+                   help='per-phase wall timers with a device barrier '
+                        '(trainers/base.py:876-940 speed_benchmark); '
+                        'disables the prefetch so phases stay '
+                        'attributable')
+    p.add_argument('--no-prefetch', dest='prefetch', action='store_false',
+                   help='disable building batch i+1 on a worker thread '
+                        'while the device trains on batch i (a single '
+                        'ordered worker keeps every rng/world call in '
+                        'the serial order, so the batches are the same)')
+    p.add_argument('--device', default=None,
+                   help="torch device (default 'cuda'; 'cpu' runs the "
+                        'plain PyTorch path)')
+    return p
+
+
+def main(argv=None):
+    a = _parser().parse_args(argv)
+    device = resolve_device(a.device)
+    cfg = Config(a.config)
+
+    # AutoResume parity (`train.py:152-158`): on SIGTERM/SIGINT save a
+    # checkpoint before exiting so the run resumes with --resume.
+    # Handlers can only be set from the main thread; the caller's are
+    # restored on the way out.
+    stop_requested = {'flag': False}
+    old_handlers = {}
+    if threading.current_thread() is threading.main_thread():
+        def _on_term(signum, frame):
+            stop_requested['flag'] = True
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            old_handlers[sig] = signal.signal(sig, _on_term)
+    try:
+        return _run(a, cfg, device, stop_requested)
+    finally:
+        for sig, handler in old_handlers.items():
+            signal.signal(sig, handler)
+
+
+def _run(a, cfg, device, stop_requested):
+    max_epoch = a.max_epoch or int(cfg.get('max_epoch', 400))
+    logging_iter = int(cfg.get('logging_iter', 10))
+    snapshot_save_iter = int(cfg.get('snapshot_save_iter', 10000))
+    snapshot_save_epoch = int(cfg.get('snapshot_save_epoch', 5))
+    image_save_iter = int(cfg.get('image_save_iter', 5000))
+    (gen, dis, loader, world_cache, builder, trainer, gcfg) = \
+        build_everything(cfg, a, device)
+
+    logdir = make_logging_dir(a.logdir, cfg.get('name', 'scenedreamer'))
+    writer = MetricsWriter(logdir)
+    ckpt_dir = os.path.join(logdir, 'checkpoints')
+    print(f'[train] logging to {logdir}')
+
+    # host dice (worlds, cameras, relabeling) from one numpy generator;
+    # device draws (oracle style, render) from per-step torch generators
+    # seeded off one master generator
+    rng = np.random.default_rng(a.seed)
+    master = torch.Generator().manual_seed(a.seed)
+
+    # one world per batch element (reference: one per DDP rank).
+    # WorldCache crops every world to the cache-wide height slab, so
+    # voxel dims are the same across swaps.
+    world = [world_cache.sample_world(rng=_RandomAdapter(rng))
+             for _ in range(a.batch_size)]
+    trainer.voxel_dims = tuple(int(d) for d in world[0].voxel.shape)
+
+    timer = PhaseTimer(device) if a.speed_benchmark else None
+
+    def _ph(name):
+        return timer.phase(name) if timer else nullcontext()
+
+    it = 0
+    shared = a.shared_fwd and bool(int(os.environ.get(
+        'SCENEDREAMER_SHARED_FWD', '1')))
+    step_fn = trainer.train_step_shared if shared else trainer.train_step
+    print(f"[train] iteration step: "
+          f"{'single-forward (shared graph)' if shared else 'two-forward'}")
+    if a.resume:
+        resume_dir = _find_resume_dir(a.logdir, ckpt_dir)
+        restored = load_checkpoint(resume_dir, trainer) \
+            if resume_dir else None
+        if restored is not None:
+            it = int(trainer.step)
+            print(f'[train] resumed at iteration {it} from {resume_dir}')
+            # reset_opt_{g,d}_on_resume (`trainers/gancraft.py:300-305`):
+            # fresh optimizer state, restored weights
+            tc = cfg.get('trainer', {})
+            ipe = max(len(loader), 1)
+            if tc.get('reset_opt_g_on_resume', False):
+                trainer.g_opt = optim.make_generator_optimizer(
+                    gen, iters_per_epoch=ipe)
+                print('[train] reset opt_G state')
+            if tc.get('reset_opt_d_on_resume', False):
+                do = cfg.get('dis_opt', {})
+                trainer.d_opt = optim.make_discriminator_optimizer(
+                    dis, lr=float(do.get('lr', optim.DIS_LR)),
+                    lr_policy=dict(do['lr_policy'])
+                    if do.get('lr_policy') else None, iters_per_epoch=ipe)
+                print('[train] reset opt_D state')
+    pending_metrics = []
+
+    def _flush_pending():
+        for m in pending_metrics:
+            for k, v in m.items():
+                writer.meter(k).write(float(v))
+        pending_metrics.clear()
+
+    # batch prefetch: ONE ordered worker builds batch i+1 (world
+    # resample + camera rejection + pseudo-GT) while the device runs
+    # train_step(i). Sequencing is identical to the serial loop: the
+    # worker executes jobs one at a time in submission order, so every
+    # rng/world_cache call happens in the same order, and the torch
+    # generators are seeded on the main thread. The device work of the
+    # batch build rides the same stream as the train step.
+    use_prefetch = a.prefetch and not a.speed_benchmark
+    executor = ThreadPoolExecutor(max_workers=1) if use_prefetch else None
+
+    def _build(data_np, it_now, g_batch):
+        nonlocal world
+        if it_now > 0 and it_now % max(1, a.world_switch_every) == 0:
+            with _ph('world_sample'):
+                world = [world_cache.sample_world(rng=_RandomAdapter(rng))
+                         for _ in range(a.batch_size)]
+        data = {k: torch.from_numpy(v).to(device)
+                for k, v in data_np.items() if k in ('images', 'label')}
+        with _ph('batch_build'):
+            return builder(data, world, rng, g_batch)
+
+    def _next_generators():
+        # exactly ONE pair of seeds per iteration, always in serial
+        # order: prefetching only moves WHEN a pair is drawn
+        seeds = torch.randint(0, 2 ** 62, (2,), generator=master).tolist()
+        return tuple(torch.Generator(device=device).manual_seed(s)
+                     for s in seeds)
+
+    def _finish(message):
+        _flush_pending()
+        path = save_checkpoint(ckpt_dir, trainer)
+        print(message.format(it=it, ckpt_dir=ckpt_dir, path=path))
+
+    try:
+        t0 = time.time()
+        for epoch in range(max_epoch):
+            loader.set_epoch(epoch)
+            diter = iter(loader)
+            nxt = next(diter, None)
+            fut = None            # (future, g_step) for the prefetched batch
+            while nxt is not None:
+                data_np, nxt = nxt, next(diter, None)
+                if fut is not None:
+                    pending, g_step = fut
+                    batch = pending.result()
+                    fut = None
+                else:
+                    g_batch, g_step = _next_generators()
+                    batch = _build(data_np, it, g_batch)
+                if executor is not None and nxt is not None:
+                    gb2, gs2 = _next_generators()
+                    fut = (executor.submit(_build, nxt, it + 1, gb2), gs2)
+                with _ph('train_step'):
+                    metrics = step_fn(batch, g_step)
+                it += 1
+                pending_metrics.append(metrics)
+                if it % logging_iter == 0:
+                    _flush_pending()
+                    dt = time.time() - t0
+                    writer.flush_meters(it)
+                    writer.scalar('perf/iters_per_s', logging_iter / dt, it)
+                    # cameras admitted past max_rejections must be visible
+                    # (the reference retries forever; here bounded + counted)
+                    writer.scalar('sampler/fallback_rate',
+                                  builder.sampler.fallback_rate, it)
+                    print(f'epoch {epoch} iter {it} '
+                          f'({logging_iter / dt:.2f} it/s) '
+                          f"G {float(metrics['gen/total']):.3f} "
+                          f"D {float(metrics['dis/total']):.3f}")
+                    if timer is not None:
+                        print('[speed_benchmark]\n' + timer.report())
+                        for name, mean_s in timer.means().items():
+                            writer.scalar(f'speed/{name}_ms', mean_s * 1e3, it)
+                        timer.reset()
+                    t0 = time.time()
+                if it % snapshot_save_iter == 0:
+                    save_checkpoint(ckpt_dir, trainer)
+                if it % image_save_iter == 0:
+                    _save_snapshot_images(writer, trainer, batch, g_step, it)
+                if stop_requested['flag']:
+                    _finish('[train] termination requested - checkpointed '
+                            '{path}')
+                    return
+                if a.max_iter and it >= a.max_iter:
+                    break
+            if a.max_iter and it >= a.max_iter:
+                break
+            if (epoch + 1) % snapshot_save_epoch == 0:
+                save_checkpoint(ckpt_dir, trainer)
+        _finish('[train] done at iteration {it}; checkpoints in {ckpt_dir}')
+    finally:
+        writer.close()
+        if executor is not None:
+            executor.shutdown(wait=False, cancel_futures=True)
+
+
+def _find_resume_dir(logdir_root, own_ckpt_dir):
+    """Newest prior run with a checkpoint (each run gets a fresh
+    date-uid dir, so resume searches sibling runs; one
+    `latest_checkpoint.txt` pointer per run, `trainers/base.py:262-270`)."""
+    candidates = sorted(
+        glob.glob(os.path.join(logdir_root, '*', 'checkpoints',
+                               'latest_checkpoint.txt')),
+        key=os.path.getmtime, reverse=True)
+    for c in candidates:
+        d = os.path.dirname(c)
+        if os.path.abspath(d) != os.path.abspath(own_ckpt_dir):
+            return d
+    return None
+
+
+def _save_snapshot_images(writer, trainer, batch, generator, it):
+    """Periodic visualization strip: real | label | fake | pseudo-GT
+    (`trainers/gancraft.py:253-286`)."""
+    with torch.no_grad():
+        out = trainer.gen(batch, trainer.voxel_dims, random_style=True,
+                          generator=generator)
+    imgs = []
+    if 'images' in batch:
+        imgs.append(tensor2im(batch['images'][0]))
+    if 'label' in batch:
+        imgs.append(tensor2label(batch['label'][0]))
+    imgs.append(tensor2im(out['fake_images'][0]))
+    if 'pseudo_real_img' in batch:
+        imgs.append(tensor2im(batch['pseudo_real_img'][0]))
+    h = min(im.shape[0] for im in imgs)
+    w = min(im.shape[1] for im in imgs)
+    imgs = [im[:h, :w] for im in imgs]
+    writer.image('train/snapshot', image_grid(imgs), it)
+
+
+class _RandomAdapter:
+    """numpy Generator -> `random.choice`-style interface used by
+    WorldCache."""
+
+    def __init__(self, rng):
+        self.rng = rng
+
+    def choice(self, seq):
+        return seq[int(self.rng.integers(0, len(seq)))]
+
+
+if __name__ == '__main__':
+    main()

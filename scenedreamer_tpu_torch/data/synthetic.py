@@ -1,5 +1,5 @@
-"""Synthetic world + training batch builders for tests, smoke runs and
-dry runs.
+"""Synthetic world, training batch and paired-dataset builders for tests,
+smoke runs and dry runs.
 
 Counterpart of `scenedreamer_tpu/data/synthetic.py` (the reference's
 batch contract of `Generator._get_batch` + `sample_camera`,
@@ -12,8 +12,11 @@ stand-ins with SPADE outputs and photos.
 
 The numpy draws happen in the JAX package's order from one
 `numpy.random.default_rng(seed)`, so both packages build the same batch.
-Tensors are NHWC on `device`.
+Tensors are NHWC on `device`. `make_paired_folder` writes a folder
+dataset in the contract of `data/paired_dataset.py` with the port alone.
 """
+import os
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -23,6 +26,7 @@ from scenedreamer_tpu_torch.ops.ray_voxel import (camera_rays,
 from scenedreamer_tpu_torch.scene import camera as cam
 from scenedreamer_tpu_torch.scene import terrain, voxel_world
 from scenedreamer_tpu_torch.scene.labels import mc2reduced
+from scenedreamer_tpu_torch.utils.png import write_png
 
 
 def make_world(size=128, seed=42, fill_depth=8, n_voronoi=40,
@@ -81,3 +85,31 @@ def make_batch(world, batch_size=2, height=34, width=34, max_samples=4,
         data['fake_masks'] = onehot
         data['real_masks'] = onehot
     return data
+
+
+def make_paired_folder(root, n=8, size=320, seed=0, num_labels=183):
+    """Write `n` image / segmentation pairs of `size` x `size` as PNG
+    under `root/images` and `root/seg_maps` (paired by stem): smooth
+    random colour fields, and label maps of a few rectangles with labels
+    in the coco range [0, num_labels) plus some 255 (dont-care)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, 'images'), exist_ok=True)
+    os.makedirs(os.path.join(root, 'seg_maps'), exist_ok=True)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    for i in range(n):
+        freq = rng.uniform(1.0, 6.0, (3, 2)).astype(np.float32)
+        phase = rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
+        img = np.stack([np.sin(2 * np.pi * (f[0] * yy + f[1] * xx) + p)
+                        for f, p in zip(freq, phase)], -1)
+        img = np.clip((img * 0.5 + 0.5) * 255, 0, 255).astype(np.uint8)
+        seg = np.full((size, size), int(rng.integers(0, num_labels)),
+                      np.uint8)
+        for _ in range(6):
+            y0, x0 = rng.integers(0, size - 8, 2)
+            h, w = rng.integers(8, size // 2, 2)
+            label = 255 if rng.random() < 0.15 \
+                else int(rng.integers(0, num_labels))
+            seg[y0:y0 + h, x0:x0 + w] = label
+        write_png(os.path.join(root, 'images', f'{i:05d}.png'), img)
+        write_png(os.path.join(root, 'seg_maps', f'{i:05d}.png'), seg)
+    return root

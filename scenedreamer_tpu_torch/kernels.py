@@ -33,16 +33,21 @@ from scenedreamer_tpu_torch.utils.build import finish_compile, start_compile
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 SOURCES = {'dda': 'dda.cu', 'hashgrid_fwd': 'hashgrid_fwd.cu',
-           'hashgrid_bwd': 'hashgrid_bwd.cu'}
+           'hashgrid_bwd': 'hashgrid_bwd.cu',
+           'hashgrid_paired': 'hashgrid_paired.cu'}
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-Xptxas=-v', '-shared', '-Xcompiler',
               '-fPIC']
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()  # the training CLI launches from two threads
 _LIBS = {}
 BUILD_LOGS = {}     # nvcc output (ptxas registers / spills) per source
 _LAUNCHES = {'dda': 0, 'hash_bake': 0, 'hash_encode': 0,
-             'hash_encode_bwd': 0, 'hash_bake_bwd': 0, 'hash_bake_dw': 0}
+             'hash_encode_bwd': 0, 'hash_bake_bwd': 0, 'hash_bake_dw': 0,
+             'hash_shift_bake': 0, 'hash_encode_paired': 0,
+             'hash_encode_paired_bwd': 0, 'hash_shift_bake_bwd': 0,
+             'hash_shift_bake_dw': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,6 +63,13 @@ _SIGNATURES = {
                            _F, _F, _P],
     'sd_hash_bake_dw': [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
 }
+# the paired variant's entry points (K5) take the arguments of their xor
+# counterparts
+for _xor, _paired in (('sd_hash_bake', 'sd_hash_shift_bake'),
+                      ('sd_hash_encode', 'sd_hash_encode_paired'),
+                      ('sd_hash_encode_bwd', 'sd_hash_encode_paired_bwd'),
+                      ('sd_hash_bake_dw', 'sd_hash_shift_bake_dw')):
+    _SIGNATURES[_paired] = _SIGNATURES[_xor]
 DW_BLOCKS = 256     # blocks per level of the dw reduction (K3 (c))
 
 
@@ -108,7 +120,8 @@ def _launch(source, fn, name, device, *args):
     if err != 0:
         raise RuntimeError(f'{name} kernel launch failed: '
                            f'{lib.sd_error_string(err).decode()} ({err})')
-    _LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        _LAUNCHES[name] += 1
 
 
 def _require(t, dtype, name, ndim=None):
@@ -157,6 +170,23 @@ def hash_bake(table3, masks, weights, counter='hash_bake'):
     same kernel run on the baked table's gradient (K3 (b))."""
     if counter not in ('hash_bake', 'hash_bake_bwd'):
         raise ValueError(f'unknown bake counter {counter!r}')
+    return _bake('hashgrid_fwd', 'sd_hash_bake', counter, table3, masks,
+                 weights)
+
+
+def hash_shift_bake(table3, shifts, weights, counter='hash_shift_bake'):
+    """K5 (a). As `hash_bake` with cyclic shifts [L, A] int32 in [0, S):
+    baked[l, j] = sum_a w[l,a] * table3[l, (j + shifts[l,a]) mod S].
+    `counter` is 'hash_shift_bake' for the forward bake and
+    'hash_shift_bake_bwd' for the same kernel run on the baked table's
+    gradient with the inverse shifts (K5 (d), the table half)."""
+    if counter not in ('hash_shift_bake', 'hash_shift_bake_bwd'):
+        raise ValueError(f'unknown bake counter {counter!r}')
+    return _bake('hashgrid_paired', 'sd_hash_shift_bake', counter, table3,
+                 shifts, weights)
+
+
+def _bake(source, fn, counter, table3, masks, weights):
     _require(table3, torch.float32, 'table', 3)
     _require(masks, torch.int32, 'masks', 2)
     _require(weights, torch.float32, 'weights', 2)
@@ -166,7 +196,7 @@ def hash_bake(table3, masks, weights, counter='hash_bake'):
         raise ValueError('bake needs C % 4 == 0, a power-of-two S and '
                          '[L, A] masks/weights')
     baked = torch.empty_like(table3)
-    _launch('hashgrid_fwd', 'sd_hash_bake', counter, table3.device,
+    _launch(source, fn, counter, table3.device,
             table3.data_ptr(), masks.data_ptr(), weights.data_ptr(),
             baked.data_ptr(), lv, s, c, masks.shape[1])
     return baked
@@ -175,6 +205,20 @@ def hash_bake(table3, masks, weights, counter='hash_bake'):
 def hash_encode(baked, xyz, scales, offset, bound, scene_oob):
     """K2 (b). baked [L, S, C] float32 (S a power of two, C 4 or 8);
     xyz [N, 3] float32; scales [L] float32 -> [N, L*C] float32."""
+    return _encode('hashgrid_fwd', 'sd_hash_encode', 'hash_encode', baked,
+                   xyz, scales, offset, bound, scene_oob)
+
+
+def hash_encode_paired(baked, xyz, scales, offset, bound, scene_oob):
+    """K5 (b). As `hash_encode` under the paired hash: 4 two-row slices
+    per point and level."""
+    return _encode('hashgrid_paired', 'sd_hash_encode_paired',
+                   'hash_encode_paired', baked, xyz, scales, offset, bound,
+                   scene_oob)
+
+
+def _encode(source, fn, counter, baked, xyz, scales, offset, bound,
+            scene_oob):
     _require(baked, torch.float32, 'baked', 3)
     _require(xyz, torch.float32, 'xyz', 2)
     _require(scales, torch.float32, 'scales', 1)
@@ -186,10 +230,9 @@ def hash_encode(baked, xyz, scales, offset, bound, scene_oob):
     n = xyz.shape[0]
     out = torch.empty((n, lv * c), dtype=torch.float32, device=xyz.device)
     if n:
-        _launch('hashgrid_fwd', 'sd_hash_encode', 'hash_encode',
-                xyz.device, xyz.data_ptr(), baked.data_ptr(),
-                scales.data_ptr(), out.data_ptr(), n, lv, s, c,
-                float(bound), float(2.0 * bound), float(offset),
+        _launch(source, fn, counter, xyz.device, xyz.data_ptr(),
+                baked.data_ptr(), scales.data_ptr(), out.data_ptr(), n, lv,
+                s, c, float(bound), float(2.0 * bound), float(offset),
                 int(bool(scene_oob)))
     return out
 
@@ -200,6 +243,22 @@ def hash_encode_bwd(g, xyz, scales, offset, bound, scene_oob, slots,
     scales [L] -> (grad [L, slots, C] float32, the scatter of g into the
     baked table's rows, and dxyz [N, 3] when `baked` [L, slots, C] is
     given, else None)."""
+    return _encode_bwd('hashgrid_bwd', 'sd_hash_encode_bwd',
+                       'hash_encode_bwd', g, xyz, scales, offset, bound,
+                       scene_oob, slots, baked)
+
+
+def hash_encode_paired_bwd(g, xyz, scales, offset, bound, scene_oob, slots,
+                           baked=None):
+    """K5 (c). As `hash_encode_bwd` under the paired hash: the scatter
+    goes into rows base_k and (base_k + 1) mod slots."""
+    return _encode_bwd('hashgrid_paired', 'sd_hash_encode_paired_bwd',
+                       'hash_encode_paired_bwd', g, xyz, scales, offset,
+                       bound, scene_oob, slots, baked)
+
+
+def _encode_bwd(source, fn, counter, g, xyz, scales, offset, bound,
+                scene_oob, slots, baked):
     _require(g, torch.float32, 'g', 2)
     _require(xyz, torch.float32, 'xyz', 2)
     _require(scales, torch.float32, 'scales', 1)
@@ -218,8 +277,8 @@ def hash_encode_bwd(g, xyz, scales, offset, bound, scene_oob, slots,
     dxyz = torch.zeros((n, 3), dtype=torch.float32, device=dev) \
         if baked is not None else None
     if n and not scene_oob:
-        _launch('hashgrid_bwd', 'sd_hash_encode_bwd', 'hash_encode_bwd',
-                dev, g.data_ptr(), xyz.data_ptr(), scales.data_ptr(),
+        _launch(source, fn, counter, dev, g.data_ptr(), xyz.data_ptr(),
+                scales.data_ptr(),
                 baked.data_ptr() if baked is not None else None,
                 grad.data_ptr(),
                 dxyz.data_ptr() if dxyz is not None else None, n, lv,
@@ -232,6 +291,19 @@ def hash_bake_dw(table3, grad, masks):
     """K3 (c). table3, grad [L, S, C] float32; masks [L, A] int32 ->
     dw [L, A] float32, dw[l, a] = sum_{j,c} table3[l, j ^ m[l,a], c] *
     grad[l, j, c] (float64 partial sums in a fixed order)."""
+    return _bake_dw('hashgrid_bwd', 'sd_hash_bake_dw', 'hash_bake_dw',
+                    table3, grad, masks)
+
+
+def hash_shift_bake_dw(table3, grad, shifts):
+    """K5 (d), the weight half. As `hash_bake_dw` with cyclic shifts:
+    dw[l, a] = sum_{j,c} table3[l, (j + shifts[l,a]) mod S, c] *
+    grad[l, j, c]."""
+    return _bake_dw('hashgrid_paired', 'sd_hash_shift_bake_dw',
+                    'hash_shift_bake_dw', table3, grad, shifts)
+
+
+def _bake_dw(source, fn, counter, table3, grad, masks):
     _require(table3, torch.float32, 'table', 3)
     _require(grad, torch.float32, 'grad', 3)
     _require(masks, torch.int32, 'masks', 2)
@@ -245,7 +317,7 @@ def hash_bake_dw(table3, grad, masks):
     partial = torch.empty(lv * a * DW_BLOCKS, dtype=torch.float64,
                           device=dev)
     dw = torch.empty((lv, a), dtype=torch.float32, device=dev)
-    _launch('hashgrid_bwd', 'sd_hash_bake_dw', 'hash_bake_dw', dev,
+    _launch(source, fn, counter, dev,
             table3.data_ptr(), grad.data_ptr(), masks.data_ptr(),
             partial.data_ptr(), dw.data_ptr(), lv, s, c, a, DW_BLOCKS)
     return dw

@@ -2,10 +2,10 @@
 
 Counterpart of `scenedreamer_tpu/ops/hashgrid.py` (reference CUDA
 `gridencoder/src/gridencoder.cu` + `gridencoder/grid.py`): the same
-`HashGridSpec` (per-level resolution, table offsets, xor `fast_hash`),
-`foldable`, `init_hashgrid_table`, and `hashgrid_encode_folded` with its
-gradients, which the flagship generator always takes (D=5, every level
-hashed at one power-of-two table size).
+`HashGridSpec` (per-level resolution, table offsets, the xor `fast_hash`
+and the 'paired' ADD-combine hash), `foldable`, `init_hashgrid_table`, and
+`hashgrid_encode_folded` with its gradients, which the flagship generator
+always takes (D=5, every level hashed at one power-of-two table size).
 
 Every point of a world shares its 2-D scene code, so per level the four
 scene-corner rows fold into one baked table,
@@ -27,8 +27,19 @@ gradient with the bake itself (K3 (b): xor is its own inverse) and into
 the fold-weight gradient (K3 (c)). For CUDA tensors every step launches
 the kernels of `csrc/hashgrid_fwd.cu` and `csrc/hashgrid_bwd.cu`; for
 CPU tensors it runs the plain PyTorch versions below (index arithmetic,
-gathers and `index_add_`, the same float operations). The unfolded
-general path (K4) and the 'paired' variant (K5) are not ported yet.
+gathers and `index_add_`, the same float operations).
+
+`hash_variant='paired'` (K5) combines the per-dimension prime products
+with a wrapping uint32 ADD instead of xor. Dimension 0 has prime 1, so
+the two x-corners of a cell are the adjacent rows `base` and
+`(base + 1) mod S` (cyclic at S-1): a point reads 4 two-row slices per
+level, one per (y, z) corner, and the scene fold becomes a blend of
+cyclic shifts, `B_l[j] = sum_a w_a * T_l[(j + m_a) mod S]`, whose adjoint
+shifts the other way. The same two autograd Functions carry it with
+`variant='paired'`; on CUDA they launch the kernels of
+`csrc/hashgrid_paired.cu`, on the CPU the plain versions
+`shift_bake_plain`, `paired_encode_plain`, `paired_encode_bwd_plain` and
+`shift_bake_dw_plain`. The unfolded general path (K4) is not ported yet.
 """
 import collections
 import dataclasses
@@ -144,19 +155,39 @@ def _offset(spec):
     return 0.0 if spec.align_corners else 0.5
 
 
+VARIANTS = ('xor', 'paired')
+
+
+def _combine(variant, a, b):
+    """One step of the corner hash on int64 values: xor, or the paired
+    variant's add (callers reduce with `& (S-1)`, which also takes the
+    uint32 wrap since S divides 2^32)."""
+    return a + b if variant == 'paired' else a ^ b
+
+
+def _fold_src(variant, j, m):
+    """Source row of the scene fold: j ^ m, or (j + m) for 'paired'
+    (callers reduce with `& (S-1)`)."""
+    return j + m if variant == 'paired' else j ^ m
+
+
 # a baked table [L, S, C] and whether the scene code lies out of bounds
 # (then every point encodes to zero)
 FoldedTable = collections.namedtuple('FoldedTable', ['baked', 'scene_oob'])
 
 
 def scene_fold_weights(spec, scene, bound=1.0):
-    """Scene code [Ds] -> per-level xor masks [L, 2^Ds] int64, blend
-    weights [L, 2^Ds] float32 and the out-of-bounds flag (the math of
-    `bake` in `hashgrid_encode_folded`)."""
+    """Scene code [Ds] -> per-level fold masks [L, 2^Ds] int64 (xor
+    masks, or cyclic shifts for the 'paired' variant), blend weights
+    [L, 2^Ds] float32 and the out-of-bounds flag (the math of `bake` in
+    `hashgrid_encode_folded`). The paired masks are
+    (sum_d corner_d * P_{3+d}) mod 2^32 & (S-1); S divides 2^32 and the
+    int64 sum of two products of a corner (< 2^12) and a prime (< 2^32)
+    cannot overflow, so the final `& (S-1)` is the whole reduction."""
     ds = scene.shape[-1]
     dp = spec.input_dim - ds
-    if spec.hash_variant != 'xor':
-        raise NotImplementedError('only the xor hash variant is ported')
+    if spec.hash_variant not in VARIANTS:
+        raise ValueError(f'unknown hash_variant {spec.hash_variant!r}')
     if not foldable(spec, ds):
         raise ValueError('spec not foldable')
     size = spec.table_size // spec.num_levels
@@ -175,7 +206,8 @@ def scene_fold_weights(spec, scene, bound=1.0):
     masks = torch.zeros(corner.shape[:-1], dtype=torch.int64,
                         device=scene.device)
     for d in range(ds):
-        masks = masks ^ (corner[..., d] * PRIMES[dp + d])
+        masks = _combine(spec.hash_variant, masks,
+                         corner[..., d] * PRIMES[dp + d])
     return masks & (size - 1), weights, scene_oob
 
 
@@ -184,26 +216,38 @@ def fold_scene(spec, table, scene, bound=1.0):
     (differentiable in the table and the scene code)."""
     masks, weights, scene_oob = scene_fold_weights(spec, scene, bound)
     table3 = table.reshape(spec.num_levels, -1, spec.level_dim)
-    return FoldedTable(HashBake.apply(table3, weights, masks), scene_oob)
+    return FoldedTable(HashBake.apply(table3, weights, masks,
+                                      spec.hash_variant), scene_oob)
 
 
-def _bake(table3, masks, weights, counter='hash_bake'):
+def _bake(table3, masks, weights, variant='xor', backward=False):
+    """The fold, or (`backward`) its adjoint applied to the baked table's
+    gradient: xor is its own inverse, a shift by m is undone by S - m."""
+    if variant == 'paired' and backward:
+        masks = (table3.shape[1] - masks) & (table3.shape[1] - 1)
     if table3.is_cuda:
-        return kernels.hash_bake(table3.contiguous(),
-                                 masks.to(torch.int32).contiguous(),
-                                 weights.contiguous(), counter)
-    return bake_plain(table3, masks, weights)
+        masks32 = masks.to(torch.int32).contiguous()
+        if variant == 'paired':
+            return kernels.hash_shift_bake(
+                table3.contiguous(), masks32, weights.contiguous(),
+                'hash_shift_bake_bwd' if backward else 'hash_shift_bake')
+        return kernels.hash_bake(
+            table3.contiguous(), masks32, weights.contiguous(),
+            'hash_bake_bwd' if backward else 'hash_bake')
+    return bake_plain(table3, masks, weights, variant)
 
 
 class HashBake(torch.autograd.Function):
-    """baked = bake(table3 [L,S,C], weights [L,A]; masks [L,A]).
-    Forward K2 (a); backward dT = bake(dB) (K3 (b), the same kernel,
-    counted as 'hash_bake_bwd') and dw = bake_dw(T, dB) (K3 (c))."""
+    """baked = bake(table3 [L,S,C], weights [L,A]; masks [L,A]; variant).
+    Forward K2 (a) / K5 (a); backward dT = the adjoint bake of dB (K3 (b)
+    / K5 (d): the same kernel, counted as 'hash_bake_bwd' /
+    'hash_shift_bake_bwd') and dw = bake_dw(T, dB) (K3 (c) / K5 (d))."""
 
     @staticmethod
-    def forward(ctx, table3, weights, masks):
+    def forward(ctx, table3, weights, masks, variant='xor'):
         ctx.save_for_backward(table3, weights, masks)
-        return _bake(table3, masks, weights.detach())
+        ctx.variant = variant
+        return _bake(table3, masks, weights.detach(), variant)
 
     @staticmethod
     def backward(ctx, grad):
@@ -211,27 +255,38 @@ class HashBake(torch.autograd.Function):
         grad = grad.contiguous()
         d_table = d_weights = None
         if ctx.needs_input_grad[0]:
-            d_table = _bake(grad, masks, weights.detach(), 'hash_bake_bwd')
+            d_table = _bake(grad, masks, weights.detach(), ctx.variant,
+                            backward=True)
         if ctx.needs_input_grad[1]:
             if grad.is_cuda:
-                d_weights = kernels.hash_bake_dw(
-                    table3.detach().contiguous(), grad,
-                    masks.to(torch.int32).contiguous())
+                dw = kernels.hash_shift_bake_dw if ctx.variant == 'paired' \
+                    else kernels.hash_bake_dw
+                d_weights = dw(table3.detach().contiguous(), grad,
+                               masks.to(torch.int32).contiguous())
             else:
-                d_weights = bake_dw_plain(table3.detach(), grad, masks)
-        return d_table, d_weights, None
+                d_weights = bake_dw_plain(table3.detach(), grad, masks,
+                                          ctx.variant)
+        return d_table, d_weights, None, None
 
 
-def bake_plain(table3, masks, weights):
-    """Plain version of K2 (a): baked[l, j] = 0 + sum_a w[l,a] *
-    table3[l, j ^ masks[l,a]], summed in ascending a."""
+def bake_plain(table3, masks, weights, variant='xor'):
+    """Plain version of K2 (a) and, with variant='paired', K5 (a):
+    baked[l, j] = 0 + sum_a w[l,a] * table3[l, src(j, masks[l,a])],
+    src = j ^ m or (j + m) mod S, summed in ascending a."""
     lv, s, c = table3.shape
     j = torch.arange(s, device=table3.device)
     out = torch.zeros_like(table3)
     for a in range(masks.shape[1]):
-        src = (j[None, :] ^ masks[:, a:a + 1]).unsqueeze(-1).expand(lv, s, c)
+        src = (_fold_src(variant, j[None, :], masks[:, a:a + 1].long())
+               & (s - 1)).unsqueeze(-1).expand(lv, s, c)
         out = out + weights[:, a, None, None] * torch.gather(table3, 1, src)
     return out
+
+
+def shift_bake_plain(table3, shifts, weights):
+    """Plain version of K5 (a): baked[l, j] = sum_a w[l,a] *
+    table3[l, (j + shifts[l,a]) mod S]."""
+    return bake_plain(table3, shifts, weights, 'paired')
 
 
 def encode_folded(spec, folded, xyz, bound=1.0):
@@ -241,57 +296,63 @@ def encode_folded(spec, folded, xyz, bound=1.0):
     if xyz.shape[-1] != 3:
         raise ValueError('the folded encode takes 3-D points')
     return HashEncode.apply(folded.baked, xyz, _scales(spec, xyz.device),
-                            _offset(spec), bound, folded.scene_oob)
+                            _offset(spec), bound, folded.scene_oob,
+                            spec.hash_variant)
 
 
 class HashEncode(torch.autograd.Function):
-    """out = encode(baked [L,S,C], xyz [N,3]). Forward K2 (b); backward
-    K3 (a): the cotangent scattered into the baked table's rows and, when
-    the points need it, the gradient through frac (the baked table is
-    kept for that case only)."""
+    """out = encode(baked [L,S,C], xyz [N,3]; variant). Forward K2 (b) /
+    K5 (b); backward K3 (a) / K5 (c): the cotangent scattered into the
+    baked table's rows and, when the points need it, the gradient through
+    frac (the baked table is kept for that case only)."""
 
     @staticmethod
-    def forward(ctx, baked, xyz, scales, offset, bound, scene_oob):
-        ctx.geom = (offset, bound, scene_oob, baked.shape[1])
+    def forward(ctx, baked, xyz, scales, offset, bound, scene_oob,
+                variant='xor'):
+        ctx.geom = (offset, bound, scene_oob, baked.shape[1], variant)
         keep = baked if ctx.needs_input_grad[1] else None
         ctx.save_for_backward(xyz, scales, keep)
         if xyz.is_cuda:
-            return kernels.hash_encode(baked.detach(), xyz.contiguous(),
-                                       scales, offset, bound, scene_oob)
+            fwd = kernels.hash_encode_paired if variant == 'paired' \
+                else kernels.hash_encode
+            return fwd(baked.detach().contiguous(), xyz.contiguous(), scales,
+                       offset, bound, scene_oob)
         return encode_plain(baked.detach(), xyz.detach(), scales, offset,
-                            bound, scene_oob)
+                            bound, scene_oob, variant)
 
     @staticmethod
     def backward(ctx, g):
         xyz, scales, baked = ctx.saved_tensors
-        offset, bound, scene_oob, slots = ctx.geom
+        offset, bound, scene_oob, slots, variant = ctx.geom
         if baked is not None:
             baked = baked.detach().contiguous()
         if g.is_cuda:
-            d_baked, d_xyz = kernels.hash_encode_bwd(
-                g.contiguous(), xyz.detach().contiguous(), scales, offset,
-                bound, scene_oob, slots, baked)
+            bwd = kernels.hash_encode_paired_bwd if variant == 'paired' \
+                else kernels.hash_encode_bwd
+            d_baked, d_xyz = bwd(g.contiguous(), xyz.detach().contiguous(),
+                                 scales, offset, bound, scene_oob, slots,
+                                 baked)
         else:
             d_baked, d_xyz = encode_bwd_plain(g, xyz.detach(), scales,
                                               offset, bound, scene_oob,
-                                              slots, baked)
-        return d_baked, d_xyz, None, None, None, None
+                                              slots, baked, variant)
+        return d_baked, d_xyz, None, None, None, None, None
 
 
-def encode_plain(baked, xyz, scales, offset, bound, scene_oob):
-    """Plain version of K2 (b): per level, the cell position
-    x01 * scale + offset rounded once (as the JAX op's compiled encode
-    and the kernel round it; a separate rounding moves the fractional
-    position by up to one float32 step of the position, ~1e-4 at the
-    finest levels), 8 corner hashes ((x*1) ^ (y*P1) ^ (z*P2)) & (S-1),
-    trilinear weights as products in ascending dimension order, and
-    sum_k w_k * baked[idx_k] in ascending k."""
+def encode_plain(baked, xyz, scales, offset, bound, scene_oob,
+                 variant='xor'):
+    """Plain version of K2 (b) and, with variant='paired', K5 (b): per
+    level, the cell position x01 * scale + offset rounded once (as the JAX
+    op's compiled encode and the kernel round it; a separate rounding
+    moves the fractional position by up to one float32 step of the
+    position, ~1e-4 at the finest levels), the 8 corner rows and weights
+    of `_corners`, and sum_k w_k * baked[idx_k] in ascending k."""
     lv, s, c = baked.shape
     x01 = (xyz.to(torch.float32) + bound) / (2.0 * bound)    # [N, 3]
     oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1, keepdim=True)
     outs = []
     for level in range(lv):
-        rows, ws, _ = _corners(x01, scales[level], offset, s)
+        rows, ws, _ = _corners(x01, scales[level], offset, s, variant)
         acc = torch.zeros((xyz.shape[0], c), dtype=torch.float32,
                           device=xyz.device)
         for idx, w in zip(rows, ws):
@@ -303,10 +364,23 @@ def encode_plain(baked, xyz, scales, offset, bound, scene_oob):
     return torch.where(oob, torch.zeros_like(out), out)
 
 
-def _corners(x01, scale, offset, slots):
+def paired_encode_plain(baked, xyz, scales, offset, bound, scene_oob):
+    """Plain version of K5 (b): per level 4 bases
+    base_k = (x + y' * P1 + z' * P2) & (S-1) over the (y, z) corner bits
+    (k = y_bit + 2 z_bit), rows base_k and (base_k + 1) mod S with weights
+    (t_y t_z) * (1 - f_x, f_x), summed over k then over the row pair."""
+    return encode_plain(baked, xyz, scales, offset, bound, scene_oob,
+                        'paired')
+
+
+def _corners(x01, scale, offset, slots, variant='xor'):
     """Per level: the 8 corner rows [N] int64 and weights [N] of each
-    point, in ascending k, and the taps t[d] = (1 - frac_d, frac_d), as
-    the forward computes them."""
+    point, in ascending k (bit d of k = upper corner in dimension d), and
+    the taps t[d] = (1 - frac_d, frac_d), as the forward computes them.
+    'xor': row = ((x*1) ^ (y*P1) ^ (z*P2)) & (S-1), weight (t_x t_y) t_z.
+    'paired': row = (x*1 + y*P1 + z*P2) & (S-1), so corners 2k and 2k+1
+    are the adjacent rows base_k and (base_k + 1) mod S of the (y, z)
+    corner k, and the weight is (t_y t_z) t_x as the JAX op forms it."""
     pos = fma(x01, scale, offset)
     cell = torch.floor(pos)
     frac = pos - cell
@@ -315,19 +389,22 @@ def _corners(x01, scale, offset, slots):
     t = [[1.0 - frac[:, d], frac[:, d]] for d in range(3)]
     rows, ws = [], []
     for k in range(8):
-        idx, w = h[0][k & 1], t[0][k & 1]
-        for d in (1, 2):
-            bit = (k >> d) & 1
-            idx = idx ^ h[d][bit]
-            w = w * t[d][bit]
+        bx, by, bz = k & 1, (k >> 1) & 1, (k >> 2) & 1
+        idx = _combine(variant, _combine(variant, h[0][bx], h[1][by]),
+                       h[2][bz])
+        if variant == 'paired':
+            w = (t[1][by] * t[2][bz]) * t[0][bx]
+        else:
+            w = (t[0][bx] * t[1][by]) * t[2][bz]
         rows.append(idx & (slots - 1))
         ws.append(w)
     return rows, ws, t
 
 
 def encode_bwd_plain(g, xyz, scales, offset, bound, scene_oob, slots,
-                     baked=None):
-    """Plain version of K3 (a). g [N, L*C] -> (grad [L, slots, C]:
+                     baked=None, variant='xor'):
+    """Plain version of K3 (a) and, with variant='paired', K5 (c).
+    g [N, L*C] -> (grad [L, slots, C]:
     grad[l, idx_k] += w_k * g[n, l] over points and corners (`index_add_`
     per corner in ascending k), dxyz [N, 3] or None). With `baked`, dxyz
     is the gradient through frac: per level
@@ -345,7 +422,7 @@ def encode_bwd_plain(g, xyz, scales, offset, bound, scene_oob, slots,
     inb = ((x01 >= 0.0) & (x01 <= 1.0)).all(dim=-1, keepdim=True)
     g = torch.where(inb, g, torch.zeros_like(g))
     for level in range(lv):
-        rows, ws, t = _corners(x01, scales[level], offset, slots)
+        rows, ws, t = _corners(x01, scales[level], offset, slots, variant)
         gl = g[:, level * c:(level + 1) * c]
         gv = []
         for idx, w in zip(rows, ws):
@@ -369,19 +446,35 @@ def encode_bwd_plain(g, xyz, scales, offset, bound, scene_oob, slots,
     return grad, dx01
 
 
-def bake_dw_plain(table3, grad, masks):
-    """Plain version of K3 (c): dw[l, a] = sum_{j,c} table3[l, j ^ m[l,a],
-    c] * grad[l, j, c], in float64 as the kernel sums, rounded to
-    float32."""
+def paired_encode_bwd_plain(g, xyz, scales, offset, bound, scene_oob, slots,
+                            baked=None):
+    """Plain version of K5 (c): G[l, (base_k + j) mod S] += w[n,k,j] *
+    g[n, l] and, with `baked`, the gradient through frac for the points."""
+    return encode_bwd_plain(g, xyz, scales, offset, bound, scene_oob, slots,
+                            baked, 'paired')
+
+
+def bake_dw_plain(table3, grad, masks, variant='xor'):
+    """Plain version of K3 (c) and, with variant='paired', K5 (d):
+    dw[l, a] = sum_{j,c} table3[l, src(j, m[l,a]), c] * grad[l, j, c], in
+    float64 as the kernel sums, rounded to float32."""
     lv, s, c = table3.shape
     j = torch.arange(s, device=table3.device)
     cols = []
     for a in range(masks.shape[1]):
-        src = (j[None, :] ^ masks[:, a:a + 1].long()).unsqueeze(-1) \
-            .expand(lv, s, c)
+        src = (_fold_src(variant, j[None, :], masks[:, a:a + 1].long())
+               & (s - 1)).unsqueeze(-1).expand(lv, s, c)
         cols.append((torch.gather(table3, 1, src).double()
                      * grad.double()).sum(dim=(1, 2)))
     return torch.stack(cols, dim=-1).float()
+
+
+def shift_bake_dw_plain(table3, grad, shifts):
+    """Plain version of K5 (d), the weight half: dw[l, a] = sum_j
+    table3[l, (j + shifts[l,a]) mod S] . grad[l, j]. (The table half,
+    dT[k] = sum_a w_a * G[(k - m_a) mod S], is `shift_bake_plain` with
+    shifts (S - m_a) mod S.)"""
+    return bake_dw_plain(table3, grad, shifts, 'paired')
 
 
 def hashgrid_encode_folded(spec, table, xyz, scene, bound=1.0):

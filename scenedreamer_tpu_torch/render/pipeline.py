@@ -19,8 +19,6 @@ tiles-per-dispatch batching, `export_tile`, style interpolation, depth
 colormaps and the mp4 writer.
 """
 import os
-import struct
-import zlib
 
 import numpy as np
 import torch
@@ -29,6 +27,7 @@ from scenedreamer_tpu_torch.device import resolve_device
 from scenedreamer_tpu_torch.ops.ray_voxel import (camera_rays,
                                                   ray_voxel_intersection)
 from scenedreamer_tpu_torch.scene.camera import EvalCameraController
+from scenedreamer_tpu_torch.utils.png import write_png
 
 # biome color LUT for the semantic-map visualization
 # (`scenedreamer.py:534-546`)
@@ -46,24 +45,6 @@ def to_uint8(img):
     """[-1, 1] float -> uint8 RGB."""
     return np.clip((np.asarray(img) * 0.5 + 0.5) * 255, 0,
                    255).astype(np.uint8)
-
-
-def write_png(path, img_uint8):
-    """Write an [H, W, 3] uint8 RGB image as PNG (zlib; no image library)."""
-    img = np.ascontiguousarray(img_uint8, np.uint8)
-    h, w = img.shape[:2]
-    raw = b''.join(b'\0' + img[y].tobytes() for y in range(h))
-
-    def chunk(tag, data):
-        body = tag + data
-        return (struct.pack('>I', len(data)) + body
-                + struct.pack('>I', zlib.crc32(body) & 0xffffffff))
-
-    with open(path, 'wb') as f:
-        f.write(b'\x89PNG\r\n\x1a\n'
-                + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
-                + chunk(b'IDAT', zlib.compress(raw, 4))
-                + chunk(b'IEND', b''))
 
 
 class TiledRenderer:

@@ -1,13 +1,15 @@
 """Voxel world construction from BEV terrain maps.
 
-Copy of the serving part of `scenedreamer_tpu/scene/voxel_world.py`
-(`VoxelWorld`, `build_voxel_world` and their helpers; the training
-cache contract waits for the training slice). Host numpy: biome ->
-minecraft-label column fill with a k-deep shell, procedural tree
+Counterpart of `scenedreamer_tpu/scene/voxel_world.py` (`VoxelWorld`,
+`build_voxel_world` and their helpers, and the training cache contract:
+`save_world_cache`, `load_world_cache`, `WorldCache`). Host numpy: biome
+-> minecraft-label column fill with a k-deep shell, procedural tree
 stamping, camera heightmap, vertical crop to [ground, sky), int8 grid.
-The renderer moves `voxel` to the device itself.
+The renderer and the camera sampler move `voxel` to the device
+themselves.
 """
 import dataclasses
+import os
 import random
 
 import numpy as np
@@ -187,3 +189,94 @@ def build_voxel_world(height_map, semantic_map, tree_map,
                       height_field=height_field,
                       semantic_field=onehot[None],
                       y_offset=gnd)
+
+
+# --------------------------------------------------------------------------
+# Cache contract (reference `scripts/pcg_cache.py:104-127`,
+# `pcg_gen.py:26-45`)
+# --------------------------------------------------------------------------
+
+def save_world_cache(world, outdir):
+    """Write the uncropped world in the reference's cache format."""
+    os.makedirs(outdir, exist_ok=True)
+    if world.y_offset != 0:
+        raise ValueError('save uncropped worlds (crop=False)')
+    v = world.voxel
+    y, x, z = np.nonzero(v)
+    sparse = np.stack([y, x, z, v[y, x, z]]).astype(np.int16)
+    np.save(os.path.join(outdir, 'voxel_sparse.npy'), sparse)
+    np.save(os.path.join(outdir, 'height_map.npy'), world.height_field)
+    np.save(os.path.join(outdir, 'semantic_map.npy'), world.semantic_field)
+    np.save(os.path.join(outdir, 'hmap_mc.npy'), world.heightmap)
+
+
+def load_world_cache(world_dir, sample_height=SAMPLE_HEIGHT,
+                     crop_height=None):
+    """Load one cached world (densify COO, crop to [gnd, sky)).
+
+    crop_height: if given, crop to a FIXED [gnd, gnd + crop_height)
+    slab (zero-padded above the 256-level ceiling) instead of the
+    world's own [gnd, sky). The reference's torch loop tolerates a
+    different voxel height per world (`pcg_gen.py:43-46`);
+    `WorldCache` passes the cache-wide max height here so every world
+    of a cache has the same voxel dims (as in the JAX package, whose
+    jitted step needs them static).
+    """
+    sparse = np.load(os.path.join(world_dir, 'voxel_sparse.npy'))
+    height_field = np.load(os.path.join(world_dir, 'height_map.npy'))
+    semantic_field = np.load(os.path.join(world_dir, 'semantic_map.npy'))
+    heightmap = np.load(os.path.join(world_dir, 'hmap_mc.npy'))
+    size = height_field.shape[-1]
+    voxel = np.zeros((sample_height, size, size), np.int8)
+    idx = sparse.astype(np.int64)
+    voxel[idx[0], idx[1], idx[2]] = sparse[3]
+    gnd = int(heightmap.min())
+    sky = int(heightmap.max()) + 1
+    if crop_height is not None:
+        if crop_height < sky - gnd:
+            raise ValueError(f'crop_height {crop_height} < world height '
+                             f'{sky - gnd} in {world_dir}')
+        sky = gnd + int(crop_height)
+    if semantic_field.shape[1] < 11:  # pad tree channel if absent
+        pad = np.zeros((1, 11 - semantic_field.shape[1], size, size),
+                       semantic_field.dtype)
+        semantic_field = np.concatenate([semantic_field, pad], axis=1)
+    slab = voxel[gnd:sky]
+    if slab.shape[0] < sky - gnd:    # fixed slab rises past level 256
+        slab = np.concatenate(
+            [slab, np.zeros((sky - gnd - slab.shape[0], size, size),
+                            np.int8)], axis=0)
+    return VoxelWorld(voxel=np.ascontiguousarray(slab),
+                      heightmap=heightmap.astype(np.int32),
+                      height_field=height_field.astype(np.float32),
+                      semantic_field=semantic_field.astype(np.float32),
+                      y_offset=gnd)
+
+
+class WorldCache:
+    """Directory of cached worlds; random sampling for training
+    (reference PCGCache, `pcg_gen.py:10-57`).
+
+    Every sampled world is cropped to the same height slab (the max
+    [gnd, sky) span over the cache, scanned once from the small
+    `hmap_mc.npy` files at init), so voxel dims stay the same across
+    per-iteration world swaps and multi-world batches can be stacked."""
+
+    def __init__(self, cache_dir, uniform_height=True):
+        self.paths = sorted(
+            os.path.join(cache_dir, p) for p in os.listdir(cache_dir)
+            if os.path.isdir(os.path.join(cache_dir, p)))
+        if not self.paths:
+            raise FileNotFoundError(f'no cached worlds in {cache_dir}')
+        self.slab_height = None
+        if uniform_height:
+            spans = []
+            for p in self.paths:
+                hm = np.load(os.path.join(p, 'hmap_mc.npy'))
+                spans.append(int(hm.max()) - int(hm.min()) + 1)
+            self.slab_height = max(spans)
+
+    def sample_world(self, rng=None):
+        rng = rng or random
+        return load_world_cache(rng.choice(self.paths),
+                                crop_height=self.slab_height)

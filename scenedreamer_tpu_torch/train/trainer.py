@@ -102,19 +102,23 @@ class GANTrainer:
     """
 
     def __init__(self, generator, discriminator, voxel_dims,
-                 cfg=None, perceptual=None, iters_per_epoch=1000):
+                 cfg=None, perceptual=None, iters_per_epoch=1000,
+                 d_opt=None):
         self.cfg = cfg = cfg if cfg is not None else TrainerConfig()
         if cfg.aug_policy:
             raise NotImplementedError(
                 'DiffAugment (aug_policy) is not ported; only the '
                 "shipped default '' is")
         self.gen, self.dis = generator, discriminator
-        self.voxel_dims = tuple(int(d) for d in voxel_dims)
+        # None: set per world by the caller before the first step
+        self.voxel_dims = None if voxel_dims is None \
+            else tuple(int(d) for d in voxel_dims)
         self.perceptual = perceptual
         self.g_opt = optim.make_generator_optimizer(
             generator, iters_per_epoch=iters_per_epoch)
-        self.d_opt = optim.make_discriminator_optimizer(
-            discriminator, iters_per_epoch=iters_per_epoch)
+        self.d_opt = d_opt if d_opt is not None else \
+            optim.make_discriminator_optimizer(
+                discriminator, iters_per_epoch=iters_per_epoch)
         self.step = 0
         self.g_ema = {n: p.detach().clone()
                       for n, p in generator.named_parameters()} \

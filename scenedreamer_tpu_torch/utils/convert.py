@@ -17,7 +17,9 @@ names, so the mapping is
 `discriminator_state_dict_from_flax` and `vgg_state_dict_from_flax` map
 the JAX discriminator (with its spectral-norm power-iteration vectors)
 and VGG19 feature extractor onto `models/discriminator.py` and
-`models/vgg.py`.
+`models/vgg.py`; `spade_state_dict_from_flax` maps the frozen SPADE
+oracle's params and stored batch-norm statistics onto `models/spade.py`
+(the inverse of `convert_spade`, `convert.py:232-322` there).
 """
 import re
 
@@ -120,3 +122,56 @@ def vgg_state_dict_from_flax(params):
     return {f'{name}.{"weight" if leaf == "kernel" else leaf}':
             _tensor(_torch_layout([leaf], v))
             for name, sub in params.items() for leaf, v in sub.items()}
+
+
+def spade_state_dict_from_flax(variables):
+    """`SPADEWrapper` variables {'params': ..., 'batch_stats': ...} in the
+    frozen layout (numpy-convertible leaves) -> the state dict of
+    `models/spade.SPADEWrapper`, whose names are the reference's:
+      * conv / dense `kernel` -> `<block>.layers.conv.weight` in torch
+        layout, `bias` beside it;
+      * SpadeNorm `mlp` / `gamma` / `beta` -> `mlps.0.0` / `gammas.0` /
+        `betas.0` (`.layers.conv`);
+      * res block `conv{0,1,_s}` + `norm{0,1,_s}` -> `conv_block_{0,1,s}
+        .layers.{conv,norm}`;
+      * batch_stats mean / var / scale / offset -> `norm.running_mean` /
+        `running_var` / `weight` / `bias`.
+    The style encoder's leaves, if present, are ignored (not ported)."""
+    params = variables['params']['spade_generator']
+    stats = variables.get('batch_stats', {}).get('spade_generator', {})
+    sd = {}
+
+    def put(prefix, leaf_dict):
+        for leaf, v in leaf_dict.items():
+            name = 'weight' if leaf == 'kernel' else leaf
+            sd[f'{prefix}.{name}'] = _tensor(_torch_layout([leaf], v))
+
+    def put_bn(prefix, st):
+        for src, dst in (('mean', 'running_mean'), ('var', 'running_var'),
+                         ('scale', 'weight'), ('offset', 'bias')):
+            sd[f'{prefix}.{dst}'] = _tensor(np.asarray(st[src], np.float32))
+
+    for name, sub in params.items():
+        top = f'spade_generator.{name}'
+        if name.startswith('cbn_'):
+            put(f'{top}.layers.conv', sub['conv'])
+            put(f'{top}.layers.norm.fc_gamma.layers.conv',
+                sub['norm']['fc_gamma'])
+            put(f'{top}.layers.norm.fc_beta.layers.conv',
+                sub['norm']['fc_beta'])
+            put_bn(f'{top}.layers.norm.norm', stats[name]['norm']['norm'])
+        elif 'conv0' in sub:
+            for conv, norm, block in (('conv0', 'norm0', 'conv_block_0'),
+                                      ('conv1', 'norm1', 'conv_block_1'),
+                                      ('conv_s', 'norm_s', 'conv_block_s')):
+                if conv not in sub:
+                    continue
+                put(f'{top}.{block}.layers.conv', sub[conv])
+                nk = f'{top}.{block}.layers.norm'
+                put(f'{nk}.mlps.0.0.layers.conv', sub[norm]['mlp'])
+                put(f'{nk}.gammas.0.layers.conv', sub[norm]['gamma'])
+                put(f'{nk}.betas.0.layers.conv', sub[norm]['beta'])
+                put_bn(f'{nk}.norm', stats[name][norm]['norm'])
+        else:                       # fc_0, fc_1, head_0, conv_img*
+            put(f'{top}.layers.conv', sub)
+    return sd

@@ -1,18 +1,20 @@
 """Time and profile the PyTorch port's GAN training step on the GPU.
 
     python scripts/torch_profile_train.py [--scene_size 1024] [--steps 3]
+                                          [--hash_variant xor|paired]
 
 Builds a world (seed 8888) and the flagship training models of
 configs/scenedreamer_train.yaml from seeded random weights (generator
-`GeneratorConfig()`, D with 128 filters, VGG19 perceptual loss), takes
+`GeneratorConfig()` with the chosen `hash_variant`: 'xor' runs kernels
+K2/K3, 'paired' K5; D with 128 filters, VGG19 perceptual loss), takes
 batch-1 crops of 256 + pad 6 from `data/synthetic.make_batch`, and
 prints: seconds per `train_step_shared` (host clock around synchronised
 steps, after two warm-up steps), the device time by kernel name over
 one profiled step (torch.profiler), the device busy share of that step,
-and peak device memory. With `--scatter_order`, last the hash scatter K3a
-alone on one crop's sample points in ray order (as training feeds it)
-and in a random order, to show how much of its time is atomic
-contention between neighbouring samples. The models and the sample
+and peak device memory. With `--scatter_order`, last the variant's hash
+scatter (K3a or K5c) alone on one crop's sample points in ray order (as
+training feeds it) and in a random order, to show how much of its time
+is atomic contention between neighbouring samples. The models and the sample
 points come from `chip_smoke.py` (`make_trainer`, `sample_points`).
 Float32 throughout (TF32 off). Needs CUDA.
 """
@@ -34,8 +36,12 @@ def main(argv=None):
     p.add_argument('--seed', type=int, default=8888)
     p.add_argument('--steps', type=int, default=3)
     p.add_argument('--top', type=int, default=30)
+    p.add_argument('--hash_variant', default='xor',
+                   choices=['xor', 'paired'],
+                   help='hash variant of the profiled step')
     p.add_argument('--scatter_order', action='store_true',
-                   help='also time K3a in ray order and shuffled')
+                   help='also time the hash scatter in ray order and '
+                        'shuffled')
     a = p.parse_args(argv)
 
     import torch
@@ -60,7 +66,8 @@ def main(argv=None):
                               maps.tree_map, fill_depth=16, seed=a.seed)
     voxel = torch.from_numpy(world.voxel).to(dev)
     print(f'world {world.dims} in {time.time() - t0:.1f} s', flush=True)
-    cfg = GeneratorConfig()
+    cfg = GeneratorConfig(hash_variant=a.hash_variant)
+    print(f'hash variant {cfg.hash_variant}', flush=True)
     trainer = make_trainer(cfg, world.dims, dev, seed=a.seed)
     draws = torch.Generator(device=dev).manual_seed(a.seed)
     hw = 256 + cfg.pad
@@ -115,7 +122,8 @@ def main(argv=None):
 
 
 def scatter_order(torch, kernels, cfg, batch, dims, seed):
-    """K3a on the crop's sample points, in ray order and shuffled."""
+    """The variant's scatter (K3a or K5c) on the crop's sample points,
+    in ray order and shuffled."""
     from scenedreamer_tpu_torch.ops import hashgrid as hg
     spec, dev = cfg.hash_spec, batch['depth'].device
     xyz = sample_points(batch, cfg, dims)
@@ -124,9 +132,13 @@ def scatter_order(torch, kernels, cfg, batch, dims, seed):
                     device=dev)
     perm = torch.randperm(xyz.shape[0], generator=gen, device=dev)
     scales, slots = hg._scales(spec, dev), spec.table_size // spec.num_levels
+    paired = spec.hash_variant == 'paired'
+    scatter = kernels.hash_encode_paired_bwd if paired \
+        else kernels.hash_encode_bwd
+    label = 'K5c paired scatter' if paired else 'K3a scatter'
     for name, x in (('ray order', xyz), ('shuffled', xyz[perm].contiguous())):
-        fn = lambda: kernels.hash_encode_bwd(g, x, scales, hg._offset(spec),
-                                             1.0, False, slots)
+        fn = lambda: scatter(g, x, scales, hg._offset(spec), 1.0, False,
+                             slots)
         fn()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -135,7 +147,7 @@ def scatter_order(torch, kernels, cfg, batch, dims, seed):
             fn()
         end.record()
         torch.cuda.synchronize()
-        print(f'K3a scatter, {xyz.shape[0]} points in {name}: '
+        print(f'{label}, {xyz.shape[0]} points in {name}: '
               f'{start.elapsed_time(end) / 3:.2f} ms')
 
 

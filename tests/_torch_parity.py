@@ -23,13 +23,14 @@ def port_config(jcfg):
                               if f.name != 'dtype'})
 
 
-def tiny_models(key_seed=0, batch_hw=20):
+def tiny_models(key_seed=0, batch_hw=20, cfg=TINY):
     """(world, flax model, flax params as numpy, port model, batch of
-    numpy arrays) as `test_golden._build` makes them."""
+    numpy arrays) as `test_golden._build` makes them, for the JAX
+    generator config `cfg`."""
     world = make_world(size=64, seed=7, n_voronoi=20, boundary_detect=4)
-    jmodel = JGen(cfg=TINY)
+    jmodel = JGen(cfg=cfg)
     batch = make_batch(world, batch_size=1, height=batch_hw, width=batch_hw,
-                       max_samples=4, pad=TINY.pad, seed=0,
+                       max_samples=4, pad=cfg.pad, seed=0,
                        include_gan_data=False)
     key = jax.random.PRNGKey(key_seed)
     params = jmodel.init({'params': key}, batch, world.dims, key,
@@ -37,13 +38,13 @@ def tiny_models(key_seed=0, batch_hw=20):
     # the style encoder's leaves come from an init that style-encodes;
     # every other leaf stays the golden tests' own
     gan_batch = make_batch(world, batch_size=1, height=batch_hw,
-                           width=batch_hw, max_samples=4, pad=TINY.pad,
+                           width=batch_hw, max_samples=4, pad=cfg.pad,
                            seed=0, include_gan_data=True)
     style = jmodel.init({'params': key}, gan_batch, world.dims, key,
                         random_style=False)['params']['style_encoder']
     params = {'params': {**params['params'], 'style_encoder': style}}
     params = jax.tree_util.tree_map(np.asarray, params)
-    tmodel = SceneDreamerGenerator(port_config(TINY))
+    tmodel = SceneDreamerGenerator(port_config(cfg))
     tmodel.load_state_dict(generator_state_dict_from_flax(params))
     tmodel.eval()
     batch = {k: np.asarray(v) for k, v in batch.items()}

@@ -95,3 +95,24 @@ def test_discriminator_and_vgg_load_strictly():
     perc = PerceptualLoss(layers=('relu_2_1',), weights=(1.0,))
     VGG19Features(('relu_2_1',)).load_state_dict(
         vgg_state_dict_from_flax(perc.params), strict=True)
+
+
+def test_paired_variant_table_converts_like_xor():
+    """`hash_variant` changes how rows are addressed, not the table: the
+    same leaf, the same shape, copied as it is."""
+    import dataclasses
+    cfg = dataclasses.replace(TINY, hash_variant='paired')
+    params = tiny_models(key_seed=2, batch_hw=12, cfg=cfg)[2]
+    sd = generator_state_dict_from_flax(params)
+    model = SceneDreamerGenerator(port_config(cfg))
+    model.load_state_dict(sd, strict=True)
+    assert model.cfg.hash_spec.hash_variant == 'paired'
+    table = np.asarray(params['params']['hash_table'])
+    assert tuple(sd['hash_encoder.embeddings'].shape) == table.shape \
+        == (model.cfg.hash_spec.table_size, cfg.hash_level_dim)
+    np.testing.assert_array_equal(sd['hash_encoder.embeddings'].numpy(),
+                                  table)
+    back = convert_scenedreamer_generator(
+        {k: v.numpy() for k, v in model.state_dict().items()})
+    np.testing.assert_array_equal(np.asarray(back['params']['hash_table']),
+                                  table)

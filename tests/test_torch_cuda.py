@@ -6,7 +6,8 @@ K1 must equal its plain version exactly (ids, masks, t values and step
 counts); K2 is expected exact as well (same float32 operations in the
 same order) and is held to 1e-6. K3 (the hash backward) is held to its
 plain version with the tolerances stated in its test (its scatter adds
-atomically, in a run-dependent order)."""
+atomically, in a run-dependent order). K5 (the paired variant's four
+kernels) is held as K2 and K3 are."""
 import numpy as np
 import pytest
 import torch
@@ -122,6 +123,75 @@ def test_hash_backward_kernels_match_plain(cuda, levels, channels):
     for name in ('hash_bake', 'hash_encode', 'hash_encode_bwd',
                  'hash_bake_bwd', 'hash_bake_dw'):
         assert after[name] == before[name] + 1, name
+    assert ((dt.reshape(table3.shape) - p_dt).abs()
+            <= 1e-5 * abs_dt + 1e-7).all()
+    assert torch.isfinite(ds).all() and (ds != 0).any()
+
+
+@pytest.mark.parametrize('levels,channels,log2', [(4, 4, 14), (16, 8, 14),
+                                                  (4, 8, 8)])
+def test_paired_hash_kernels_match_plain(cuda, levels, channels, log2):
+    """K5 (a)-(d) against the plain versions, tolerances as K2 / K3: bake
+    and encode 1e-6 (same float32 operations in the same order), G and dT
+    per slot 1e-5 of the sum of absolute contributions + 1e-7 (atomics),
+    dw rtol 1e-5 (float64 sums), dxyz 1e-4 of its largest magnitude. The
+    2^8-row table makes pairs that wrap at the last row common."""
+    spec = hg.HashGridSpec.create(input_dim=5, num_levels=levels,
+                                  level_dim=channels,
+                                  log2_hashmap_size=log2,
+                                  desired_resolution=2048,
+                                  hash_variant='paired')
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    table = torch.rand((spec.table_size, channels), generator=gen,
+                       device=cuda) * 2 - 1
+    xyz = torch.rand((50000, 3), generator=gen, device=cuda) * 2.2 - 1.1
+    g = torch.randn((50000, levels * channels), generator=gen, device=cuda)
+    scene = torch.tensor([0.3, -0.6], device=cuda)
+    shifts, weights, oob = hg.scene_fold_weights(spec, scene)
+    shifts32 = shifts.to(torch.int32)
+    table3 = table.reshape(levels, -1, channels)
+    slots = table3.shape[1]
+    scales, off = hg._scales(spec, cuda), hg._offset(spec)
+    baked = kernels.hash_shift_bake(table3, shifts32, weights)
+    torch.testing.assert_close(
+        baked, hg.shift_bake_plain(table3, shifts, weights), rtol=0,
+        atol=1e-6)
+    got = kernels.hash_encode_paired(baked, xyz, scales, off, 1.0, oob)
+    want = hg.paired_encode_plain(baked, xyz, scales, off, 1.0, oob)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert want.abs().max() > 0.1
+
+    k_grad, k_dxyz = kernels.hash_encode_paired_bwd(
+        g, xyz, scales, off, 1.0, oob, slots, baked)
+    p_grad, p_dxyz = hg.paired_encode_bwd_plain(g, xyz, scales, off, 1.0,
+                                                oob, slots, baked)
+    abs_grad, _ = hg.paired_encode_bwd_plain(g.abs(), xyz, scales, off, 1.0,
+                                             oob, slots)
+    assert ((k_grad - p_grad).abs() <= 1e-5 * abs_grad + 1e-7).all()
+    inv32 = ((slots - shifts) & (slots - 1)).to(torch.int32)
+    k_dt = kernels.hash_shift_bake(k_grad, inv32, weights,
+                                   'hash_shift_bake_bwd')
+    p_dt = hg.shift_bake_plain(p_grad, inv32.long(), weights)
+    abs_dt = hg.shift_bake_plain(abs_grad, inv32.long(), weights)
+    assert ((k_dt - p_dt).abs() <= 1e-5 * abs_dt + 1e-7).all()
+    k_dw = kernels.hash_shift_bake_dw(table3, k_grad, shifts32)
+    p_dw = hg.shift_bake_dw_plain(table3, k_grad, shifts)
+    torch.testing.assert_close(k_dw, p_dw, rtol=1e-5, atol=0)
+    assert (k_dxyz - p_dxyz).abs().max() <= 1e-4 * p_dxyz.abs().max()
+    # the autograd path launches the paired kernels and no xor kernel
+    t = table.clone().requires_grad_(True)
+    s = scene.clone().requires_grad_(True)
+    before = kernels.launch_counts()
+    out = hg.hashgrid_encode_folded(spec, t, xyz, s)
+    dt, ds = torch.autograd.grad(out, (t, s), g)
+    after = kernels.launch_counts()
+    for name in ('hash_shift_bake', 'hash_encode_paired',
+                 'hash_encode_paired_bwd', 'hash_shift_bake_bwd',
+                 'hash_shift_bake_dw'):
+        assert after[name] == before[name] + 1, name
+    for name in ('hash_bake', 'hash_encode', 'hash_encode_bwd',
+                 'hash_bake_bwd', 'hash_bake_dw'):
+        assert after[name] == before[name], name
     assert ((dt.reshape(table3.shape) - p_dt).abs()
             <= 1e-5 * abs_dt + 1e-7).all()
     assert torch.isfinite(ds).all() and (ds != 0).any()

@@ -2,14 +2,21 @@
 flax init carried across by the port's converter, on the TINY config of
 `test_golden.py`. Inputs are the same numpy arrays; sampling is
 deterministic. Tolerance atol 1e-5: float32 matmuls and convolutions
-sum in another order in the two frameworks."""
+sum in another order in the two frameworks. The `hash_variant` tests run
+both variants with the hash table redrawn uniform in [-1, 1] (the init's
+1e-4 would hide a wrong row), as `tests/test_generator.py` does for the
+paired variant on the JAX side."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import jax
 
-from _torch_parity import tiny_models
+from scenedreamer_tpu_torch.models.generator import SceneDreamerGenerator
+from scenedreamer_tpu_torch.ops.hashgrid import encode_folded
+from _torch_parity import port_config, tiny_models
 from test_golden import TINY
 
 ATOL = 1e-5
@@ -93,3 +100,70 @@ def test_sky_only_matches_full_on_sky_rays(setup):
                                sky_only=True)
     torch.testing.assert_close(sky['net_out'], full['net_out'], rtol=0,
                                atol=0)
+
+
+@pytest.fixture(scope='module', params=['xor', 'paired'])
+def variant_setup(request):
+    cfg = dataclasses.replace(TINY, hash_variant=request.param,
+                              coarse_deterministic_sampling=True)
+    world, jm, params, tm, batch = tiny_models(cfg=cfg)
+    table = np.random.default_rng(9).uniform(
+        -1, 1, params['params']['hash_table'].shape).astype(np.float32)
+    params = {'params': {**params['params'], 'hash_table': table}}
+    with torch.no_grad():
+        tm.hash_encoder.embeddings.copy_(torch.from_numpy(table))
+    assert tm.cfg.hash_spec.hash_variant == request.param
+    return request.param, world, jm, params, tm, batch
+
+
+def test_render_pixels_hash_variant(variant_setup):
+    variant, world, jm, params, tm, batch = variant_setup
+    rng = np.random.default_rng(2)
+    z = rng.standard_normal((1, TINY.interm_style_dims)).astype(np.float32)
+    genc = np.asarray(jm.apply(params, batch['height_field'],
+                               batch['semantic_field'],
+                               method=jm.world_code))
+    args = [batch[k] for k in ('voxel_id', 'depth', 'hit_mask', 'raydirs',
+                               'cam_ori')] + [z, genc]
+    j = jm.apply(params, jax.random.PRNGKey(3), *args, world.dims,
+                 deterministic=True, method=jm.render_pixels)
+    with torch.no_grad():
+        t = tm.render_pixels(*[_t(a) for a in args], world.dims,
+                             deterministic=True)
+    for k in ('net_out', 'weights', 'total_weights'):
+        np.testing.assert_allclose(t[k].numpy(), np.asarray(j[k]),
+                                   atol=ATOL, rtol=0, err_msg=k)
+
+
+def test_forward_hash_variant(variant_setup):
+    """The training forward with a random style (the JAX draw handed to
+    the port as `style_eps`) and deterministic depths."""
+    variant, world, jm, params, tm, batch = variant_setup
+    key = jax.random.PRNGKey(5)
+    j = jm.apply(params, batch, world.dims, key, random_style=True)
+    k_style, _ = jax.random.split(key)
+    eps = np.array(jax.random.normal(k_style, (1, TINY.style_dims)))
+    with torch.no_grad():
+        t = tm({k: _t(v) for k, v in batch.items()}, world.dims,
+               random_style=True, style_eps=_t(eps))
+    assert t['fake_images'].shape == (1, 18, 18, 3)
+    np.testing.assert_allclose(t['fake_images'].numpy(),
+                               np.asarray(j['fake_images']), atol=ATOL,
+                               rtol=0)
+
+
+def test_hash_variants_render_differently():
+    """With the same weights and table the two variants read different
+    rows, so a port that ignored `hash_variant` would fail here."""
+    outs = []
+    pts = torch.rand((50, 3), generator=torch.Generator().manual_seed(1))
+    for variant in ('xor', 'paired'):
+        cfg = dataclasses.replace(TINY, hash_variant=variant)
+        tm = SceneDreamerGenerator(port_config(cfg), seed=1)
+        with torch.no_grad():
+            tm.hash_encoder.embeddings.uniform_(
+                -1, 1, generator=torch.Generator().manual_seed(0))
+            folded = tm.bake_hash(torch.tensor([[0.2, -0.4]]))
+            outs.append(encode_folded(tm.cfg.hash_spec, folded[0],
+                                      pts * 2 - 1))
+    assert (outs[0] - outs[1]).abs().max() > 0.1

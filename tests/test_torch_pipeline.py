@@ -4,8 +4,11 @@ of `test_golden.py`, with the same flax-initialised TINY weights.
 
 Tolerances are the golden tests' own: image atol 1e-3 (a uint8 LSB is
 ~7.8e-3), depth rtol 1e-5 / atol 1e-4."""
+import dataclasses
+
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -92,3 +95,26 @@ def test_inference_cli_on_cpu(tmp_path):
         assert img.shape == (24, 32, 3)
         assert np.isfinite(img).all() and np.abs(img).max() <= 1.0
     assert (tmp_path / 'rgb_render' / '00001.png').exists()
+
+
+def test_paired_variant_frame_matches_jax_renderer():
+    """The serving renderer on `hash_variant='paired'` (bake and encode
+    through the paired plain versions on the CPU), hash table redrawn in
+    [-1, 1] so the rows matter; image atol 1e-3 as above."""
+    cfg = dataclasses.replace(TINY, hash_variant='paired')
+    world, jmodel, params, tmodel, _ = tiny_models(cfg=cfg)
+    table = np.random.default_rng(9).uniform(
+        -1, 1, params['params']['hash_table'].shape).astype(np.float32)
+    params = {'params': {**params['params'], 'hash_table': table}}
+    with torch.no_grad():
+        tmodel.hash_encoder.embeddings.copy_(torch.from_numpy(table))
+    style = np.asarray(jax.random.normal(jax.random.PRNGKey(5),
+                                         (1, TINY.style_dims)))
+    jr = JRenderer(jmodel, params, world, tile_size=16, **KW)
+    kw = {k: v for k, v in KW.items() if k != 'fov'}
+    tr = TiledRenderer(tmodel, world, chunk_rays=300, device='cpu', **kw)
+    pose = _poses(world)['tour']
+    jimg = jr.frame(pose, jr.style_z(style))
+    timg = tr.frame(pose, tr.style_z(style))
+    assert np.isfinite(timg).all() and np.abs(timg).max() <= 1.0
+    np.testing.assert_allclose(timg, jimg, atol=IMG_ATOL, rtol=0)
