@@ -60,13 +60,39 @@ of the repository. Phases, each fatal on failure:
      iteration 6, the hash table must move, the paired run must launch
      K1 and all of K5 and none of K2/K3, the xor run the reverse.
 
-Then one `kernels` JSON line covering K1-K3 and K5, the card's name and
+ 10. K4 (the general, unfolded encode: forward, table scatter and point
+     gradient) against its plain versions: the flagship hash spec at
+     `hash_log2_size=21` (not foldable: level 0 tiled at 17^5 cells,
+     levels 1-15 hashed at 2^21; table 32,877,144 x 8) on the 5-D points
+     of phase 6's training batch (its 1,647,456 field points with the
+     batch's scene code from the log2-21 generator's world encoder), table
+     uniform in [-1, 1], seeded normal cotangent; then a D=3
+     `get_encoder('tiledgrid', level_dim=2, align_corners=True)` spec on
+     1,048,576 points (tiled levels past their stride cut-off, C=2,
+     aligned corners); tolerances as phases 3 and 6; then the timings
+     and bounds of K4 (a)/(b) at the flagship shapes;
+ 11. the paths through K4: the flagship generator at `hash_log2_size=21`
+     with seeded weights renders 1 frame through `render_trajectory`
+     (540x960, 40 samples, pad 30; finite, in [-1, 1], K4 (a) launched
+     once per field chunk, no K4 (b) and no K2/K3/K5 launch) and one more
+     timed frame; 1 warm-up and 2 timed `train_step_shared` at that
+     width (K4 (a) and (b) once each per step); then
+     `scenedreamer_tpu_torch.cli.train.main` on
+     configs/scenedreamer_train.yaml with `gen.hash_log2_size: 21` (xor;
+     phase 9's terrain cache and PNG pairs; batch 1) for 4 iterations
+     with `--speed-benchmark`, a snapshot image at 2 and 4 and a
+     checkpoint at 3 and 4: every meter finite, the hash table and the
+     world encoder moved between the checkpoints, K1 and K4 (a)/(b)
+     launched and no K2/K3/K5 counter rose.
+
+Then one `kernels` JSON line covering K1-K5, the card's name and
 power limit (nvidia-smi), and last the line {"ok": true, "device": {...}}.
 Float32 everywhere: TF32 is switched off for matmuls and convolutions.
 """
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -82,6 +108,8 @@ PAIRED = ('hash_shift_bake', 'hash_encode_paired', 'hash_encode_paired_bwd',
           'hash_shift_bake_bwd', 'hash_shift_bake_dw')
 XOR = ('hash_bake', 'hash_encode', 'hash_encode_bwd', 'hash_bake_bwd',
        'hash_bake_dw')
+GENERAL = ('hash_encode_general', 'hash_encode_general_bwd')
+LOG2_UNFOLDED = 21      # the smallest flagship table that is not foldable
 
 
 def log(*a):
@@ -407,7 +435,6 @@ def loop_path(torch, kernels, world, dev):
     paired variant (6 iterations, then a resume to 8), on the xor
     variant (3) and with `--speed-benchmark` (3)."""
     import dataclasses
-    import shutil
     import numpy as np
     import yaml
     from scenedreamer_tpu_torch.data.synthetic import make_paired_folder
@@ -517,7 +544,254 @@ def loop_path(torch, kernels, world, dev):
         + f'; host-side batch share (world_sample + batch_build) '
         f'{(total - phases["train_step"]) / total:.3f} of {total:.1f} ms')
     loop.update(phases_ms=phases)
+    for logs in ('logs_paired', 'logs_xor', 'logs_speed'):
+        shutil.rmtree(os.path.join(root, logs))     # ~6 GB of checkpoints
     return loop
+
+
+def general_check(torch, kernels, hg, spec, x, dev, tag, timing=False):
+    """Phase 10: K4 (a)/(b) against the plain versions on points x
+    [N, D]; with `timing`, the kernels' and plain versions' times and
+    bounds. Returns {kernel name: (error, ms, plain ms, bound ms, bound
+    by)} (errors only without `timing`) and the point counts."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    table = torch.rand((spec.table_size, spec.level_dim), generator=gen,
+                       device=dev) * 2 - 1
+    n, d = x.shape
+    g = torch.randn((n, spec.output_dim), generator=gen, device=dev)
+    meta, scales = hg.general_meta(spec)
+    off, xor, rows = hg._offset(spec), spec.hash_variant == 'xor', \
+        spec.table_size
+    levels = hg.general_levels(spec)
+    k_out = kernels.hash_encode_general(table, x, meta, scales, off, 1.0, xor)
+    p_out = hg.encode_general_plain(spec, table, x)
+    torch.cuda.synchronize()
+    fwd_err = float((k_out - p_out).abs().max())
+    log(f'[{tag}] spec D={d} x {spec.num_levels} levels x {spec.level_dim} '
+        f'(gridtype {spec.gridtype}, align_corners {spec.align_corners}, '
+        f'{spec.hash_variant}), table {spec.table_size} rows; level sizes '
+        f'{[lv.size for lv in levels]}, hashed '
+        f'{[int(lv.hashed) for lv in levels]}')
+    log(f'[{tag}] forward {n} points -> {tuple(k_out.shape)} max abs err '
+        f'{fwd_err:.3g} (tolerance 1e-5: the same float32 operations in the '
+        f'same order), out mean |x| {float(k_out.abs().mean()):.3f}')
+    assert fwd_err <= 1e-5, f'{tag} forward differs from plain'
+    del k_out, p_out
+    k_grad, k_dx = kernels.hash_encode_general_bwd(g, x, meta, scales, off,
+                                                   1.0, xor, rows, table)
+    p_grad, p_dx = hg.encode_general_bwd_plain(spec, g, x, 1.0, rows, table)
+    abs_grad, _ = hg.encode_general_bwd_plain(spec, g.abs(), x, 1.0, rows)
+    torch.cuda.synchronize()
+    g_err = float((k_grad - p_grad).abs().max())
+    g_excess = float(((k_grad - p_grad).abs() - 1e-5 * abs_grad
+                      - 1e-7).max())
+    dx_rel = float((k_dx - p_dx).abs().max() / p_dx.abs().max())
+    x01 = (x + 1.0) / 2.0
+    inb = ((x01 >= 0) & (x01 <= 1)).all(-1)
+    n_inb = int(inb.sum())
+    log(f'[{tag}] G (scatter) max abs err {g_err:.3g}; tolerance per row: '
+        f'1e-5 x (sum of |w g| into the row, plain path) + 1e-7, because '
+        f'float32 atomics add in a run-dependent order: worst margin '
+        f'{g_excess:.3g} (<= 0 passes); dx max err / max|dx| {dx_rel:.3g}, '
+        f'tolerance 1e-4 (float32 atomics over the levels); {n_inb} points '
+        f'in bounds')
+    assert g_excess <= 0, f'{tag} G differs from plain'
+    assert dx_rel <= 1e-4, f'{tag} dx differs from plain'
+    del p_grad, p_dx, abs_grad, k_grad, k_dx
+    out = dict(points=n, in_bounds=n_inb)
+    if not timing:
+        out.update(hash_encode_general=(fwd_err,),
+                   hash_encode_general_bwd=(g_err,))
+        return out
+    t_fwd = median_ms(lambda: kernels.hash_encode_general(
+        table, x, meta, scales, off, 1.0, xor))
+    t_fwd_plain = median_ms(lambda: hg.encode_general_plain(spec, table, x),
+                            reps=3)
+    t_bwd = median_ms(lambda: kernels.hash_encode_general_bwd(
+        g, x, meta, scales, off, 1.0, xor, rows, table))
+    t_bwd_plain = median_ms(lambda: hg.encode_general_bwd_plain(
+        spec, g, x, 1.0, rows, table), reps=3)
+    # distinct table rows the in-bounds points read, each once
+    rows_read = 0
+    for lv in levels:
+        idx, _, _ = hg._general_corners(x01[inb], lv, off, spec.hash_variant)
+        rows_read += int(torch.unique(torch.cat(idx)).numel())
+    c, lvs, k = spec.level_dim, spec.num_levels, 2 ** d
+    fwd_bound = bound_ms(n * d * 4 + rows_read * c * 4 + n * lvs * c * 4,
+                         n_inb * lvs * k * (2 * c + d))
+    # g rows of in-bounds points, x, the rows read for dx, G and dx
+    # written once
+    bwd_bound = bound_ms(n_inb * lvs * c * 4 + n * d * 4 + rows_read * c * 4
+                         + rows * c * 4 + n * d * 4,
+                         n_inb * lvs * k * (4 * c + d * d))
+    log(f'[{tag}] (a) encode {t_fwd:.3f} ms (plain {t_fwd_plain:.1f}, bound '
+        f'{fwd_bound[0]:.3f} by {fwd_bound[1]}, {rows_read} distinct rows); '
+        f'(b) scatter + dx {t_bwd:.3f} ms (plain {t_bwd_plain:.1f}, bound '
+        f'{bwd_bound[0]:.3f} by {bwd_bound[1]})')
+    out.update(rows_read=rows_read,
+               hash_encode_general=(fwd_err, t_fwd, t_fwd_plain, *fwd_bound),
+               hash_encode_general_bwd=(g_err, t_bwd, t_bwd_plain,
+                                        *bwd_bound))
+    return out
+
+
+def general_render(torch, kernels, model, world, style, dev):
+    """Phase 11, serving: one frame of the log2-21 generator through
+    `render_trajectory`, then one more timed frame."""
+    import numpy as np
+    from scenedreamer_tpu_torch.render.pipeline import (CHUNK_RAYS,
+                                                        TiledRenderer,
+                                                        render_trajectory)
+    from scenedreamer_tpu_torch.scene.camera import EvalCameraController
+    out_dir = os.path.join(REPO, 'smoke_out', 'unfolded')
+    h, w = RES[0] + PAD, RES[1] + PAD
+    chunks = math.ceil(h / max(1, CHUNK_RAYS // w))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    frames = render_trajectory(model, world, style, out_dir, camera_mode=4,
+                               cam_maxstep=1, cam_ang=72,
+                               num_samples=SAMPLES, num_blocks_early_stop=M,
+                               pad=PAD, resolution_hw=RES, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f'[unfolded] render_trajectory: {len(frames)} frame in {wall:.2f} s '
+        f'(with warm-up), peak memory {peak_gb:.1f} GB, launches {counts}')
+    assert len(frames) == 1
+    img = frames[0]
+    assert img.shape == RES + (3,), img.shape
+    assert np.isfinite(img).all(), 'non-finite frame'
+    assert np.abs(img).max() <= 1.0, 'frame outside [-1, 1]'
+    assert counts['dda'] > 0, 'K1 never launched'
+    assert counts['hash_encode_general'] == chunks, \
+        f'K4 (a) launched {counts["hash_encode_general"]} times, not once ' \
+        f'per field chunk ({chunks})'
+    for name in ('hash_encode_general_bwd',) + XOR + PAIRED:
+        assert counts[name] == 0, f'the unfolded serving path launched {name}'
+    renderer = TiledRenderer(model, world, num_samples=SAMPLES,
+                             num_blocks_early_stop=M, pad=PAD,
+                             resolution_hw=RES, device=dev)
+    z = renderer.style_z(style.numpy())
+    pose = EvalCameraController(world, maxstep=1, pattern=4, cam_ang=72,
+                                smooth_decay_multiplier=150.0)[0]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    renderer.frame(pose, z)
+    torch.cuda.synchronize()
+    spf = time.time() - t0
+    log(f'[unfolded] steady state: {spf:.3f} s/frame at {h}x{w} rays, '
+        f'{SAMPLES} samples ({chunks} field chunks)')
+    return dict(counts=counts, n_frames=1, chunks=chunks, s_per_frame=spf,
+                peak_gb=peak_gb)
+
+
+def general_train(torch, kernels, cfg, world, voxel, dev):
+    """Phase 11, the step: 1 warm-up and 2 timed `train_step_shared` of
+    the log2-21 generator at the flagship training width."""
+    from scenedreamer_tpu_torch.data.synthetic import make_batch
+    trainer = make_trainer(cfg, world.dims, dev)
+    gm = trainer.gen
+    draws = torch.Generator(device=dev).manual_seed(SEED)
+    hw = TRAIN_CROP + cfg.pad
+    watched = {'hash_encoder.embeddings': gm.hash_encoder.embeddings,
+               'world_encoder.fc2.weight': gm.world_encoder.fc2.weight}
+    before = {k: v.detach().clone() for k, v in watched.items()}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    step_s = []
+    for i in range(3):
+        batch = make_batch(world, batch_size=1, height=hw, width=hw,
+                           max_samples=cfg.num_blocks_early_stop,
+                           pad=cfg.pad, seed=SEED + i, device=dev,
+                           voxel=voxel)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = trainer.train_step_shared(batch, draws)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        for k, v in m.items():
+            assert math.isfinite(v), f'non-finite {k} at step {i}'
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = {k: float((v.detach() - before[k]).abs().max())
+             for k, v in watched.items()}
+    spi = statistics.mean(step_s[1:])
+    log(f'[unfolded] train_step_shared {spi:.3f} s/iteration (mean of 2 after '
+        f'a warm-up; {step_s}), peak memory {peak_gb:.1f} GB, parameter '
+        f'change {moved}, launches {counts} over 3 steps; last metrics '
+        + ', '.join(f'{k} {v:.4g}' for k, v in m.items()))
+    for k, v in moved.items():
+        assert v > 0, f'{k} did not move'
+    assert counts['dda'] > 0, 'K1 never launched'
+    for name in GENERAL:
+        assert counts[name] == 3, f'{name} launched {counts[name]} times'
+    for name in XOR + PAIRED:
+        assert counts[name] == 0, f'the unfolded step launched {name}'
+    return dict(counts=counts, steps=3, s_per_iter=spi, peak_gb=peak_gb)
+
+
+def general_loop(torch, kernels):
+    """Phase 11, the loop: `cli.train.main` with `gen.hash_log2_size: 21`
+    on phase 9's cache and pairs, 4 iterations with `--speed-benchmark`."""
+    import yaml
+    root = os.path.join(REPO, 'smoke_out', 'loop')
+    with open(os.path.join(REPO, 'configs', 'scenedreamer_train.yaml')) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(logging_iter=1, snapshot_save_iter=3, image_save_iter=2)
+    cfg['gen']['hash_log2_size'] = LOG2_UNFOLDED
+    path = os.path.join(root, 'train_unfolded.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    argv = ['--config', path, '--data-root', os.path.join(root, 'data'),
+            '--terrain-cache', os.path.join(root, 'cache'), '--logdir',
+            os.path.join(root, 'logs_unfolded'), '--seed', str(SEED),
+            '--max-iter', '4', '--speed-benchmark']
+    text, counts, logdir, series, secs, peak = _run_cli(torch, kernels, argv)
+    _check_counts(counts, GENERAL, XOR + PAIRED, 'unfolded, 4 iterations')
+    assert series, 'unfolded: no metrics written'
+    for name, points in series.items():
+        for step, v in points:
+            assert math.isfinite(v), f'unfolded: {name} = {v} at {step}'
+    assert [s for s, _ in series['gen/total']] == [1, 2, 3, 4]
+    ckpts = os.path.join(logdir, 'checkpoints')
+    with open(os.path.join(ckpts, 'latest_checkpoint.txt')) as f:
+        assert f.read().strip() == 'step_00000004.pt'
+    states = [torch.load(os.path.join(ckpts, f'step_{i:08d}.pt'),
+                         map_location='cpu', weights_only=True)['generator']
+              for i in (3, 4)]
+    moved = {}
+    for prefix in ('hash_encoder.', 'world_encoder.'):
+        moved[prefix] = max(float((states[1][k] - states[0][k]).abs().max())
+                            for k in states[0] if k.startswith(prefix))
+    del states
+    log(f'[unfolded] parameter change between iterations 3 and 4 (max abs): '
+        f'{moved}')
+    for k, v in moved.items():
+        assert v > 0, f'{k} did not move in the loop'
+    for it in (2, 4):
+        assert os.path.exists(os.path.join(
+            logdir, 'images', f'train_snapshot_{it:08d}.png'))
+    ips = [v for _, v in series['perf/iters_per_s']]
+    spi = statistics.median(1.0 / v for v in ips[1:])
+    phases = {}
+    for name in ('world_sample', 'batch_build', 'train_step'):
+        vals = [v for step, v in series[f'speed/{name}_ms'] if step > 1]
+        phases[name] = statistics.mean(vals)
+    total = sum(phases.values())
+    share = phases['train_step'] / total
+    log(f'[unfolded] loop: {spi:.3f} s/iteration (median of iterations 2-4, '
+        f'--speed-benchmark: no prefetch; all {[round(1 / v, 3) for v in ips]}'
+        f'), run {secs:.1f} s with set-up, checkpoints and snapshots; phases, '
+        f'mean of iterations 2-4 (ms): '
+        + ', '.join(f'{k} {v:.1f}' for k, v in phases.items())
+        + f'; the step\'s share {share:.3f} of {total:.1f} ms; peak memory '
+        f'{peak:.1f} GB')
+    shutil.rmtree(os.path.join(root, 'logs_unfolded'))
+    return dict(counts=counts, iterations=4, s_per_iter=spi, phases_ms=phases,
+                step_share=share, peak_gb=peak)
 
 
 def kernel_rows(serving, k3, train, k5, loop):
@@ -574,6 +848,30 @@ def kernel_rows(serving, k3, train, k5, loop):
         row('hash_shift_bake_dw', paired, f'{jax_hg}:642',
             *k5['hash_shift_bake_dw'], lcounts),
     ]
+
+
+def general_rows(k4, render, step, loop):
+    """The `kernels` JSON rows of K4 (a) and (b): `launches` from the
+    path each was ported for (the unfolded serving frame for (a), the
+    unfolded training loop for (b)), per-frame / per-step / per-loop-
+    iteration counts from phase 11."""
+    src = 'scenedreamer_tpu_torch/csrc/hashgrid_general.cu'
+    jax_hg = 'scenedreamer_tpu/ops/hashgrid.py'
+    out = []
+    for name, replaces, path in (
+            ('hash_encode_general', f'{jax_hg}:982', render),
+            ('hash_encode_general_bwd', f'{jax_hg}:361', loop)):
+        err, ms, plain, bound, by = k4[name]
+        out.append(dict(
+            name=name, route='cuda', source=src, replaces=replaces,
+            launches=path['counts'][name], max_abs_err=err, ms=ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None,
+            launches_per_frame=render['counts'][name] / render['n_frames'],
+            launches_per_step=step['counts'][name] / step['steps'],
+            launches_per_loop_iteration=(loop['counts'][name]
+                                         / loop['iterations']),
+            points=k4['points']))
+    return out
 
 
 def main():
@@ -812,13 +1110,57 @@ def main():
     k5 = backward_check(torch, kernels, hg,
                         GeneratorConfig(hash_variant='paired'), batch,
                         world.dims, dev, 'K5')
-    del batch, voxel
     torch.cuda.empty_cache()
 
     # 9. the training loop -------------------------------------------------
     loop = loop_path(torch, kernels, world, dev)
 
-    table_rows = kernel_rows(serving, k3, train, k5, loop)
+    # 10. K4 vs plain ------------------------------------------------------
+    from scenedreamer_tpu_torch.ops.encoders import get_encoder
+    ucfg = GeneratorConfig(num_samples=SAMPLES, num_blocks_early_stop=M,
+                           hash_log2_size=LOG2_UNFOLDED)
+    uspec = ucfg.hash_spec
+    assert not hg.foldable(uspec), 'the log2-21 spec must not be foldable'
+    umodel = SceneDreamerGenerator(ucfg, seed=SEED).to(dev).eval()
+    with torch.no_grad():
+        code = umodel.world_code(batch['height_field'],
+                                 batch['semantic_field'])[0]
+    xyz = sample_points(batch, tcfg, world.dims)
+    pts = torch.cat([xyz, code.expand(xyz.shape[0], 2)], dim=-1).contiguous()
+    log(f'[K4] scene code of the training batch {code.tolist()}')
+    k4 = general_check(torch, kernels, hg, uspec, pts, dev, 'K4',
+                       timing=True)
+    del xyz, pts
+    torch.cuda.empty_cache()
+    _, _, tspec = get_encoder('tiledgrid', input_dim=3, level_dim=2,
+                              align_corners=True)
+    tpts = torch.rand((1 << 20, 3), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev) * 2.1 - 1.05
+    k4t = general_check(torch, kernels, hg, tspec, tpts, dev, 'K4 tiled')
+    fn, _, _ = get_encoder('tiledgrid', input_dim=3, level_dim=2,
+                           align_corners=True)
+    ttab = torch.rand((tspec.table_size, 2), device=dev) * 2 - 1
+    direct = kernels.hash_encode_general(ttab, tpts,
+                                         *hg.general_meta(tspec),
+                                         hg._offset(tspec), 1.0, True)
+    assert torch.equal(fn(ttab, tpts), direct), \
+        'get_encoder does not run the kernel'
+    del tpts, ttab, direct
+    torch.cuda.empty_cache()
+
+    # 11. the paths through K4 ---------------------------------------------
+    urender = general_render(torch, kernels, umodel, world, style, dev)
+    del umodel
+    torch.cuda.empty_cache()
+    ustep = general_train(torch, kernels,
+                          GeneratorConfig(hash_log2_size=LOG2_UNFOLDED),
+                          world, voxel, dev)
+    del batch, voxel
+    torch.cuda.empty_cache()
+    uloop = general_loop(torch, kernels)
+
+    table_rows = kernel_rows(serving, k3, train, k5, loop) \
+        + general_rows(k4, urender, ustep, uloop)
     log(json.dumps({'kernels': table_rows}))
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',

@@ -34,7 +34,8 @@ from scenedreamer_tpu_torch.utils.build import finish_compile, start_compile
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 SOURCES = {'dda': 'dda.cu', 'hashgrid_fwd': 'hashgrid_fwd.cu',
            'hashgrid_bwd': 'hashgrid_bwd.cu',
-           'hashgrid_paired': 'hashgrid_paired.cu'}
+           'hashgrid_paired': 'hashgrid_paired.cu',
+           'hashgrid_general': 'hashgrid_general.cu'}
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-Xptxas=-v', '-shared', '-Xcompiler',
               '-fPIC']
@@ -47,7 +48,8 @@ _LAUNCHES = {'dda': 0, 'hash_bake': 0, 'hash_encode': 0,
              'hash_encode_bwd': 0, 'hash_bake_bwd': 0, 'hash_bake_dw': 0,
              'hash_shift_bake': 0, 'hash_encode_paired': 0,
              'hash_encode_paired_bwd': 0, 'hash_shift_bake_bwd': 0,
-             'hash_shift_bake_dw': 0}
+             'hash_shift_bake_dw': 0, 'hash_encode_general': 0,
+             'hash_encode_general_bwd': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +64,10 @@ _SIGNATURES = {
     'sd_hash_encode_bwd': [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _F,
                            _F, _F, _P],
     'sd_hash_bake_dw': [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
+    'sd_hash_encode_general': [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F,
+                               _F, _F, _P],
+    'sd_hash_encode_general_bwd': [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                                   _I, _I, _F, _F, _F, _P],
 }
 # the paired variant's entry points (K5) take the arguments of their xor
 # counterparts
@@ -321,3 +327,91 @@ def _bake_dw(source, fn, counter, table3, grad, masks):
             table3.data_ptr(), grad.data_ptr(), masks.data_ptr(),
             partial.data_ptr(), dw.data_ptr(), lv, s, c, a, DW_BLOCKS)
     return dw
+
+
+GENERAL_CHANNELS = (1, 2, 4, 8, 16)
+GENERAL_MAX_DIMS, GENERAL_MAX_LEVELS = 7, 32
+GENERAL_META_COLS = 3 + GENERAL_MAX_DIMS    # offset, size, hashed, strides
+
+
+def _general_args(x, meta, scales, c, rows, tensors):
+    """Checks shared by K4 (a) and (b): x [N, D] float32 on the card; meta
+    [L, 10] int64 and scales [L] float32 on the CPU whose levels lie
+    inside `rows` table rows; C a supported width; `tensors` (name ->
+    tensor or None) float32 and aligned for C's vector accesses."""
+    _require(x, torch.float32, 'x', 2)
+    if meta.is_cuda or meta.dtype != torch.int64 or not meta.is_contiguous() \
+            or meta.dim() != 2 or meta.shape[1] != GENERAL_META_COLS:
+        raise ValueError(f'meta must be a contiguous CPU int64 [L, '
+                         f'{GENERAL_META_COLS}] tensor')
+    lv = meta.shape[0]
+    if scales.is_cuda or scales.dtype != torch.float32 \
+            or not scales.is_contiguous() or tuple(scales.shape) != (lv,):
+        raise ValueError('scales must be a contiguous CPU float32 [L] tensor')
+    if not 1 <= x.shape[1] <= GENERAL_MAX_DIMS \
+            or not 1 <= lv <= GENERAL_MAX_LEVELS or c not in GENERAL_CHANNELS:
+        raise ValueError(f'the general encode takes 1..{GENERAL_MAX_DIMS} '
+                         f'dims, 1..{GENERAL_MAX_LEVELS} levels and C in '
+                         f'{GENERAL_CHANNELS}')
+    if int((meta[:, 0] + meta[:, 1]).max()) > rows or int(meta[:, 0].min()) < 0:
+        raise ValueError('a level lies outside the table')
+    align = 16 if c % 4 == 0 else (8 if c == 2 else 4)
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        _require(t, torch.float32, name, 2)
+        if t.device != x.device or t.data_ptr() % align:
+            raise ValueError(f'{name} must be on the points\' device and '
+                             f'{align}-byte aligned')
+    return lv
+
+
+def hash_encode_general(table, x, meta, scales, offset, bound, xor_hash):
+    """K4 (a). table [rows, C] float32 (C in 1, 2, 4, 8, 16); x [N, D]
+    float32 (1 <= D <= 7); meta [L, 10] int64 and scales [L] float32, on
+    the CPU: each level's (offset, size, hashed, tiled strides) and
+    scale, as `ops/hashgrid.py:general_meta` packs them; offset the cell
+    offset (0.5, or 0 with aligned corners); `xor_hash` False for the
+    paired (add) hash -> [N, L*C] float32."""
+    c = table.shape[1] if table.dim() == 2 else 0
+    lv = _general_args(x, meta, scales, c, table.shape[0], {'table': table})
+    n, dims = x.shape
+    out = torch.empty((n, lv * c), dtype=torch.float32, device=x.device)
+    if n:
+        _launch('hashgrid_general', 'sd_hash_encode_general',
+                'hash_encode_general', x.device, table.data_ptr(),
+                x.data_ptr(), meta.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), n, dims, lv, c, int(bool(xor_hash)),
+                float(bound), float(2.0 * bound), float(offset))
+    return out
+
+
+def hash_encode_general_bwd(g, x, meta, scales, offset, bound, xor_hash,
+                            rows, table=None, table_grad=True):
+    """K4 (b). g [N, L*C] float32 cotangent of `hash_encode_general`; x,
+    meta, scales, offset, bound, xor_hash as there; rows the table's row
+    count -> (grad [rows, C] float32, the scatter of g into the corner
+    rows, or None without `table_grad`; dx [N, D] float32, the gradient
+    through frac, when `table` [rows, C] is given, else None)."""
+    lv = meta.shape[0] if meta.dim() == 2 else 1
+    c = g.shape[1] // lv if g.dim() == 2 else 0
+    _general_args(x, meta, scales, c, rows, {'g': g, 'table': table})
+    n, dims = x.shape
+    if g.shape != (n, lv * c) or (table is not None
+                                  and table.shape != (rows, c)):
+        raise ValueError('g must be [N, L*C] and table [rows, C]')
+    dev = x.device
+    grad = torch.zeros((rows, c), dtype=torch.float32, device=dev) \
+        if table_grad else None
+    dx = torch.zeros((n, dims), dtype=torch.float32, device=dev) \
+        if table is not None else None
+    if n and (grad is not None or dx is not None):
+        _launch('hashgrid_general', 'sd_hash_encode_general_bwd',
+                'hash_encode_general_bwd', dev, g.data_ptr(), x.data_ptr(),
+                meta.data_ptr(), scales.data_ptr(),
+                table.data_ptr() if table is not None else None,
+                grad.data_ptr() if grad is not None else None,
+                dx.data_ptr() if dx is not None else None, n, dims, lv, c,
+                int(bool(xor_hash)), float(bound), float(2.0 * bound),
+                float(offset))
+    return grad, dx

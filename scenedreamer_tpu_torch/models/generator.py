@@ -18,7 +18,9 @@ style encoder (or random), render, refine and crop. Its random draws
 `torch.Generator`; the style draws can be given (`style_eps`) to hold
 the port against another implementation. The hash encode is
 differentiable on both devices (`ops/hashgrid.py`: K2 forward, K3
-backward on CUDA). `compact_k` sky-ray compaction waits for a later
+backward on CUDA; K5 for `hash_variant='paired'`; the general encode K4,
+forward and backward, when the spec is not foldable, e.g.
+`hash_log2_size=21`). `compact_k` sky-ray compaction waits for a later
 slice.
 """
 import dataclasses
@@ -34,6 +36,7 @@ from scenedreamer_tpu_torch.models.layers import (ConditionalHashGrid,
 from scenedreamer_tpu_torch.ops.compositing import volume_rendering_relu
 from scenedreamer_tpu_torch.ops.hashgrid import (HashGridSpec, encode_folded,
                                                  fold_scene, foldable,
+                                                 hashgrid_encode,
                                                  init_hashgrid_table)
 from scenedreamer_tpu_torch.ops.pe import pe_out_dim, positional_encoding
 from scenedreamer_tpu_torch.ops.rounding import fma
@@ -185,28 +188,40 @@ class SceneDreamerGenerator(nn.Module):
         """Fold the hash table for each scene code of the batch
         (kernel K2 (a) on CUDA; differentiable in the table and the
         scene code). A renderer bakes once per frame and passes the
-        result to `render_pixels(baked=...)`."""
+        result to `render_pixels(baked=...)`. None when the spec is not
+        foldable: the field then encodes unfolded (K4)."""
         spec = self.cfg.hash_spec
         if not foldable(spec, global_enc.shape[-1]):
-            raise NotImplementedError(
-                'only the scene-folded hash encode is ported')
+            return None
         return [fold_scene(spec, self.hash_encoder.embeddings, g)
                 for g in global_enc]
 
     def field_features(self, worldcoord, voxel_dims, global_enc, z,
                        mc_masks_onehot, baked=None):
         """Hash-encode world points with the scene code and run the
-        RenderMLP (`scenedreamer.py:285-311`). worldcoord [B, ..., 3]."""
+        RenderMLP (`scenedreamer.py:285-311`). worldcoord [B, ..., 3].
+        A foldable spec encodes against the baked table (K2 / K5); any
+        other encodes the points concatenated with the broadcast scene
+        code, [B, ..., 5], with the general encode (K4), whose point
+        gradient carries the scene code's."""
         spec = self.cfg.hash_spec
         delim = torch.tensor(voxel_dims, dtype=torch.float32,
                              device=worldcoord.device)
         normalized = worldcoord / delim * 2.0 - 1.0
         b = normalized.shape[0]
-        if baked is None:
-            baked = self.bake_hash(global_enc)
-        flat = normalized.reshape(b, -1, 3)
-        feat = torch.stack([encode_folded(spec, baked[i], flat[i])
-                            for i in range(b)])
+        if foldable(spec, global_enc.shape[-1]):
+            if baked is None:
+                baked = self.bake_hash(global_enc)
+            flat = normalized.reshape(b, -1, 3)
+            feat = torch.stack([encode_folded(spec, baked[i], flat[i])
+                                for i in range(b)])
+        else:
+            lead = (b,) + (1,) * (normalized.dim() - 2)
+            genc = global_enc.reshape(lead + (global_enc.shape[-1],)).expand(
+                normalized.shape[:-1] + (global_enc.shape[-1],))
+            pts = torch.cat([normalized, genc], dim=-1)
+            feat = hashgrid_encode(spec, self.hash_encoder.embeddings, pts)
+            feat = feat.reshape(b, -1, spec.output_dim)
         m_flat = mc_masks_onehot.reshape(b, -1, mc_masks_onehot.shape[-1])
         sigma, feat_c = self.render_net(feat, z, m_flat)
         out_shape = normalized.shape[:-1]
@@ -227,7 +242,8 @@ class SceneDreamerGenerator(nn.Module):
             voxel_dims (Y, X, Z); sky_avg optional [B, 1, 1, 1, C]
             frame-global sky average (tiled inference shares one);
             sky_only skips the field (exact for rays with no hit);
-            baked: `bake_hash(global_enc)`, reused across calls;
+            baked: `bake_hash(global_enc)`, reused across calls (None
+            for a spec that is not foldable);
             generator: `torch.Generator` of the stratified draws when
             not deterministic.
 

@@ -39,10 +39,24 @@ shifts the other way. The same two autograd Functions carry it with
 `variant='paired'`; on CUDA they launch the kernels of
 `csrc/hashgrid_paired.cu`, on the CPU the plain versions
 `shift_bake_plain`, `paired_encode_plain`, `paired_encode_bwd_plain` and
-`shift_bake_dw_plain`. The unfolded general path (K4) is not ported yet.
+`shift_bake_dw_plain`.
+
+`hashgrid_encode` is the general, unfolded encode (K4) of the JAX
+package's `hashgrid_encode`: any input dimension from 1 to 7, per level
+a tiled (row-major, stride cut off at the level's size) or hashed index,
+levels of any size (`% size`, not a mask, where the size is not a power
+of two), gridtype 'tiled', `align_corners`. The generator takes it when
+its spec is not foldable (from `hash_log2_size: 21`, level 0's 17^5
+cells fit under the cap and are indexed densely), and `ops/encoders.py`
+builds its grid encoders on it. Its autograd Function
+`HashEncodeGeneral` launches `csrc/hashgrid_general.cu` (K4 (a) forward,
+K4 (b) table scatter and point gradient) for CUDA tensors and the plain
+versions `encode_general_plain` / `encode_general_bwd_plain` for CPU
+tensors.
 """
 import collections
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -483,3 +497,227 @@ def hashgrid_encode_folded(spec, table, xyz, scene, bound=1.0):
     unfolded encode of the concatenated [N, 3+Ds] input."""
     return encode_folded(spec, fold_scene(spec, table, scene, bound), xyz,
                          bound)
+
+
+# ----------------------------------------------------------------------
+# the general (unfolded) encode, K4
+# ----------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+
+# per level: first row in the flat table, rows, float32 scale, whether
+# the corner index is hashed, and the tiled strides per input dimension
+# (0 past the cut-off, where the JAX loop stops adding)
+GeneralLevel = collections.namedtuple(
+    'GeneralLevel', ['offset', 'size', 'scale', 'hashed', 'strides'])
+
+
+@functools.lru_cache(maxsize=64)
+def general_levels(spec):
+    """The per-level index metadata of `_level_encode` (JAX
+    `hashgrid.py:475-513`): the tiled stride loop stops before the
+    dimension at which the stride would exceed the level's size, and a
+    level is hashed when that happens (or the full grid overflows) and
+    the gridtype is 'hash'."""
+    if spec.gridtype not in ('hash', 'tiled'):
+        raise ValueError(f'unknown gridtype {spec.gridtype!r}')
+    offs = spec.offsets()
+    out = []
+    for lv in range(spec.num_levels):
+        res, scale = spec.level_resolution(lv)
+        side = res if spec.align_corners else res + 1
+        size = int(offs[lv + 1] - offs[lv])
+        strides, stride = [], 1
+        for _ in range(spec.input_dim):
+            if stride > size:
+                break
+            strides.append(stride)
+            stride *= side
+        overflow = stride > size
+        strides += [0] * (spec.input_dim - len(strides))
+        out.append(GeneralLevel(int(offs[lv]), size,
+                                float(np.float32(scale)),
+                                spec.gridtype == 'hash' and overflow,
+                                tuple(strides)))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def general_meta(spec):
+    """`general_levels` packed for K4: [L, 10] int64 (offset, size,
+    hashed, strides padded to 7 dims) and [L] float32 scales, on the
+    CPU."""
+    rows = [[lv.offset, lv.size, int(lv.hashed)]
+            + list(lv.strides) + [0] * (7 - len(lv.strides))
+            for lv in general_levels(spec)]
+    return (torch.tensor(rows, dtype=torch.int64),
+            torch.tensor([lv.scale for lv in general_levels(spec)],
+                         dtype=torch.float32))
+
+
+def _general_corners(x01, level, offset, variant):
+    """One level of the general encode: the 2^D corner rows [N] int64
+    (within the level) and weights [N] float32 of each point in
+    ascending k (bit d of k = upper corner in dimension d), and the taps
+    t[d] = (1 - frac_d, frac_d). The cell position x01 * scale + offset
+    is rounded once (the compiled JAX op fuses it); the index is
+    sum_d corner_d * stride_d or, hashed, the xor (paired: add) of
+    corner_d * prime_d, wrapped to uint32, then `% size`; the weight is
+    the product over d in ascending order, as `jnp.prod` forms it."""
+    d = x01.shape[-1]
+    pos = fma(x01, level.scale, offset)
+    cell = torch.floor(pos)
+    frac = pos - cell
+    u = cell.to(torch.int64)
+    mult = PRIMES if level.hashed else level.strides
+    a = [[u[:, e] * mult[e], (u[:, e] + 1) * mult[e]] for e in range(d)]
+    t = [[1.0 - frac[:, e], frac[:, e]] for e in range(d)]
+    use_xor = level.hashed and variant == 'xor'
+    rows, ws = [], []
+    for k in range(2 ** d):
+        h, w = a[0][k & 1], t[0][k & 1]
+        for e in range(1, d):
+            bit = (k >> e) & 1
+            h = h ^ a[e][bit] if use_xor else h + a[e][bit]
+            w = w * t[e][bit]
+        rows.append((h & _U32) % level.size)
+        ws.append(w)
+    return rows, ws, t
+
+
+def _inside(x, bound):
+    """x01 = (x + bound) / (2 bound) and the in-bounds mask [N]."""
+    x01 = (x.to(torch.float32) + bound) / (2.0 * bound)
+    return x01, ~((x01 < 0.0) | (x01 > 1.0)).any(dim=-1)
+
+
+def encode_general_plain(spec, table, x, bound=1.0):
+    """Plain version of K4 (a): x [N, D] -> [N, L*C], per level
+    sum_k w_k * table[offset_l + idx_k] in ascending k, zeros for points
+    with any coordinate outside [-bound, bound]."""
+    x01, inb = _inside(x, bound)
+    c = spec.level_dim
+    outs = []
+    for level in general_levels(spec):
+        tl = table[level.offset:level.offset + level.size]
+        rows, ws, _ = _general_corners(x01, level, _offset(spec),
+                                       spec.hash_variant)
+        acc = torch.zeros((x.shape[0], c), dtype=torch.float32,
+                          device=x.device)
+        for idx, w in zip(rows, ws):
+            acc = acc + w[:, None] * tl[idx]
+        outs.append(acc)
+    out = torch.cat(outs, dim=-1)
+    return torch.where(inb[:, None], out, torch.zeros_like(out))
+
+
+def encode_general_bwd_plain(spec, g, x, bound=1.0, rows=None, table=None,
+                             table_grad=True):
+    """Plain version of K4 (b). g [N, L*C] -> (grad [rows, C]:
+    grad[offset_l + idx_k] += w_k * g[n, l] over in-bounds points and
+    corners (`index_add_` per corner in ascending k), or None without
+    `table_grad`; dx [N, D] when `table` is given, else None: per level
+    dfrac_d = sum_k gv_k * sign_{k,d} * prod_{e != d} t_{k,e} with
+    gv_k = sum_c g_c * table[idx_k, c], and dx = sum_l scale_l * dfrac /
+    (2 bound); zeros for out-of-bounds points)."""
+    rows = spec.table_size if rows is None else rows
+    n, d = x.shape
+    c = spec.level_dim
+    grad = torch.zeros((rows, c), dtype=torch.float32, device=g.device) \
+        if table_grad else None
+    dx01 = torch.zeros((n, d), dtype=torch.float32, device=g.device) \
+        if table is not None else None
+    x01, inb = _inside(x, bound)
+    x01, g = x01[inb], g[inb]
+    part = torch.zeros((x01.shape[0], d), dtype=torch.float32,
+                       device=g.device) if table is not None else None
+    for lv, level in enumerate(general_levels(spec)):
+        rows_k, ws, t = _general_corners(x01, level, _offset(spec),
+                                         spec.hash_variant)
+        gl = g[:, lv * c:(lv + 1) * c]
+        gv = []
+        for idx, w in zip(rows_k, ws):
+            if grad is not None:
+                grad.index_add_(0, idx + level.offset, w[:, None] * gl)
+            if table is not None:
+                gv.append((gl * table[level.offset + idx]).sum(dim=-1))
+        if table is None:
+            continue
+        for e in range(d):
+            s = torch.zeros_like(gl[:, 0])
+            for k in range(2 ** d):
+                excl = torch.ones_like(s)
+                for f in range(d):
+                    if f != e:
+                        excl = excl * t[f][(k >> f) & 1]
+                term = gv[k] * excl
+                s = s + term if (k >> e) & 1 else s - term
+            part[:, e] += s * level.scale
+    if dx01 is not None:
+        dx01[inb] = part
+        dx01 = dx01 / (2.0 * bound)
+    return grad, dx01
+
+
+class HashEncodeGeneral(torch.autograd.Function):
+    """out = encode(table [rows, C], x [N, D]; spec, bound). Forward
+    K4 (a); backward K4 (b): the cotangent scattered into the table's
+    rows and, when the points need it, the gradient through frac (the
+    table is kept for that case only)."""
+
+    @staticmethod
+    def forward(ctx, table, x, spec, bound):
+        ctx.geom = (spec, bound, table.shape[0])
+        keep = table if ctx.needs_input_grad[1] else None
+        ctx.save_for_backward(x, keep)
+        if x.is_cuda:
+            meta, scales = general_meta(spec)
+            return kernels.hash_encode_general(
+                table.detach().contiguous(), x.detach().contiguous(), meta,
+                scales, _offset(spec), bound, spec.hash_variant == 'xor')
+        return encode_general_plain(spec, table.detach(), x.detach(), bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        spec, bound, rows = ctx.geom
+        if table is not None:
+            table = table.detach().contiguous()
+        want_table = ctx.needs_input_grad[0]
+        if g.is_cuda:
+            meta, scales = general_meta(spec)
+            d_table, d_x = kernels.hash_encode_general_bwd(
+                g.contiguous(), x.detach().contiguous(), meta, scales,
+                _offset(spec), bound, spec.hash_variant == 'xor', rows,
+                table, want_table)
+        else:
+            d_table, d_x = encode_general_bwd_plain(
+                spec, g, x.detach(), bound, rows, table, want_table)
+        return d_table, d_x, None, None
+
+
+def hashgrid_encode(spec, table, x, bound=1.0, chunk=None):
+    """The general hash-grid encode (JAX `hashgrid_encode`): x
+    [..., input_dim] in [-bound, bound], table [table_size, level_dim] ->
+    [..., num_levels * level_dim], zero for out-of-bounds points.
+    Differentiable in the table and the points. `chunk` encodes that
+    many points per call (same result; bounds nothing on the card, where
+    each kernel thread holds one point and level)."""
+    if spec.hash_variant not in VARIANTS:
+        raise ValueError(f'unknown hash_variant {spec.hash_variant!r}')
+    if not 1 <= spec.input_dim <= len(PRIMES):
+        raise ValueError(f'input_dim must be 1..{len(PRIMES)}')
+    if tuple(table.shape) != (spec.table_size, spec.level_dim) \
+            or x.shape[-1] != spec.input_dim:
+        raise ValueError(f'table must be [{spec.table_size}, '
+                         f'{spec.level_dim}] and x [..., {spec.input_dim}]')
+    prefix = x.shape[:-1]
+    flat = x.reshape(-1, spec.input_dim)
+    n = flat.shape[0]
+    if chunk is None or n <= chunk:
+        out = HashEncodeGeneral.apply(table, flat, spec, bound)
+    else:
+        out = torch.cat([HashEncodeGeneral.apply(table, flat[i:i + chunk],
+                                                 spec, bound)
+                         for i in range(0, n, chunk)])
+    return out.reshape(*prefix, spec.output_dim)

@@ -5,8 +5,9 @@ Counterpart of the split-refine path of `scenedreamer_tpu/render/pipeline.py`
 inference_givenstyle). Per frame:
   1. camera rays and the full-frame DDA (kernel K1 on CUDA);
   2. one frame-global sky average (`pipeline.py:165-169`);
-  3. the hash table baked once for the world's scene code (K2 (a));
-  4. the pointwise field (depth samples -> hash encode (K2 (b)) ->
+  3. the hash table baked once for the world's scene code (K2 (a); a
+     spec that is not foldable has no bake and encodes unfolded, K4);
+  4. the pointwise field (depth samples -> hash encode (K2 (b) or K4) ->
      RenderMLP -> compositing) over chunks of image rows, sized to keep
      activations a few GB; the field is pointwise, so the values do not
      depend on the chunking;

@@ -116,3 +116,32 @@ def test_paired_variant_table_converts_like_xor():
         {k: v.numpy() for k, v in model.state_dict().items()})
     np.testing.assert_array_equal(np.asarray(back['params']['hash_table']),
                                   table)
+
+
+def test_nonuniform_table_round_trips(flax_params):
+    """A spec that is not foldable has levels of different sizes (here
+    248, 1024, 1024, 1024 rows); the flat [table_size, C] table crosses
+    both ways as it is, with the model built from the JAX config."""
+    import dataclasses
+    from scenedreamer_tpu.models.generator import GeneratorConfig as JCfg
+    from scenedreamer_tpu.ops.hashgrid import foldable as jfoldable
+    from scenedreamer_tpu_torch.ops.hashgrid import general_levels
+    cfg = dataclasses.replace(TINY, hash_base_resolution=2,
+                              hash_desired_resolution=16)
+    assert isinstance(cfg, JCfg) and not jfoldable(cfg.hash_spec)
+    model = SceneDreamerGenerator(port_config(cfg))
+    spec = model.cfg.hash_spec
+    assert [lv.size for lv in general_levels(spec)] == [248, 1024, 1024,
+                                                        1024]
+    assert spec.table_size == cfg.hash_spec.table_size == 3320
+    table = np.random.default_rng(4).standard_normal(
+        (spec.table_size, cfg.hash_level_dim)).astype(np.float32)
+    params = {'params': {**flax_params['params'], 'hash_table': table}}
+    sd = generator_state_dict_from_flax(params)
+    model.load_state_dict(sd, strict=True)
+    np.testing.assert_array_equal(
+        model.hash_encoder.embeddings.detach().numpy(), table)
+    back = convert_scenedreamer_generator(
+        {k: v.numpy() for k, v in model.state_dict().items()})
+    np.testing.assert_array_equal(np.asarray(back['params']['hash_table']),
+                                  table)

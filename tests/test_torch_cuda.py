@@ -7,7 +7,8 @@ counts); K2 is expected exact as well (same float32 operations in the
 same order) and is held to 1e-6. K3 (the hash backward) is held to its
 plain version with the tolerances stated in its test (its scatter adds
 atomically, in a run-dependent order). K5 (the paired variant's four
-kernels) is held as K2 and K3 are."""
+kernels) is held as K2 and K3 are, and so is K4 (the general encode,
+forward and backward)."""
 import numpy as np
 import pytest
 import torch
@@ -195,3 +196,73 @@ def test_paired_hash_kernels_match_plain(cuda, levels, channels, log2):
     assert ((dt.reshape(table3.shape) - p_dt).abs()
             <= 1e-5 * abs_dt + 1e-7).all()
     assert torch.isfinite(ds).all() and (ds != 0).any()
+
+
+@pytest.mark.parametrize('kw', [
+    # level 0 tiled at 5^5 -> 3128 rows (not a power of two), the rest
+    # hashed at 2^12; C = 8, float4 rows
+    dict(input_dim=5, num_levels=8, level_dim=8, base_resolution=4,
+         log2_hashmap_size=12, desired_resolution=512),
+    # tiled past the stride cut-off, aligned corners, C = 2 (float2)
+    dict(input_dim=3, num_levels=6, level_dim=2, base_resolution=4,
+         log2_hashmap_size=8, desired_resolution=256, gridtype='tiled',
+         align_corners=True),
+    # the paired (add) hash, C = 4
+    dict(input_dim=2, num_levels=5, level_dim=4, base_resolution=8,
+         log2_hashmap_size=9, desired_resolution=2048, hash_variant='paired'),
+    # seven dimensions, C = 1 (scalar rows)
+    dict(input_dim=7, num_levels=3, level_dim=1, base_resolution=2,
+         log2_hashmap_size=12, desired_resolution=8),
+], ids=['d5_c8', 'd3_tiled_c2', 'd2_paired_c4', 'd7_c1'])
+def test_general_hash_kernels_match_plain(cuda, kw):
+    """K4 (a)/(b) against the plain versions: the forward 1e-6 (same
+    float32 operations in the same order), G per row 1e-5 of the sum of
+    absolute contributions + 1e-7 (atomics add in a run-dependent
+    order), dx 1e-4 of its largest magnitude (float32 atomics over the
+    levels); the autograd path launches each kernel once."""
+    spec = hg.HashGridSpec.create(**kw)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    n = 20000 if spec.input_dim == 7 else 50000
+    table = torch.rand((spec.table_size, spec.level_dim), generator=gen,
+                       device=cuda) * 2 - 1
+    x = torch.rand((n, spec.input_dim), generator=gen, device=cuda) \
+        * 2.2 - 1.1
+    x[:4] = torch.tensor([-1.0, 1.0, 0.0, 1.0], device=cuda)[:, None]
+    g = torch.randn((n, spec.output_dim), generator=gen, device=cuda)
+    meta, scales = hg.general_meta(spec)
+    off, xor = hg._offset(spec), spec.hash_variant == 'xor'
+    got = kernels.hash_encode_general(table, x, meta, scales, off, 1.0, xor)
+    want = hg.encode_general_plain(spec, table, x)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert want.abs().max() > 0.1
+    rows = spec.table_size
+    k_grad, k_dx = kernels.hash_encode_general_bwd(
+        g, x, meta, scales, off, 1.0, xor, rows, table)
+    p_grad, p_dx = hg.encode_general_bwd_plain(spec, g, x, 1.0, rows, table)
+    abs_grad, _ = hg.encode_general_bwd_plain(spec, g.abs(), x, 1.0, rows)
+    assert ((k_grad - p_grad).abs() <= 1e-5 * abs_grad + 1e-7).all()
+    assert (k_dx - p_dx).abs().max() <= 1e-4 * p_dx.abs().max()
+    t = table.clone().requires_grad_(True)
+    p = x.clone().requires_grad_(True)
+    before = kernels.launch_counts()
+    out = hg.hashgrid_encode(spec, t, p)
+    dt, dx = torch.autograd.grad(out, (t, p), g)
+    after = kernels.launch_counts()
+    for name in ('hash_encode_general', 'hash_encode_general_bwd'):
+        assert after[name] == before[name] + 1, name
+    assert ((dt - p_grad).abs() <= 1e-5 * abs_grad + 1e-7).all()
+    assert (dx - p_dx).abs().max() <= 1e-4 * p_dx.abs().max()
+
+
+def test_general_hash_kernel_rejects_bad_input(cuda):
+    spec = hg.HashGridSpec.create(input_dim=3, num_levels=2, level_dim=3,
+                                  log2_hashmap_size=8)
+    meta, scales = hg.general_meta(spec)
+    table = torch.zeros((spec.table_size, 3), device=cuda)
+    with pytest.raises(ValueError):        # C = 3 has no kernel
+        kernels.hash_encode_general(table, torch.zeros((4, 3), device=cuda),
+                                    meta, scales, 0.5, 1.0, True)
+    with pytest.raises(ValueError):        # a level outside the table
+        kernels.hash_encode_general(torch.zeros((10, 2), device=cuda),
+                                    torch.zeros((4, 3), device=cuda), meta,
+                                    scales, 0.5, 1.0, True)

@@ -15,7 +15,10 @@ import torch
 import jax
 
 from scenedreamer_tpu_torch.models.generator import SceneDreamerGenerator
-from scenedreamer_tpu_torch.ops.hashgrid import encode_folded
+from scenedreamer_tpu_torch.ops.hashgrid import (encode_folded, foldable,
+                                                 general_levels)
+from scenedreamer_tpu_torch.utils.convert import \
+    generator_state_dict_from_flax
 from _torch_parity import port_config, tiny_models
 from test_golden import TINY
 
@@ -167,3 +170,100 @@ def test_hash_variants_render_differently():
             outs.append(encode_folded(tm.cfg.hash_spec, folded[0],
                                       pts * 2 - 1))
     assert (outs[0] - outs[1]).abs().max() > 0.1
+
+
+# A generator whose hash spec is not foldable: level 0's 3^5 cells fit
+# under the 2^10 cap and are indexed densely (248 rows, not a power of
+# two), levels 1-3 are hashed at 1024 rows. The field then runs the
+# general encode (K4's plain twins) on the 5-D points.
+NONFOLD = dataclasses.replace(
+    TINY, hash_base_resolution=2, hash_log2_size=10, hash_num_levels=4,
+    hash_level_dim=4, hash_desired_resolution=16,
+    coarse_deterministic_sampling=True)
+
+
+@pytest.fixture(scope='module')
+def nonfold_setup(setup):
+    """The JAX generator's render pass and the gradients of a scalar loss
+    (world code -> render_pixels -> sum(net_out * c)) for every
+    parameter, jitted (the compiled cell position is one rounding, as
+    the port's) with float32 table-gradient payloads. The weights are
+    the TINY models' (only the table's row count differs), with the
+    hash table drawn uniform in [-1, 1]."""
+    from scenedreamer_tpu.models.generator import SceneDreamerGenerator \
+        as JGen
+    from scenedreamer_tpu.ops import hashgrid as jhg
+    import jax.numpy as jnp
+    world, _, params, _, batch = setup
+    jm = JGen(cfg=NONFOLD)
+    tm = SceneDreamerGenerator(port_config(NONFOLD))
+    table = np.random.default_rng(9).uniform(
+        -1, 1, tuple(tm.hash_encoder.embeddings.shape)).astype(np.float32)
+    params = {'params': {**params['params'], 'hash_table': table}}
+    tm.load_state_dict(generator_state_dict_from_flax(params))
+    tm.eval()
+    rng = np.random.default_rng(2)
+    z = rng.standard_normal((1, TINY.interm_style_dims)).astype(np.float32)
+    args = [batch[k] for k in ('voxel_id', 'depth', 'hit_mask', 'raydirs',
+                               'cam_ori')] + [z]
+    hw = batch['voxel_id'].shape[1:3]
+    c = rng.standard_normal((1,) + hw + (TINY.final_feat_dim,)) \
+        .astype(np.float32)
+
+    def loss(p):
+        genc = jm.apply(p, batch['height_field'], batch['semantic_field'],
+                        method=jm.world_code)
+        out = jm.apply(p, jax.random.PRNGKey(3), *args, genc, world.dims,
+                       deterministic=True, method=jm.render_pixels)
+        return jnp.sum(out['net_out'] * c), out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jhg, 'SORT_PAYLOAD_DTYPE', jnp.float32)
+        (_, jout), jgrad = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+            params)
+    jout = {k: np.asarray(jout[k]) for k in ('net_out', 'weights',
+                                             'total_weights')}
+    jgrad = generator_state_dict_from_flax(
+        jax.tree_util.tree_map(np.asarray, jgrad))
+    return world, tm, batch, args, c, jout, jgrad
+
+
+def test_nonfoldable_spec_has_no_bake(nonfold_setup):
+    world, tm, batch, *_ = nonfold_setup
+    spec = tm.cfg.hash_spec
+    assert not foldable(spec)
+    assert [lv.size for lv in general_levels(spec)] == [248, 1024, 1024,
+                                                        1024]
+    assert tm.bake_hash(torch.zeros(1, 2)) is None
+
+
+def test_nonfoldable_render_pixels_and_grads(nonfold_setup):
+    """`render_pixels` through the general encode at 1e-5; the gradients
+    of the hash table and the world encoder against `jax.grad`. The
+    table gradient is held per row to 1e-4 of the largest row magnitude
+    plus 1e-6 (the MLP's float32 matmul sums in another order feed every
+    row's cotangent); the world encoder's reaches it only through the
+    scene code's gradient, a sum over all points of the encode's
+    dx[:, 3:5] with both signs, and is held to 1e-3 of each tensor's
+    largest magnitude."""
+    world, tm, batch, args, c, jout, jgrad = nonfold_setup
+    tm.zero_grad()
+    genc = tm.world_code(_t(batch['height_field']),
+                         _t(batch['semantic_field']))
+    out = tm.render_pixels(*[_t(a) for a in args], genc, world.dims,
+                           deterministic=True)
+    assert batch['hit_mask'][..., 0].any()
+    for k in ('net_out', 'weights', 'total_weights'):
+        np.testing.assert_allclose(out[k].detach().numpy(), jout[k],
+                                   atol=ATOL, rtol=0, err_msg=k)
+    (out['net_out'] * _t(c)).sum().backward()
+    grads = {n: p.grad for n, p in tm.named_parameters()
+             if n.startswith(('hash_encoder.', 'world_encoder.'))}
+    assert len(grads) > 2
+    for name, got in grads.items():
+        want = jgrad[name].numpy()
+        assert got is not None and np.abs(want).max() > 0, name
+        scale = np.abs(want).max()
+        rtol = 1e-4 if name.startswith('hash_encoder.') else 1e-3
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=rtol * scale + 1e-6, err_msg=name)

@@ -96,6 +96,16 @@ def test_training_loop_modules_are_in_the_walk(module):
     assert path in _port_files()
 
 
+@pytest.mark.parametrize('module', ['ops.encoders', 'ops.hashgrid'])
+def test_general_encode_modules_are_in_the_walk(module):
+    """The general hash encode's modules are walked above (so they import
+    without JAX), and its CUDA source is one the build compiles."""
+    from scenedreamer_tpu_torch import kernels
+    assert os.path.join(PKG, *module.split('.')) + '.py' in _port_files()
+    assert kernels.SOURCES['hashgrid_general'] == 'hashgrid_general.cu'
+    assert os.path.exists(os.path.join(kernels.CSRC, 'hashgrid_general.cu'))
+
+
 def test_training_cli_defaults_to_cuda(tmp_path):
     """`cli.train.main` resolves its device before it touches the data:
     without a GPU it raises unless `--device cpu` is given."""
