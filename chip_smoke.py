@@ -29,8 +29,14 @@ of the repository. Phases, each fatal on failure:
      plain version at the flagship spec on the sample points of one
      training batch (crop 256 + pad 6, 262x262 rays, 24 samples), table
      uniform in [-1, 1], seeded normal cotangent; the scattered
-     gradient G, dT, dw and dxyz held to the tolerances printed with
-     their reasons;
+     gradient G (against its float64 sum), dT, dw and dxyz held to the
+     tolerances printed with their reasons; then the scatter K3a split
+     by level ('[K3 levels]': each level's time on the coarse and the
+     direct path, in ray order and shuffled, with its distinct rows and
+     the coarse path's rows flushed and inserts overflowed; the whole
+     launch before, every level direct, and after), and K3a held in two
+     adversarial cases, 2^20 points in one cell and the batch's points
+     shuffled;
   7. the training path: `GANTrainer` at the flagship training width of
      configs/scenedreamer_train.yaml (`GeneratorConfig()`: hash 16 x
      2^19 x 8, MLP 256, style 128/256, feature 64, 24 samples, M=6,
@@ -70,7 +76,8 @@ of the repository. Phases, each fatal on failure:
      `get_encoder('tiledgrid', level_dim=2, align_corners=True)` spec on
      1,048,576 points (tiled levels past their stride cut-off, C=2,
      aligned corners); tolerances as phases 3 and 6; then the timings
-     and bounds of K4 (a)/(b) at the flagship shapes;
+     and bounds of K4 (a)/(b) at the flagship shapes, and K4b split by
+     level and held in the adversarial cases as K3a in phase 6;
  11. the paths through K4: the flagship generator at `hash_log2_size=21`
      with seeded weights renders 1 frame through `render_trajectory`
      (540x960, 40 samples, pad 30; finite, in [-1, 1], K4 (a) launched
@@ -110,6 +117,7 @@ XOR = ('hash_bake', 'hash_encode', 'hash_encode_bwd', 'hash_bake_bwd',
        'hash_bake_dw')
 GENERAL = ('hash_encode_general', 'hash_encode_general_bwd')
 LOG2_UNFOLDED = 21      # the smallest flagship table that is not foldable
+ONE_CELL_POINTS = 1 << 20   # points of the scatters' one-cell case
 
 
 def log(*a):
@@ -176,6 +184,56 @@ def make_trainer(cfg, dims, dev, seed=SEED):
         dims, perceptual=PerceptualLoss(seed=seed).to(dev))
 
 
+def _exact_scatter(torch, g, c, rows, corners):
+    """A table gradient [rows, C] summed in float64 from the plain
+    versions' corner rows and float32 weights: `corners` yields (level,
+    rows of each corner in the whole table, weights of each corner) for
+    the points whose cotangent rows are g [N, L*C]. The reference for the
+    table scatters K3a and K4b: a float32 sum of a row's terms in any
+    order may be off by more than 1e-5 of their absolute sum where a row
+    takes a few hundred thousand of them (phases 6 and 10 have one: the
+    samples of the rays that hit nothing all lie at the camera, since
+    `sample_depth` gives them depth 0), and the plain versions' float32
+    `index_add_` is such a sum."""
+    out = torch.zeros((rows, c), dtype=torch.float64, device=g.device)
+    for lv, idx, ws in corners:
+        gl = g[:, lv * c:(lv + 1) * c].double()
+        for i, w in zip(idx, ws):
+            out.index_add_(0, i, w.double()[:, None] * gl)
+    return out
+
+
+def exact_folded_grad(torch, hg, g, xyz, scales, offset, slots):
+    """K3a's table gradient [L, slots, C] in float64 (`_exact_scatter`)."""
+    lvs, c = scales.shape[0], g.shape[1] // scales.shape[0]
+    x01 = (xyz + 1.0) / 2.0
+    ok = ((x01 >= 0) & (x01 <= 1)).all(-1)
+    x01, g = x01[ok], g[ok]
+
+    def corners():
+        for lv in range(lvs):
+            idx, ws, _ = hg._corners(x01, scales[lv], offset, slots)
+            yield lv, [i + lv * slots for i in idx], ws
+    return _exact_scatter(torch, g, c, lvs * slots, corners()) \
+        .reshape(lvs, slots, c)
+
+
+def exact_general_grad(torch, hg, spec, g, x):
+    """K4b's table gradient [rows, C] in float64 (`_exact_scatter`)."""
+    x01 = (x + 1.0) / 2.0
+    ok = ((x01 >= 0) & (x01 <= 1)).all(-1)
+    x01, g = x01[ok], g[ok]
+    off = hg._offset(spec)
+
+    def corners():
+        for lv, level in enumerate(hg.general_levels(spec)):
+            idx, ws, _ = hg._general_corners(x01, level, off,
+                                             spec.hash_variant)
+            yield lv, [i + level.offset for i in idx], ws
+    return _exact_scatter(torch, g, spec.level_dim, spec.table_size,
+                          corners())
+
+
 def backward_check(torch, kernels, hg, cfg, batch, dims, dev, tag):
     """Phases 6 and 8: the hash kernels of `cfg.hash_variant` against the
     plain versions on the sample points of one training batch; returns
@@ -228,6 +286,8 @@ def backward_check(torch, kernels, hg, cfg, batch, dims, dev, tag):
     k_grad, k_dxyz = k_bwd(g, xyz, scales, off, 1.0, oob, slots, baked)
     p_grad, p_dxyz = hg.encode_bwd_plain(g, xyz, scales, off, 1.0, oob,
                                          slots, baked, variant)
+    if not paired and not oob:   # K3a: against the exact sum
+        p_grad = exact_folded_grad(torch, hg, g, xyz, scales, off, slots)
     abs_grad, _ = hg.encode_bwd_plain(g.abs(), xyz, scales, off, 1.0, oob,
                                       slots, None, variant)
     k_dt = k_bake(k_grad, inv32, weights, names['dt'])
@@ -248,10 +308,12 @@ def backward_check(torch, kernels, hg, cfg, batch, dims, dev, tag):
     log(f'[{tag}] {n} points ({inb} in bounds), spec {spec.num_levels} x '
         f'{slots} x {spec.level_dim}, variant {variant}')
     log(f'[{tag}] G (scatter) max abs err {g_err:.3g}, dT max abs err '
-        f'{dt_err:.3g}; tolerance for each, per slot: 1e-5 x (sum of |w g| '
-        f'into the slot, plain path) + 1e-7, because float32 atomics add in '
-        f'a run-dependent order: worst margin G {g_excess:.3g}, dT '
-        f'{dt_excess:.3g} (<= 0 passes)')
+        f'{dt_err:.3g} (against '
+        f'{"the plain path" if paired else "the float64 sum"}); tolerance '
+        f'for each, per slot: 1e-5 x (sum of |w g| into the slot, plain '
+        f'path) + 1e-7, because float32 atomics add in a run-dependent '
+        f'order: worst margin G {g_excess:.3g}, dT {dt_excess:.3g} (<= 0 '
+        f'passes)')
     log(f'[{tag}] dw max rel err {dw_rel:.3g}; tolerance 1e-5 (float64 sums '
         f'on both sides, the kernel in a fixed block order)')
     log(f'[{tag}] dxyz max err / max|dxyz| {dx_rel:.3g}; tolerance 1e-4 '
@@ -311,6 +373,281 @@ def backward_check(torch, kernels, hg, cfg, batch, dims, dev, tag):
     out[names['bwd']] = (g_err, t_enc, t_enc_plain, *enc_bound)
     out[names['dt']] = (dt_err, t_dt, t_dt_plain, *fold_bound)
     out[names['dw']] = (dw_rel, t_dw, t_dw_plain, *fold_bound)
+    return out
+
+
+def _timed_split(torch, kernels, launch, level, order, dev, coarse):
+    """Median ms of one scatter launch on the direct path, on the coarse
+    path, and the coarse path's (rows flushed, inserts overflowed); the
+    direct path alone without `coarse`."""
+    direct = median_ms(lambda: launch(order, level, kernels.DIRECT_ONLY))
+    if not coarse:
+        return direct, math.nan, (-1, -1)
+    coarse = median_ms(lambda: launch(order, level, math.inf))
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    launch(order, level, math.inf, stats)
+    return direct, coarse, tuple(stats.tolist())
+
+
+def scatter_split(torch, kernels, tag, scales, launch, distinct, dev,
+                  coarse=True):
+    """The per-level split of a table scatter (K3a, K4b) on the training
+    points, in ray order (as training feeds them) and shuffled:
+    `launch(order, level, coarse_max_scale, stats=None)` runs the scatter
+    of the points in `order` on one level (None: every level), the
+    one-level launch being the kernel on that level's columns of g with
+    that level's scale (and metadata); `distinct(level)` counts the table
+    rows the level's corners touch. Prints, per level, the direct and the
+    coarse path's ms, the coarse path's rows flushed and inserts
+    overflowed, and which path the wrapper takes (`kernels.coarse_levels`),
+    then the whole launch before (every level direct: the scatter as it
+    was before the coarse path) and after. Without `coarse`, the direct
+    path alone. Returns the numbers."""
+    flags = kernels.coarse_levels(scales)
+    out = dict(levels=[], total={})
+    log(f'[{tag} levels] level, scale, distinct rows, path taken; per order '
+        f'(ray, shuffled): direct ms, coarse ms, coarse rows flushed, '
+        f'coarse inserts overflowed')
+    for lv, scale in enumerate(scales):
+        row = dict(level=lv, scale=float(scale), coarse=flags[lv],
+                   rows=distinct(lv))
+        for order in ('ray', 'shuffled'):
+            row[order] = _timed_split(torch, kernels, launch, lv, order, dev,
+                                      coarse)
+        log(f'[{tag} levels] {lv:2d} {float(scale):8.2f} {row["rows"]:9d} '
+            f'{"coarse" if flags[lv] else "direct"}: ' + '; '.join(
+                f'{order} {d:8.3f} {c:8.3f} {fl:9d} {ov:9d}'
+                for order in ('ray', 'shuffled')
+                for d, c, (fl, ov) in [row[order]]))
+        out['levels'].append(row)
+    for order in ('ray', 'shuffled'):
+        before = median_ms(lambda: launch(order, None, kernels.DIRECT_ONLY))
+        after = median_ms(lambda: launch(order, None,
+                                         kernels.COARSE_MAX_SCALE)) \
+            if coarse else math.nan
+        out['total'][order] = (before, after)
+        log(f'[{tag} levels] all {len(scales)} levels, {order}: before '
+            f'(every level direct) {before:.3f} ms, after (levels of scale '
+            f'<= {kernels.COARSE_MAX_SCALE} coarse) {after:.3f} ms')
+    return out
+
+
+def check_split(tag, split):
+    """No level the wrapper sends down the coarse path is slower there
+    than on the direct path, in ray order (10% for timing noise)."""
+    for row in split['levels']:
+        d, c, _ = row['ray']
+        assert not row['coarse'] or c <= 1.1 * d, (
+            f'{tag}: level {row["level"]} is slower on the coarse path '
+            f'({c:.3f} ms) than on the direct one ({d:.3f} ms)')
+
+
+def one_cell(torch, n, dims, scales, offset, seed, dev):
+    """n points [n, dims] in [-1, 1] that share one cell at every level
+    of `scales`: a box 1e-3 of the finest cell wide around a seeded
+    centre whose box crosses no level's cell boundary."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    width = 1e-3 / float(max(scales))
+    while True:
+        lo = torch.rand((dims,), generator=gen, device=dev) * 0.8 + 0.1
+        # a margin of one box width on each side for the kernels' rounding
+        cells = [torch.floor(v * float(s) + offset)
+                 for v in (lo - width, lo + 2 * width) for s in scales]
+        half = len(cells) // 2
+        if all(torch.equal(a, b) for a, b in zip(cells[:half], cells[half:])):
+            break
+    x01 = lo + torch.rand((n, dims), generator=gen, device=dev) * width
+    return (x01 * 2.0 - 1.0).contiguous()
+
+
+def _held(tag, case, k_grad, p_grad, abs_grad, k_d, p_d, stats):
+    """G per row within 1e-5 of its absolute sum + 1e-7 and the point
+    gradient within 1e-4 of its largest magnitude, as phases 6 and 10."""
+    excess = float(((k_grad - p_grad).abs() - 1e-5 * abs_grad - 1e-7).max())
+    d_rel = float((k_d - p_d).abs().max() / p_d.abs().max())
+    flushed, overflowed = stats.tolist()
+    log(f'[{tag} {case}] G against the float64 sum: worst margin '
+        f'{excess:.3g} (<= 0 passes: 1e-5 x the sum of |w g| into the row + '
+        f'1e-7), point gradient max err / max {d_rel:.3g} (tolerance 1e-4); '
+        f'coarse path: {flushed} rows flushed, {overflowed} inserts '
+        f'overflowed to global atomics')
+    assert excess <= 0, f'{tag} {case}: G differs from plain'
+    assert d_rel <= 1e-4, f'{tag} {case}: point gradient differs from plain'
+    return dict(g_margin=excess, d_rel=d_rel, flushed=flushed,
+                overflowed=overflowed)
+
+
+def report_sums(torch, tag, exact, abs_grad, sums, where):
+    """Why the scatters' G is held against its float64 sum: the worst
+    margin against the tolerance (1e-5 x the row's absolute sum + 1e-7;
+    <= 0 passes) of float32 sums of the same terms, {name: G}, and where
+    the first one's worst row lies (`where(row)`: its level and adds)."""
+    parts = []
+    for i, (name, got) in enumerate(sums.items()):
+        margin = ((got.double() - exact).abs() - 1e-5 * abs_grad - 1e-7) \
+            .reshape(exact.shape[0] * exact.shape[1] if exact.dim() == 3
+                     else exact.shape[0], -1).max(dim=1).values
+        worst = int(margin.argmax())
+        parts.append(f'{name} {float(margin[worst]):.3g}'
+                     + (f' (row {worst}: {where(worst)})' if i == 0 else ''))
+    log(f'[{tag} reference] against the float64 sum of the same terms, worst '
+        f'margin (<= 0 passes): ' + '; '.join(parts))
+
+
+def k3_levels(torch, kernels, hg, spec, xyz, dev, coarse=True):
+    """Phase 6, K3a: the per-level split (`scatter_split`) and the two
+    adversarial cases, every point in one cell (the most sharing: 2^20
+    points) and the training points shuffled (which sends the coarse
+    levels' tables into overflow), held to the plain version with the
+    wrapper's split and a seeded table as the baked one. Without
+    `coarse`, the direct path's split alone."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n, c, lvs = xyz.shape[0], spec.level_dim, spec.num_levels
+    slots = spec.table_size // lvs
+    scales, off = hg._scales(spec, dev), hg._offset(spec)
+    g = torch.randn((n, spec.output_dim), generator=gen, device=dev)
+    perm = torch.randperm(n, generator=gen, device=dev)
+    pts = dict(ray=xyz, shuffled=xyz[perm].contiguous())
+    gs = dict(ray=g, shuffled=g[perm].contiguous())
+    cols = {o: [v[:, lv * c:(lv + 1) * c].contiguous() for lv in range(lvs)]
+            for o, v in gs.items()}
+
+    def launch(order, lv, cms, stats=None):
+        if lv is None:
+            return kernels.hash_encode_bwd_split(
+                gs[order], pts[order], scales, off, 1.0, False, slots, None,
+                cms, stats)
+        return kernels.hash_encode_bwd_split(
+            cols[order][lv], pts[order], scales[lv:lv + 1], off, 1.0, False,
+            slots, None, cms, stats)
+
+    x01 = (xyz + 1.0) / 2.0
+    x01 = x01[((x01 >= 0) & (x01 <= 1)).all(-1)]
+    _, repeats = torch.unique(xyz, dim=0, return_counts=True)
+    log(f'[K3 levels] {n} points, {x01.shape[0]} in bounds; the most '
+        f'repeated point occurs {int(repeats.max())} times (the samples of '
+        f'rays that hit nothing, all at the camera)')
+
+    def distinct(lv):
+        rows, _, _ = hg._corners(x01, scales[lv], off, slots)
+        return int(torch.unique(torch.cat(rows)).numel())
+
+    out = scatter_split(torch, kernels, 'K3', scales.tolist(), launch,
+                        distinct, dev, coarse)
+    del cols
+    if not coarse:
+        return out
+
+    def where(row):
+        lv, slot = divmod(row, slots)
+        idx, _, _ = hg._corners(x01, scales[lv], off, slots)
+        return f'level {lv}, {sum(int((i == slot).sum()) for i in idx)} adds'
+    report_sums(torch, 'K3', exact_folded_grad(torch, hg, g, xyz, scales, off,
+                                               slots),
+                hg.encode_bwd_plain(g.abs(), xyz, scales, off, 1.0, False,
+                                    slots)[0],
+                {'float32 plain twin': hg.encode_bwd_plain(
+                    g, xyz, scales, off, 1.0, False, slots)[0],
+                 'direct path': launch('ray', None, kernels.DIRECT_ONLY)[0],
+                 'coarse path': launch('ray', None, None)[0]}, where)
+    baked = torch.rand((lvs, slots, c), generator=gen, device=dev) * 2 - 1
+    cell = one_cell(torch, ONE_CELL_POINTS, 3, scales.tolist(), off, SEED,
+                    dev)
+    g1 = torch.randn((cell.shape[0], spec.output_dim), generator=gen,
+                     device=dev)
+    for case, x, gg in (('one cell', cell, g1),
+                        ('shuffled', pts['shuffled'], gs['shuffled'])):
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        k_grad, k_d = kernels.hash_encode_bwd_split(
+            gg, x, scales, off, 1.0, False, slots, baked, stats=stats)
+        _, p_d = hg.encode_bwd_plain(gg, x, scales, off, 1.0, False, slots,
+                                     baked)
+        p_grad = exact_folded_grad(torch, hg, gg, x, scales, off, slots)
+        abs_grad, _ = hg.encode_bwd_plain(gg.abs(), x, scales, off, 1.0,
+                                          False, slots)
+        out[case] = _held('K3', case, k_grad, p_grad, abs_grad, k_d,
+                          p_d, stats)
+        del k_grad, p_grad, abs_grad, k_d, p_d
+    check_split('K3', out)
+    return out
+
+
+def k4_levels(torch, kernels, hg, spec, pts, dev, coarse=True):
+    """Phase 10, K4b: as `k3_levels` on the 5-D training points (scene
+    code included), the table given so the point gradient is computed;
+    the one-cell case keeps the batch's scene code."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n, d = pts.shape
+    c, lvs, rows = spec.level_dim, spec.num_levels, spec.table_size
+    meta, scales = hg.general_meta(spec)
+    off, xor = hg._offset(spec), spec.hash_variant == 'xor'
+    levels = hg.general_levels(spec)
+    table = torch.rand((rows, c), generator=gen, device=dev) * 2 - 1
+    g = torch.randn((n, spec.output_dim), generator=gen, device=dev)
+    perm = torch.randperm(n, generator=gen, device=dev)
+    xs = dict(ray=pts, shuffled=pts[perm].contiguous())
+    gs = dict(ray=g, shuffled=g[perm].contiguous())
+    cols = {o: [v[:, lv * c:(lv + 1) * c].contiguous() for lv in range(lvs)]
+            for o, v in gs.items()}
+    one = [(meta[lv:lv + 1].contiguous(), scales[lv:lv + 1].contiguous())
+           for lv in range(lvs)]
+
+    def launch(order, lv, cms, stats=None):
+        if lv is None:
+            return kernels.hash_encode_general_bwd_split(
+                gs[order], xs[order], meta, scales, off, 1.0, xor, rows,
+                table, True, cms, stats)
+        return kernels.hash_encode_general_bwd_split(
+            cols[order][lv], xs[order], *one[lv], off, 1.0, xor, rows, table,
+            True, cms, stats)
+
+    x01 = (pts + 1.0) / 2.0
+    x01 = x01[((x01 >= 0) & (x01 <= 1)).all(-1)]
+
+    def distinct(lv):
+        idx, _, _ = hg._general_corners(x01, levels[lv], off,
+                                        spec.hash_variant)
+        return int(torch.unique(torch.cat(idx)).numel())
+
+    out = scatter_split(torch, kernels, 'K4', scales.tolist(), launch,
+                        distinct, dev, coarse)
+    del cols
+    if not coarse:
+        return out
+    offsets = [lv.offset for lv in levels]
+
+    def where(row):
+        lv = max(i for i, o in enumerate(offsets) if o <= row)
+        idx, _, _ = hg._general_corners(x01, levels[lv], off,
+                                        spec.hash_variant)
+        return (f'level {lv}, '
+                f'{sum(int((i + offsets[lv] == row).sum()) for i in idx)} adds')
+    report_sums(torch, 'K4', exact_general_grad(torch, hg, spec, g, pts),
+                hg.encode_general_bwd_plain(spec, g.abs(), pts, 1.0, rows)[0],
+                {'float32 plain twin': hg.encode_general_bwd_plain(
+                    spec, g, pts, 1.0, rows)[0],
+                 'direct path': launch('ray', None, kernels.DIRECT_ONLY)[0],
+                 'coarse path': launch('ray', None, None)[0]}, where)
+    cell = one_cell(torch, ONE_CELL_POINTS, 3, scales.tolist(), off, SEED,
+                    dev)
+    cell = torch.cat([cell, pts[:1, 3:].expand(cell.shape[0], d - 3)],
+                     dim=-1).contiguous()
+    g1 = torch.randn((cell.shape[0], spec.output_dim), generator=gen,
+                     device=dev)
+    for case, x, gg in (('one cell', cell, g1),
+                        ('shuffled', xs['shuffled'], gs['shuffled'])):
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        k_grad, k_d = kernels.hash_encode_general_bwd_split(
+            gg, x, meta, scales, off, 1.0, xor, rows, table, stats=stats)
+        _, p_d = hg.encode_general_bwd_plain(spec, gg, x, 1.0, rows, table,
+                                             False)
+        p_grad = exact_general_grad(torch, hg, spec, gg, x)
+        abs_grad, _ = hg.encode_general_bwd_plain(spec, gg.abs(), x, 1.0,
+                                                  rows)
+        out[case] = _held('K4', case, k_grad, p_grad, abs_grad, k_d,
+                          p_d, stats)
+        del k_grad, p_grad, abs_grad, k_d, p_d
+    check_split('K4', out)
     return out
 
 
@@ -579,7 +916,9 @@ def general_check(torch, kernels, hg, spec, x, dev, tag, timing=False):
     del k_out, p_out
     k_grad, k_dx = kernels.hash_encode_general_bwd(g, x, meta, scales, off,
                                                    1.0, xor, rows, table)
-    p_grad, p_dx = hg.encode_general_bwd_plain(spec, g, x, 1.0, rows, table)
+    _, p_dx = hg.encode_general_bwd_plain(spec, g, x, 1.0, rows, table,
+                                          False)
+    p_grad = exact_general_grad(torch, hg, spec, g, x)
     abs_grad, _ = hg.encode_general_bwd_plain(spec, g.abs(), x, 1.0, rows)
     torch.cuda.synchronize()
     g_err = float((k_grad - p_grad).abs().max())
@@ -589,12 +928,12 @@ def general_check(torch, kernels, hg, spec, x, dev, tag, timing=False):
     x01 = (x + 1.0) / 2.0
     inb = ((x01 >= 0) & (x01 <= 1)).all(-1)
     n_inb = int(inb.sum())
-    log(f'[{tag}] G (scatter) max abs err {g_err:.3g}; tolerance per row: '
-        f'1e-5 x (sum of |w g| into the row, plain path) + 1e-7, because '
-        f'float32 atomics add in a run-dependent order: worst margin '
-        f'{g_excess:.3g} (<= 0 passes); dx max err / max|dx| {dx_rel:.3g}, '
-        f'tolerance 1e-4 (float32 atomics over the levels); {n_inb} points '
-        f'in bounds')
+    log(f'[{tag}] G (scatter) max abs err {g_err:.3g} against the float64 '
+        f'sum; tolerance per row: 1e-5 x (sum of |w g| into the row, plain '
+        f'path) + 1e-7, because float32 atomics add in a run-dependent '
+        f'order: worst margin {g_excess:.3g} (<= 0 passes); dx max err / '
+        f'max|dx| {dx_rel:.3g}, tolerance 1e-4 (float32 atomics over the '
+        f'levels); {n_inb} points in bounds')
     assert g_excess <= 0, f'{tag} G differs from plain'
     assert dx_rel <= 1e-4, f'{tag} dx differs from plain'
     del p_grad, p_dx, abs_grad, k_grad, k_dx
@@ -794,7 +1133,15 @@ def general_loop(torch, kernels):
                 step_share=share, peak_gb=peak)
 
 
-def kernel_rows(serving, k3, train, k5, loop):
+def split_extra(split):
+    """The `kernels` row fields of a scatter's per-level split: the whole
+    launch with every level direct (before the coarse path) in ray order,
+    and the number of levels on the coarse path."""
+    return dict(ms_before=split['total']['ray'][0],
+                coarse_levels=sum(r['coarse'] for r in split['levels']))
+
+
+def kernel_rows(serving, k3, k3_split, train, k5, loop):
     """The `kernels` JSON rows: K1, K2a, K2b on the serving path, K3a-c
     on the training path and K5a-d on the training loop's paired run,
     each read from the kernel's own counter. `launches` is the count of
@@ -832,7 +1179,8 @@ def kernel_rows(serving, k3, train, k5, loop):
             errs['hash_encode'], *ms['hash_encode'], counts,
             **extra['hash_encode']),
         row('hash_encode_bwd', bwd, f'{jax_hg}:361',
-            *k3['hash_encode_bwd'], tcounts, points=k3['points']),
+            *k3['hash_encode_bwd'], tcounts, points=k3['points'],
+            **split_extra(k3_split)),
         row('hash_bake_bwd', fwd, f'{jax_hg}:642',
             *k3['hash_bake_bwd'], tcounts),
         row('hash_bake_dw', bwd, f'{jax_hg}:642',
@@ -850,7 +1198,7 @@ def kernel_rows(serving, k3, train, k5, loop):
     ]
 
 
-def general_rows(k4, render, step, loop):
+def general_rows(k4, k4_split, render, step, loop):
     """The `kernels` JSON rows of K4 (a) and (b): `launches` from the
     path each was ported for (the unfolded serving frame for (a), the
     unfolded training loop for (b)), per-frame / per-step / per-loop-
@@ -870,7 +1218,8 @@ def general_rows(k4, render, step, loop):
             launches_per_step=step['counts'][name] / step['steps'],
             launches_per_loop_iteration=(loop['counts'][name]
                                          / loop['iterations']),
-            points=k4['points']))
+            points=k4['points'],
+            **(split_extra(k4_split) if name.endswith('_bwd') else {})))
     return out
 
 
@@ -1101,6 +1450,9 @@ def main():
     k3 = backward_check(torch, kernels, hg, tcfg, batch, world.dims, dev,
                         'K3')
     torch.cuda.empty_cache()
+    k3_split = k3_levels(torch, kernels, hg, tcfg.hash_spec,
+                         sample_points(batch, tcfg, world.dims), dev)
+    torch.cuda.empty_cache()
 
     # 7. the training path -------------------------------------------------
     train = train_path(torch, kernels, tcfg, world, voxel, dev)
@@ -1130,6 +1482,8 @@ def main():
     log(f'[K4] scene code of the training batch {code.tolist()}')
     k4 = general_check(torch, kernels, hg, uspec, pts, dev, 'K4',
                        timing=True)
+    torch.cuda.empty_cache()
+    k4_split = k4_levels(torch, kernels, hg, uspec, pts, dev)
     del xyz, pts
     torch.cuda.empty_cache()
     _, _, tspec = get_encoder('tiledgrid', input_dim=3, level_dim=2,
@@ -1159,8 +1513,8 @@ def main():
     torch.cuda.empty_cache()
     uloop = general_loop(torch, kernels)
 
-    table_rows = kernel_rows(serving, k3, train, k5, loop) \
-        + general_rows(k4, urender, ustep, uloop)
+    table_rows = kernel_rows(serving, k3, k3_split, train, k5, loop) \
+        + general_rows(k4, k4_split, urender, ustep, uloop)
     log(json.dumps({'kernels': table_rows}))
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',

@@ -36,6 +36,7 @@ SOURCES = {'dda': 'dda.cu', 'hashgrid_fwd': 'hashgrid_fwd.cu',
            'hashgrid_bwd': 'hashgrid_bwd.cu',
            'hashgrid_paired': 'hashgrid_paired.cu',
            'hashgrid_general': 'hashgrid_general.cu'}
+HEADERS = ('scatter_accum.cuh',)    # included by the two table scatters
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-Xptxas=-v', '-shared', '-Xcompiler',
               '-fPIC']
@@ -62,21 +63,43 @@ _SIGNATURES = {
     'sd_hash_encode': [_P, _P, _P, _P, _LL, _I, _LL, _I, _F, _F, _F, _I,
                        _P],
     'sd_hash_encode_bwd': [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _F,
-                           _F, _F, _P],
+                           _F, _F, _F, _P, _P],
+    'sd_hash_encode_paired_bwd': [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I,
+                                  _F, _F, _F, _P],
     'sd_hash_bake_dw': [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
     'sd_hash_encode_general': [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F,
                                _F, _F, _P],
     'sd_hash_encode_general_bwd': [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
-                                   _I, _I, _F, _F, _F, _P],
+                                   _I, _I, _F, _F, _F, _F, _P, _P],
 }
 # the paired variant's entry points (K5) take the arguments of their xor
 # counterparts
 for _xor, _paired in (('sd_hash_bake', 'sd_hash_shift_bake'),
                       ('sd_hash_encode', 'sd_hash_encode_paired'),
-                      ('sd_hash_encode_bwd', 'sd_hash_encode_paired_bwd'),
                       ('sd_hash_bake_dw', 'sd_hash_shift_bake_dw')):
     _SIGNATURES[_paired] = _SIGNATURES[_xor]
 DW_BLOCKS = 256     # blocks per level of the dw reduction (K3 (c))
+# The table scatters K3 (a) and K4 (b) take their coarse path
+# (`csrc/scatter_accum.cuh`: warp sums, a shared-memory table per block,
+# one global add per row and block) on the levels whose scale (the
+# level's resolution - 1) is at most this, and the direct path (one
+# global atomic per corner) on the others. On the training points, in
+# the ray order training feeds them, every level of the flagship spec up
+# to its finest (scale 2047) ran faster on the coarse path: 2.8x to 7.0x
+# for K4 (b), 8x to 26x for K3 (a), and shuffled too (`chip_smoke.py`
+# phases 6 and 10, `PERF.md`); finer levels stay direct until measured.
+COARSE_MAX_SCALE = 2048.0
+DIRECT_ONLY = -1.0  # flags no level coarse: the direct path everywhere
+
+
+def coarse_levels(scales, coarse_max_scale=None):
+    """Per-level flags of the table scatters' coarse path: the levels of
+    `scales` (host values, e.g. `ops/hashgrid.py:general_meta`'s) whose
+    scale is at most `coarse_max_scale` (default COARSE_MAX_SCALE). The
+    kernels apply the same rule to the scales they are given."""
+    if coarse_max_scale is None:
+        coarse_max_scale = COARSE_MAX_SCALE
+    return [float(s) <= coarse_max_scale for s in scales]
 
 
 def launch_counts():
@@ -103,7 +126,8 @@ def build():
         if len(_LIBS) == len(SOURCES):
             return dict(_LIBS)
         cmd = [_nvcc()] + NVCC_FLAGS
-        jobs = {name: start_compile(os.path.join(CSRC, src), cmd, name)
+        deps = tuple(os.path.join(CSRC, h) for h in HEADERS)
+        jobs = {name: start_compile(os.path.join(CSRC, src), cmd, name, deps)
                 for name, src in SOURCES.items() if name not in _LIBS}
         for name, job in jobs.items():
             path, BUILD_LOGS[name] = finish_compile(*job)
@@ -248,10 +272,32 @@ def hash_encode_bwd(g, xyz, scales, offset, bound, scene_oob, slots,
     """K3 (a). g [N, L*C] float32 cotangent of `hash_encode`; xyz [N, 3];
     scales [L] -> (grad [L, slots, C] float32, the scatter of g into the
     baked table's rows, and dxyz [N, 3] when `baked` [L, slots, C] is
-    given, else None)."""
+    given, else None). Levels of scale <= COARSE_MAX_SCALE take the
+    coarse path."""
+    return hash_encode_bwd_split(g, xyz, scales, offset, bound, scene_oob,
+                                 slots, baked)
+
+
+def hash_encode_bwd_split(g, xyz, scales, offset, bound, scene_oob, slots,
+                          baked=None, coarse_max_scale=None, stats=None):
+    """`hash_encode_bwd` with the levels' split given: levels of scale <=
+    `coarse_max_scale` (default COARSE_MAX_SCALE, read at the call, so a
+    measurement can set the module's value to DIRECT_ONLY for the whole
+    training step) take the coarse path, DIRECT_ONLY puts every level on
+    the direct path, `math.inf` every level on the coarse one. `stats`,
+    an int64 [2] CUDA tensor, or None: the coarse path adds to it the
+    rows it flushed and the inserts that overflowed its tables. For the
+    per-level measurements and the tests; the training path runs
+    `hash_encode_bwd`."""
+    if stats is not None:
+        _require(stats, torch.int64, 'stats', 1)
+    if coarse_max_scale is None:
+        coarse_max_scale = COARSE_MAX_SCALE
     return _encode_bwd('hashgrid_bwd', 'sd_hash_encode_bwd',
                        'hash_encode_bwd', g, xyz, scales, offset, bound,
-                       scene_oob, slots, baked)
+                       scene_oob, slots, baked,
+                       (float(coarse_max_scale),
+                        stats.data_ptr() if stats is not None else None))
 
 
 def hash_encode_paired_bwd(g, xyz, scales, offset, bound, scene_oob, slots,
@@ -264,7 +310,7 @@ def hash_encode_paired_bwd(g, xyz, scales, offset, bound, scene_oob, slots,
 
 
 def _encode_bwd(source, fn, counter, g, xyz, scales, offset, bound,
-                scene_oob, slots, baked):
+                scene_oob, slots, baked, split=()):
     _require(g, torch.float32, 'g', 2)
     _require(xyz, torch.float32, 'xyz', 2)
     _require(scales, torch.float32, 'scales', 1)
@@ -289,7 +335,7 @@ def _encode_bwd(source, fn, counter, g, xyz, scales, offset, bound,
                 grad.data_ptr(),
                 dxyz.data_ptr() if dxyz is not None else None, n, lv,
                 int(slots), c, float(bound), float(2.0 * bound),
-                float(offset))
+                float(offset), *split)
     return grad, dxyz
 
 
@@ -392,7 +438,18 @@ def hash_encode_general_bwd(g, x, meta, scales, offset, bound, xor_hash,
     meta, scales, offset, bound, xor_hash as there; rows the table's row
     count -> (grad [rows, C] float32, the scatter of g into the corner
     rows, or None without `table_grad`; dx [N, D] float32, the gradient
-    through frac, when `table` [rows, C] is given, else None)."""
+    through frac, when `table` [rows, C] is given, else None). Levels of
+    scale <= COARSE_MAX_SCALE take the coarse path."""
+    return hash_encode_general_bwd_split(g, x, meta, scales, offset, bound,
+                                         xor_hash, rows, table, table_grad)
+
+
+def hash_encode_general_bwd_split(g, x, meta, scales, offset, bound,
+                                  xor_hash, rows, table=None,
+                                  table_grad=True, coarse_max_scale=None,
+                                  stats=None):
+    """`hash_encode_general_bwd` with the levels' split given, as
+    `hash_encode_bwd_split`."""
     lv = meta.shape[0] if meta.dim() == 2 else 1
     c = g.shape[1] // lv if g.dim() == 2 else 0
     _general_args(x, meta, scales, c, rows, {'g': g, 'table': table})
@@ -400,6 +457,10 @@ def hash_encode_general_bwd(g, x, meta, scales, offset, bound, xor_hash,
     if g.shape != (n, lv * c) or (table is not None
                                   and table.shape != (rows, c)):
         raise ValueError('g must be [N, L*C] and table [rows, C]')
+    if stats is not None:
+        _require(stats, torch.int64, 'stats', 1)
+    if coarse_max_scale is None:
+        coarse_max_scale = COARSE_MAX_SCALE
     dev = x.device
     grad = torch.zeros((rows, c), dtype=torch.float32, device=dev) \
         if table_grad else None
@@ -413,5 +474,6 @@ def hash_encode_general_bwd(g, x, meta, scales, offset, bound, xor_hash,
                 grad.data_ptr() if grad is not None else None,
                 dx.data_ptr() if dx is not None else None, n, dims, lv, c,
                 int(bool(xor_hash)), float(bound), float(2.0 * bound),
-                float(offset))
+                float(offset), float(coarse_max_scale),
+                stats.data_ptr() if stats is not None else None)
     return grad, dx

@@ -1,8 +1,9 @@
 """Build-on-first-use for the port's native libraries.
 
 Shared libraries go into `scenedreamer_tpu_torch/_build/` (listed in
-`.gitignore`), named by a hash of the source and the compiler command,
-so a changed source or flag set never loads a stale library. Each
+`.gitignore`), named by a hash of the source, the headers it includes
+and the compiler command, so a changed source, header or flag set never
+loads a stale library. Each
 build writes a process-unique temporary file and renames it into
 place, so concurrent builders (test workers) never load a half-written
 library.
@@ -15,20 +16,23 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), '_build')
 
 
-def library_path(src, cmd, stem):
-    """Path of the library built from `src` by `cmd` (a list whose
-    output argument is appended by `compile_library`)."""
+def library_path(src, cmd, stem, deps=()):
+    """Path of the library built from `src` (including the files `deps`)
+    by `cmd` (a list whose output argument is appended by
+    `start_compile`)."""
     h = hashlib.sha1()
-    with open(src, 'rb') as f:
-        h.update(f.read())
+    for path in (src,) + tuple(deps):
+        with open(path, 'rb') as f:
+            h.update(f.read())
     h.update('\0'.join(cmd).encode())
     return os.path.join(BUILD_DIR, f'{stem}-{h.hexdigest()[:12]}.so')
 
 
-def start_compile(src, cmd, stem):
-    """Start compiling `src` unless its library exists. Returns
-    (path, Popen or None); finish with `finish_compile`."""
-    out = library_path(src, cmd, stem)
+def start_compile(src, cmd, stem, deps=()):
+    """Start compiling `src` (including the files `deps`) unless its
+    library exists. Returns (path, Popen or None); finish with
+    `finish_compile`."""
+    out = library_path(src, cmd, stem, deps)
     if os.path.exists(out):
         return out, None
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -2,11 +2,14 @@
 
     python scripts/torch_profile_train.py [--scene_size 1024] [--steps 3]
                                           [--hash_variant xor|paired]
+                                          [--hash_log2_size 21]
+                                          [--direct_only]
 
 Builds a world (seed 8888) and the flagship training models of
 configs/scenedreamer_train.yaml from seeded random weights (generator
 `GeneratorConfig()` with the chosen `hash_variant`: 'xor' runs kernels
-K2/K3, 'paired' K5; D with 128 filters, VGG19 perceptual loss), takes
+K2/K3, 'paired' K5; with `--hash_log2_size 21` the spec is not foldable
+and the step runs K4; D with 128 filters, VGG19 perceptual loss), takes
 batch-1 crops of 256 + pad 6 from `data/synthetic.make_batch`, and
 prints: seconds per `train_step_shared` (host clock around synchronised
 steps, after two warm-up steps), the device time by kernel name over
@@ -14,7 +17,10 @@ one profiled step (torch.profiler), the device busy share of that step,
 and peak device memory. With `--scatter_order`, last the variant's hash
 scatter (K3a or K5c) alone on one crop's sample points in ray order (as
 training feeds it) and in a random order, to show how much of its time
-is atomic contention between neighbouring samples. The models and the sample
+is atomic contention between neighbouring samples. `--direct_only` puts
+every level of the table scatters K3a and K4b on the direct path (one
+global atomic per corner: the scatters before their coarse path), for a
+before / after pair in one run of the card. The models and the sample
 points come from `chip_smoke.py` (`make_trainer`, `sample_points`).
 Float32 throughout (TF32 off). Needs CUDA.
 """
@@ -39,10 +45,16 @@ def main(argv=None):
     p.add_argument('--hash_variant', default='xor',
                    choices=['xor', 'paired'],
                    help='hash variant of the profiled step')
+    p.add_argument('--hash_log2_size', type=int, default=19)
     p.add_argument('--scatter_order', action='store_true',
                    help='also time the hash scatter in ray order and '
                         'shuffled')
+    p.add_argument('--direct_only', action='store_true',
+                   help='every level of the table scatters on the direct '
+                        'path')
     a = p.parse_args(argv)
+    if a.scatter_order and a.hash_log2_size != 19:
+        p.error('--scatter_order times the folded scatters (log2 size 19)')
 
     import torch
     from torch.autograd import DeviceType
@@ -60,14 +72,20 @@ def main(argv=None):
         raise SystemExit('needs CUDA')
     dev = torch.device('cuda')
     print(f'device {torch.cuda.get_device_name(0)}', flush=True)
+    if a.direct_only:
+        kernels.COARSE_MAX_SCALE = kernels.DIRECT_ONLY
+    print(f'table scatters: levels of scale <= {kernels.COARSE_MAX_SCALE} '
+          f'on the coarse path', flush=True)
     t0 = time.time()
     maps = generate_terrain(size=a.scene_size, seed=a.seed)
     world = build_voxel_world(maps.height_map, maps.semantic_map,
                               maps.tree_map, fill_depth=16, seed=a.seed)
     voxel = torch.from_numpy(world.voxel).to(dev)
     print(f'world {world.dims} in {time.time() - t0:.1f} s', flush=True)
-    cfg = GeneratorConfig(hash_variant=a.hash_variant)
-    print(f'hash variant {cfg.hash_variant}', flush=True)
+    cfg = GeneratorConfig(hash_variant=a.hash_variant,
+                          hash_log2_size=a.hash_log2_size)
+    print(f'hash variant {cfg.hash_variant}, log2 size {a.hash_log2_size}',
+          flush=True)
     trainer = make_trainer(cfg, world.dims, dev, seed=a.seed)
     draws = torch.Generator(device=dev).manual_seed(a.seed)
     hw = 256 + cfg.pad

@@ -1,19 +1,28 @@
-"""Shared set-up for the tests that hold the PyTorch port against the JAX
-package: the TINY generator of `test_golden.py` initialised by flax,
-and the same weights loaded into the port through its converter."""
+"""Shared set-up for the port's tests: `cap_torch_threads`, which every
+`tests/test_torch_*.py` calls first, and, for the tests that hold the
+PyTorch port against the JAX package, the TINY generator of
+`test_golden.py` initialised by flax, and the same weights loaded into
+the port through its converter. JAX is imported only by the latter, so
+the card's tests (`test_torch_cuda.py`, run where JAX is absent) can
+import this module."""
 import dataclasses
 
 import numpy as np
+import torch
 
-import jax
-
-from scenedreamer_tpu.data.synthetic import make_batch, make_world
-from scenedreamer_tpu.models.generator import SceneDreamerGenerator as JGen
 from scenedreamer_tpu_torch.models.generator import (GeneratorConfig,
                                                      SceneDreamerGenerator)
-from scenedreamer_tpu_torch.utils.convert import \
-    generator_state_dict_from_flax
-from test_golden import TINY
+
+TORCH_THREADS = 2
+
+
+def cap_torch_threads(n=TORCH_THREADS):
+    """Caps PyTorch's intra-op CPU threads in this test process. The
+    tier-1 run puts 6 pytest workers on the machine's cores, each with a
+    PyTorch and an XLA thread pool as wide as the machine, so the pools
+    oversubscribe the cores; the port's tests run small tensors, where
+    more threads buy little."""
+    torch.set_num_threads(n)
 
 
 def port_config(jcfg):
@@ -23,10 +32,18 @@ def port_config(jcfg):
                               if f.name != 'dtype'})
 
 
-def tiny_models(key_seed=0, batch_hw=20, cfg=TINY):
+def tiny_models(key_seed=0, batch_hw=20, cfg=None):
     """(world, flax model, flax params as numpy, port model, batch of
     numpy arrays) as `test_golden._build` makes them, for the JAX
-    generator config `cfg`."""
+    generator config `cfg` (TINY by default)."""
+    import jax
+    from scenedreamer_tpu.data.synthetic import make_batch, make_world
+    from scenedreamer_tpu.models.generator import \
+        SceneDreamerGenerator as JGen
+    from scenedreamer_tpu_torch.utils.convert import \
+        generator_state_dict_from_flax
+    from test_golden import TINY
+    cfg = TINY if cfg is None else cfg
     world = make_world(size=64, seed=7, n_voronoi=20, boundary_detect=4)
     jmodel = JGen(cfg=cfg)
     batch = make_batch(world, batch_size=1, height=batch_hw, width=batch_hw,

@@ -12,8 +12,10 @@ from scenedreamer_tpu.utils.convert import convert_scenedreamer_generator
 from scenedreamer_tpu_torch.models.generator import SceneDreamerGenerator
 from scenedreamer_tpu_torch.utils.convert import \
     generator_state_dict_from_flax
-from _torch_parity import port_config, tiny_models
+from _torch_parity import cap_torch_threads, port_config, tiny_models
 from test_golden import TINY
+
+cap_torch_threads()
 
 
 @pytest.fixture(scope='module')

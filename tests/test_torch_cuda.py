@@ -8,7 +8,12 @@ same order) and is held to 1e-6. K3 (the hash backward) is held to its
 plain version with the tolerances stated in its test (its scatter adds
 atomically, in a run-dependent order). K5 (the paired variant's four
 kernels) is held as K2 and K3 are, and so is K4 (the general encode,
-forward and backward)."""
+forward and backward). The two table scatters' coarse path (K3a and
+K4b through `csrc/scatter_accum.cuh`) is forced onto every level and held
+to the same tolerances where a block's shared-memory table overflows,
+where every point lies in one cell, and in ray order."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +21,11 @@ import torch
 from scenedreamer_tpu_torch import kernels
 from scenedreamer_tpu_torch.ops import hashgrid as hg
 from scenedreamer_tpu_torch.ops.ray_voxel import dda_plain
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
+
+BLOCK_POINTS = 2048     # points per coarse block (scatter_accum.cuh)
 
 
 @pytest.fixture
@@ -252,6 +262,119 @@ def test_general_hash_kernels_match_plain(cuda, kw):
         assert after[name] == before[name] + 1, name
     assert ((dt - p_grad).abs() <= 1e-5 * abs_grad + 1e-7).all()
     assert (dx - p_dx).abs().max() <= 1e-4 * p_dx.abs().max()
+
+
+def _scatter_points(case, n, dims, scales, gen, dev):
+    """Points [n, dims] for the coarse-path tests: 'overflow' uniform in
+    [-1.1, 1.1] (a block's points touch more rows than its table holds), 'one_cell' inside one cell of every level, 'rays' 25 samples
+    along each of n / 25 random rays, ray after ray, as training orders
+    its points."""
+    if case == 'overflow':
+        return torch.rand((n, dims), generator=gen, device=dev) * 2.2 - 1.1
+    if case == 'one_cell':
+        width = 1e-3 / float(max(scales))
+        while True:
+            lo = torch.rand((dims,), generator=gen, device=dev) * 0.8 + 0.1
+            cells = [torch.floor(v * float(s) + 0.5)
+                     for v in (lo - width, lo + 2 * width) for s in scales]
+            half = len(cells) // 2
+            if all(torch.equal(a, b)
+                   for a, b in zip(cells[:half], cells[half:])):
+                break
+        x01 = lo + torch.rand((n, dims), generator=gen, device=dev) * width
+        return (x01 * 2 - 1).contiguous()
+    rays = n // 25
+    ori = torch.rand((rays, 1, dims), generator=gen, device=dev) * 2 - 1
+    d = torch.randn((rays, 1, dims), generator=gen, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.sort(torch.rand((rays, 25, 1), generator=gen, device=dev)
+                   * 0.2, dim=1).values
+    return (ori + t * d).reshape(-1, dims).contiguous()
+
+
+@pytest.mark.parametrize('channels', [4, 8])
+@pytest.mark.parametrize('case', ['overflow', 'one_cell', 'rays'])
+def test_hash_backward_coarse_path_matches_plain(cuda, case, channels):
+    """K3a with every level on the coarse path (warp sums, a shared-memory
+    table per block, one flush per row and block), and with every level
+    on the direct path, against the plain version: G per slot 1e-5 of the
+    sum of absolute contributions + 1e-7, dxyz 1e-4 of its largest
+    magnitude, as the direct test. 'overflow' must send inserts past the
+    tables to the global atomics; 'one_cell' must flush each level's
+    corner rows (8, fewer where two hash alike) once per block and
+    overflow none."""
+    spec = hg.HashGridSpec.create(input_dim=5, num_levels=4,
+                                  level_dim=channels, log2_hashmap_size=14,
+                                  desired_resolution=256)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    scales, off = hg._scales(spec, cuda), hg._offset(spec)
+    n, slots = 50000, spec.table_size // 4
+    xyz = _scatter_points(case, n, 3, scales.tolist(), gen, cuda)
+    g = torch.randn((n, spec.output_dim), generator=gen, device=cuda)
+    baked = torch.rand((4, slots, channels), generator=gen,
+                       device=cuda) * 2 - 1
+    p_grad, p_dxyz = hg.encode_bwd_plain(g, xyz, scales, off, 1.0, False,
+                                         slots, baked)
+    abs_grad, _ = hg.encode_bwd_plain(g.abs(), xyz, scales, off, 1.0, False,
+                                      slots)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    for cms in (math.inf, kernels.DIRECT_ONLY):
+        k_grad, k_dxyz = kernels.hash_encode_bwd_split(
+            g, xyz, scales, off, 1.0, False, slots, baked, cms,
+            stats if cms == math.inf else None)
+        assert ((k_grad - p_grad).abs() <= 1e-5 * abs_grad + 1e-7).all()
+        assert (k_dxyz - p_dxyz).abs().max() <= 1e-4 * p_dxyz.abs().max()
+    flushed, overflowed = stats.tolist()
+    blocks = -(-n // BLOCK_POINTS)
+    if case == 'overflow':
+        assert overflowed > 0
+    elif case == 'one_cell':
+        x01 = (xyz + 1) / 2
+        rows = sum(torch.unique(torch.cat(hg._corners(
+            x01, scales[lv], off, slots)[0])).numel() for lv in range(4))
+        assert (flushed, overflowed) == (blocks * rows, 0)
+    else:
+        assert 0 < flushed < n * 8 * 4
+
+
+@pytest.mark.parametrize('channels', [2, 4, 8])
+@pytest.mark.parametrize('case', ['overflow', 'one_cell'])
+def test_general_backward_coarse_path_matches_plain(cuda, case, channels):
+    """K4b with every level on the coarse path, and with every level on
+    the direct path, against the plain version, tolerances as
+    `test_general_hash_kernels_match_plain`: D=5 points whose last two
+    coordinates (the generator's scene code) are one constant, a tiled
+    level 0 and hashed levels above."""
+    spec = hg.HashGridSpec.create(input_dim=5, num_levels=3,
+                                  level_dim=channels, base_resolution=4,
+                                  log2_hashmap_size=12,
+                                  desired_resolution=64)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    meta, scales = hg.general_meta(spec)
+    off, rows, n = hg._offset(spec), spec.table_size, 50000
+    x = torch.cat([_scatter_points(case, n, 3, scales.tolist(), gen, cuda),
+                   torch.tensor([[0.37, -0.52]], device=cuda).expand(n, 2)],
+                  dim=-1).contiguous()
+    table = torch.rand((rows, channels), generator=gen, device=cuda) * 2 - 1
+    g = torch.randn((n, spec.output_dim), generator=gen, device=cuda)
+    p_grad, p_dx = hg.encode_general_bwd_plain(spec, g, x, 1.0, rows, table)
+    abs_grad, _ = hg.encode_general_bwd_plain(spec, g.abs(), x, 1.0, rows)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    for cms in (math.inf, kernels.DIRECT_ONLY):
+        k_grad, k_dx = kernels.hash_encode_general_bwd_split(
+            g, x, meta, scales, off, 1.0, True, rows, table, True, cms,
+            stats if cms == math.inf else None)
+        assert ((k_grad - p_grad).abs() <= 1e-5 * abs_grad + 1e-7).all()
+        assert (k_dx - p_dx).abs().max() <= 1e-4 * p_dx.abs().max()
+    flushed, overflowed = stats.tolist()
+    if case == 'overflow':
+        assert overflowed > 0
+    else:       # each level's corner rows once per block
+        x01 = (x + 1) / 2
+        rows = sum(torch.unique(torch.cat(hg._general_corners(
+            x01, lv, off, 'xor')[0])).numel()
+            for lv in hg.general_levels(spec))
+        assert (flushed, overflowed) == (-(-n // BLOCK_POINTS) * rows, 0)
 
 
 def test_general_hash_kernel_rejects_bad_input(cuda):

@@ -27,6 +27,9 @@ from scenedreamer_tpu_torch.scene import voxel_world as tvw
 from scenedreamer_tpu_torch.utils import meters as tmeters
 from scenedreamer_tpu_torch.utils.config import Config as TConfig
 from scenedreamer_tpu_torch.utils.png import read_png, write_png
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LEVEL = 2.0 / 255.0

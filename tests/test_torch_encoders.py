@@ -16,6 +16,9 @@ import jax.numpy as jnp
 from scenedreamer_tpu.ops import encoders as jenc
 from scenedreamer_tpu.ops import hashgrid as jhg
 from scenedreamer_tpu_torch.ops import encoders as tenc
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
 
 GRID = dict(input_dim=3, num_levels=4, level_dim=2, log2_hashmap_size=8,
             desired_resolution=64)

@@ -19,8 +19,10 @@ from scenedreamer_tpu_torch.ops.hashgrid import (encode_folded, foldable,
                                                  general_levels)
 from scenedreamer_tpu_torch.utils.convert import \
     generator_state_dict_from_flax
-from _torch_parity import port_config, tiny_models
+from _torch_parity import cap_torch_threads, port_config, tiny_models
 from test_golden import TINY
+
+cap_torch_threads()
 
 ATOL = 1e-5
 

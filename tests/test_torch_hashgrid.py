@@ -13,6 +13,9 @@ import jax.numpy as jnp
 
 from scenedreamer_tpu.ops import hashgrid as jhg
 from scenedreamer_tpu_torch.ops import hashgrid as thg
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
 
 ATOL = 1e-5
 CASES = [(4, 4, 10, 128), (4, 8, 10, 128), (16, 4, 12, 2048),

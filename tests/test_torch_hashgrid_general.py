@@ -33,6 +33,9 @@ import jax.numpy as jnp
 
 from scenedreamer_tpu.ops import hashgrid as jhg
 from scenedreamer_tpu_torch.ops import hashgrid as thg
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
 
 ATOL_FWD = 1e-5
 RTOL, ATOL = 1e-4, 1e-6

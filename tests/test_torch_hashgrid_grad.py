@@ -30,7 +30,11 @@ import jax
 import jax.numpy as jnp
 
 from scenedreamer_tpu.ops import hashgrid as jhg
+from scenedreamer_tpu_torch import kernels
 from scenedreamer_tpu_torch.ops import hashgrid as thg
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-4, 1e-6
 CASES = [(4, 4, 10, 128), (4, 8, 10, 128), (16, 4, 12, 2048),
@@ -173,3 +177,27 @@ def test_plain_backward_pieces():
                            thg._offset(tspec), 1.0, False)
     (want,) = torch.autograd.grad(out, baked, g_t)
     torch.testing.assert_close(acc, want, rtol=1e-5, atol=1e-6)
+
+
+def test_scatter_coarse_levels_follow_the_scale():
+    """The table scatters (K3a, K4b on the card) take their coarse path on
+    the levels whose scale is at most `kernels.COARSE_MAX_SCALE`: every
+    level of the flagship spec (all 16 were measured faster there), the
+    same for the folded encode's scales and for the general encode's
+    metadata of the unfolded log2-21 spec; a finer level stays direct;
+    DIRECT_ONLY flags no level, an infinite bound every level."""
+    kw = dict(input_dim=5, num_levels=16, level_dim=8, base_resolution=16,
+              desired_resolution=2048)
+    spec = thg.HashGridSpec.create(log2_hashmap_size=19, **kw)
+    scales = thg._scales(spec, 'cpu')
+    flags = kernels.coarse_levels(scales)
+    assert flags == [True] * 16
+    assert [float(s) <= kernels.COARSE_MAX_SCALE
+            for s in scales.tolist()] == flags
+    unfolded = thg.HashGridSpec.create(log2_hashmap_size=21, **kw)
+    assert kernels.coarse_levels(thg.general_meta(unfolded)[1]) == flags
+    finer = thg.HashGridSpec.create(**{**kw, 'desired_resolution': 4096})
+    assert kernels.coarse_levels(thg._scales(finer, 'cpu'))[-3:] == [
+        True, False, False]
+    assert not any(kernels.coarse_levels(scales, kernels.DIRECT_ONLY))
+    assert all(kernels.coarse_levels(scales, float('inf')))

@@ -9,6 +9,9 @@ import sys
 
 import pytest
 import torch
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, 'scenedreamer_tpu_torch')

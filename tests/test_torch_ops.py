@@ -16,6 +16,9 @@ from scenedreamer_tpu_torch.ops import compositing as tcomp
 from scenedreamer_tpu_torch.ops import pe as tpe
 from scenedreamer_tpu_torch.ops import sampling as tsamp
 from scenedreamer_tpu_torch.scene.labels import mc2reduced
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _intervals(rng, r=300, m=6):

@@ -16,8 +16,10 @@ from scenedreamer_tpu.render.pipeline import TiledRenderer as JRenderer
 from scenedreamer_tpu_torch.render.pipeline import (TiledRenderer,
                                                     render_trajectory,
                                                     to_uint8)
-from _torch_parity import tiny_models
+from _torch_parity import cap_torch_threads, tiny_models
 from test_golden import FIXTURE, IMG_ATOL, KW, TINY, _poses
+
+cap_torch_threads()
 
 POSES = ('tour', 'sky')
 

@@ -17,6 +17,9 @@ from scenedreamer_tpu.ops import ray_voxel as jrv
 from scenedreamer_tpu.scene.camera import EvalCameraController
 from scenedreamer_tpu_torch.ops import ray_voxel as trv
 from test_ray_voxel import dda_oracle
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _both(voxel, ori, dirs, m):

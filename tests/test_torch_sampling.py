@@ -32,6 +32,9 @@ from scenedreamer_tpu_torch.ops import masks as tmasks
 from scenedreamer_tpu_torch.scene.labels import get_label_translator
 from scenedreamer_tpu_torch.train import sampling as tsamp
 from scenedreamer_tpu_torch.utils.convert import spade_state_dict_from_flax
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
 
 CFG = dict(cam_res=(40, 64), crop_size=(24, 24), pad=4,
            num_blocks_early_stop=4, max_rejections=8,

@@ -10,6 +10,9 @@ from scenedreamer_tpu.scene import voxel_world as jvw
 from scenedreamer_tpu_torch.scene import camera as tcam
 from scenedreamer_tpu_torch.scene import terrain as tterrain
 from scenedreamer_tpu_torch.scene import voxel_world as tvw
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
 
 TERRAIN_KW = dict(size=64, seed=7, n_voronoi=20, relax_iters=2)
 WORLD_KW = dict(fill_depth=8, seed=7, boundary_detect=4)

@@ -24,6 +24,9 @@ from scenedreamer_tpu.models import spade as jspade
 from scenedreamer_tpu.utils.convert import convert_spade
 from scenedreamer_tpu_torch.models import spade as tspade
 from scenedreamer_tpu_torch.utils.convert import spade_state_dict_from_flax
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
 
 KW = dict(num_labels=184, num_filters=4, spade_filters=8, style_dims=16)
 

@@ -55,8 +55,10 @@ from scenedreamer_tpu_torch.train.trainer import (GANTrainer, TrainerConfig,
 from scenedreamer_tpu_torch.utils.convert import (
     discriminator_state_dict_from_flax, generator_state_dict_from_flax,
     vgg_state_dict_from_flax)
-from _torch_parity import port_config
+from _torch_parity import cap_torch_threads, port_config
 from test_train import TINY as TRAIN_TINY
+
+cap_torch_threads()
 
 TINY = dataclasses.replace(TRAIN_TINY, coarse_deterministic_sampling=True)
 NUM_LBL, NF = 12, 8

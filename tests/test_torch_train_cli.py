@@ -28,6 +28,9 @@ import torch
 from scenedreamer_tpu_torch.cli import train as cli
 from scenedreamer_tpu_torch.data.synthetic import make_paired_folder
 from scenedreamer_tpu_torch.scene import terrain, voxel_world
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = """

@@ -34,6 +34,9 @@ from scenedreamer_tpu_torch.train import optim as topt
 from scenedreamer_tpu_torch.utils.convert import (
     discriminator_state_dict_from_flax, generator_state_dict_from_flax,
     vgg_state_dict_from_flax)
+from _torch_parity import cap_torch_threads
+
+cap_torch_threads()
 
 ATOL = 1e-5
 
