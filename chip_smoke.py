@@ -24,7 +24,10 @@ of the repository. Phases, each fatal on failure:
      kernel's launch count must rise during the render;
   5. timing (CUDA events, median of 5, L2 flushed before each run) of
      each kernel and its plain version at the main path's shapes, with
-     the bound the card could reach;
+     the bound the card could reach; and K2b split by level on phase
+     3's chunk ('[K2 levels]': each level alone in ray order, shuffled
+     and with every point equal, its distinct rows and issued sectors
+     per ms; the whole launch in each order);
   6. K3 (the hash backward: scatter, dT bake, dw reduction) against its
      plain version at the flagship spec on the sample points of one
      training batch (crop 256 + pad 6, 262x262 rays, 24 samples), table
@@ -77,7 +80,11 @@ of the repository. Phases, each fatal on failure:
      1,048,576 points (tiled levels past their stride cut-off, C=2,
      aligned corners); tolerances as phases 3 and 6; then the timings
      and bounds of K4 (a)/(b) at the flagship shapes, and K4b split by
-     level and held in the adversarial cases as K3a in phase 6;
+     level and held in the adversarial cases as K3a in phase 6; K4a
+     split by level as K2b in phase 5 ('[K4a levels] train'), then held
+     against its plain version, timed and split on phase 3's serving
+     chunk with the serving world's scene code ('[K4 chunk]',
+     '[K4a levels] chunk');
  11. the paths through K4: the flagship generator at `hash_log2_size=21`
      with seeded weights renders 1 frame through `render_trajectory`
      (540x960, 40 samples, pad 30; finite, in [-1, 1], K4 (a) launched
@@ -92,7 +99,8 @@ of the repository. Phases, each fatal on failure:
      world encoder moved between the checkpoints, K1 and K4 (a)/(b)
      launched and no K2/K3/K5 counter rose.
 
-Then one `kernels` JSON line covering K1-K5, the card's name and
+Then one `kernels` JSON line covering K1-K5 (K4a also at the serving
+chunk, under `at_serving_chunk`), the card's name and
 power limit (nvidia-smi), and last the line {"ok": true, "device": {...}}.
 Float32 everywhere: TF32 is switched off for matmuls and convolutions.
 """
@@ -122,6 +130,28 @@ ONE_CELL_POINTS = 1 << 20   # points of the scatters' one-cell case
 
 def log(*a):
     print(*a, flush=True)
+
+
+def ptxas_report(text):
+    """(kernel, report) per entry function of an `nvcc -Xptxas=-v` log:
+    the kernel as its name and template arguments (`encode_kernel<8>`),
+    the report its registers, stack frame and spills."""
+    import re
+    out, name, frame = [], None, ''
+    for line in text.splitlines():
+        m = re.search(r'Function properties for (\S+)', line)
+        if m:
+            k = re.search(r'(?<=\d)([a-z][a-z_]*kernel)', m.group(1))
+            args = re.findall(r'Li(\d+)E', m.group(1))
+            name = (k.group(1) if k else m.group(1)) \
+                + (f'<{",".join(args)}>' if args else '')
+        elif 'stack frame' in line:
+            frame = line.strip()
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name:
+            out.append((name, f'{m.group(1)} registers, {frame}'))
+            name = None
+    return out
 
 
 def median_ms(fn, reps=5):
@@ -165,6 +195,41 @@ def sample_points(batch, cfg, dims):
              batch['cam_ori'][0])
     dims_t = torch.tensor(dims, dtype=torch.float32, device=wc.device)
     return (wc / dims_t * 2.0 - 1.0).reshape(-1, 3).contiguous()
+
+
+def frame_rays(torch, world, dev):
+    """The first frame of camera pattern 4 at the inference defaults
+    (570x990 rays with the CNN pad): the camera controller, the rays
+    [H*W, 3] and the camera origin [3] (phases 2-5)."""
+    from scenedreamer_tpu_torch.ops.ray_voxel import camera_rays
+    from scenedreamer_tpu_torch.scene.camera import EvalCameraController
+    h, w = RES[0] + PAD, RES[1] + PAD
+    ctl = EvalCameraController(world, maxstep=2, pattern=4, cam_ang=72,
+                               smooth_decay_multiplier=150.0 / 2)
+    ori, cdir, up, f_ratio = ctl[0]
+    rays = camera_rays(cdir, up, f_ratio * (RES[1] - 1),
+                       ((h - 1) / 2.0, (w - 1) / 2.0), (h, w),
+                       device=dev).reshape(-1, 3)
+    ori_t = torch.as_tensor(ori, dtype=torch.float32, device=dev)
+    return ctl, rays, ori_t
+
+
+def chunk_points(torch, rays, ori_t, depth, hit, dims):
+    """One serving field chunk (phase 3): the CHUNK_RAYS // W image rows
+    from the middle of the frame, SAMPLES + 1 deterministic depths per ray
+    from the DDA's `depth` / `hit` -> (points [N, 3] in [-1, 1], rows)."""
+    from scenedreamer_tpu_torch.ops.rounding import fma
+    from scenedreamer_tpu_torch.ops.sampling import sample_depth
+    from scenedreamer_tpu_torch.render.pipeline import CHUNK_RAYS
+    h, w = RES[0] + PAD, RES[1] + PAD
+    rows = CHUNK_RAYS // w
+    sl = slice(h // 2 * w, (h // 2 + rows) * w)
+    rdepth, _, _ = sample_depth(depth[sl], hit[sl], SAMPLES + 1,
+                                deterministic=True, use_box_boundaries=False,
+                                sample_depth_clip=3.0)
+    wc = fma(rays[sl, None, :], rdepth[..., None], ori_t)
+    dims_t = torch.tensor(dims, dtype=torch.float32, device=rays.device)
+    return (wc / dims_t * 2.0 - 1.0).reshape(-1, 3).contiguous(), rows
 
 
 def make_trainer(cfg, dims, dev, seed=SEED):
@@ -440,6 +505,105 @@ def check_split(tag, split):
         assert not row['coarse'] or c <= 1.1 * d, (
             f'{tag}: level {row["level"]} is slower on the coarse path '
             f'({c:.3f} ms) than on the direct one ({d:.3f} ms)')
+
+
+GATHER_ORDERS = ('ray', 'shuffled', 'one point')
+
+
+def gather_split(torch, tag, case, scales, launch, rows, pts, row_bytes,
+                 dev):
+    """The per-level split of a forward gather (K2b, K4a) on points `pts`
+    [N, D]: in the order the main path feeds them ('ray'), shuffled, and
+    all equal to the first in-bounds point ('one point': a warp's lanes
+    read the same rows, so the launch costs its instructions and little
+    memory traffic). `launch(x, level)` encodes points x on one level
+    (None: every level); `rows(level)` gives the table rows that level's
+    corners read, one per in-bounds point and corner. Prints, per level,
+    the distinct rows, the rows issued, the ms in each order (median of
+    5, L2 flushed) and the issued 32-byte sectors per ms in ray order;
+    then the whole launch in each order. Returns the numbers."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x01 = (pts + 1.0) / 2.0
+    first = int(((x01 >= 0) & (x01 <= 1)).all(-1).int().argmax())
+    xs = {'ray': pts,
+          'shuffled': pts[torch.randperm(pts.shape[0], generator=gen,
+                                         device=dev)].contiguous(),
+          'one point': pts[first:first + 1].expand_as(pts).contiguous()}
+    sectors = -(-row_bytes // 32)
+    out = dict(levels=[], total={})
+    log(f'[{tag} levels] {case}: {pts.shape[0]} points; level, scale, '
+        f'distinct rows, rows issued; ms {", ".join(GATHER_ORDERS)}; issued '
+        f'sectors per ms (ray)')
+    for lv, scale in enumerate(scales):
+        r = rows(lv)
+        row = dict(level=lv, scale=float(scale), issued=int(r.numel()),
+                   distinct=int(torch.unique(r).numel()))
+        del r
+        row['ms'] = {o: median_ms(lambda: launch(xs[o], lv))
+                     for o in GATHER_ORDERS}
+        rate = row['issued'] * sectors / row['ms']['ray']
+        log(f'[{tag} levels] {case} {lv:2d} {float(scale):8.2f} '
+            f'{row["distinct"]:9d} {row["issued"]:10d} '
+            + ' '.join(f'{row["ms"][o]:7.3f}' for o in GATHER_ORDERS)
+            + f' {rate / 1e6:8.1f}M')
+        out['levels'].append(row)
+    out['total'] = {o: median_ms(lambda: launch(xs[o], None))
+                    for o in GATHER_ORDERS}
+    log(f'[{tag} levels] {case} all {len(scales)} levels: '
+        + ', '.join(f'{o} {t:.3f} ms' for o, t in out['total'].items())
+        + f'; sum of the levels (ray) '
+        f'{sum(r["ms"]["ray"] for r in out["levels"]):.3f} ms')
+    return out
+
+
+def k2_levels(torch, kernels, hg, baked, xyz, scales, offset, scene_oob,
+              dev):
+    """Phase 5, K2b: `gather_split` on phase 3's serving chunk; a
+    one-level launch is the kernel on that level's baked table and
+    scale."""
+    slots = baked.shape[1]
+    x01 = (xyz + 1.0) / 2.0
+    x01 = x01[((x01 >= 0) & (x01 <= 1)).all(-1)]
+
+    def launch(x, lv):
+        if lv is None:
+            return kernels.hash_encode(baked, x, scales, offset, 1.0,
+                                       scene_oob)
+        return kernels.hash_encode(baked[lv:lv + 1], x, scales[lv:lv + 1],
+                                   offset, 1.0, scene_oob)
+
+    def rows(lv):
+        return torch.cat(hg._corners(x01, scales[lv], offset, slots)[0])
+
+    return gather_split(torch, 'K2', 'chunk', scales.tolist(), launch, rows,
+                        xyz, baked.shape[2] * 4, dev)
+
+
+def k4a_levels(torch, kernels, hg, spec, pts, dev, case):
+    """Phase 10, K4a: `gather_split` on 5-D points `pts` (scene code
+    included) at `spec`, table uniform in [-1, 1]; a one-level launch is
+    the kernel on that level's metadata and scale."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    table = torch.rand((spec.table_size, spec.level_dim), generator=gen,
+                       device=dev) * 2 - 1
+    meta, scales = hg.general_meta(spec)
+    off, xor = hg._offset(spec), spec.hash_variant == 'xor'
+    levels = hg.general_levels(spec)
+    one = [(meta[lv:lv + 1].contiguous(), scales[lv:lv + 1].contiguous())
+           for lv in range(spec.num_levels)]
+    x01 = (pts + 1.0) / 2.0
+    x01 = x01[((x01 >= 0) & (x01 <= 1)).all(-1)]
+
+    def launch(x, lv):
+        m, s = (meta, scales) if lv is None else one[lv]
+        return kernels.hash_encode_general(table, x, m, s, off, 1.0, xor)
+
+    def rows(lv):
+        return torch.cat(hg._general_corners(x01, levels[lv], off,
+                                             spec.hash_variant)[0])
+
+    return gather_split(torch, 'K4a', case, scales.tolist(), launch, rows,
+                        pts, spec.level_dim * 4, dev)
 
 
 def one_cell(torch, n, dims, scales, offset, seed, dev):
@@ -886,6 +1050,49 @@ def loop_path(torch, kernels, world, dev):
     return loop
 
 
+def _general_rows(torch, hg, spec, x):
+    """Distinct table rows the in-bounds points of x read, summed over the
+    levels (each read once), and the in-bounds count."""
+    x01 = (x + 1.0) / 2.0
+    inb = ((x01 >= 0) & (x01 <= 1)).all(-1)
+    rows = sum(int(torch.unique(torch.cat(hg._general_corners(
+        x01[inb], lv, hg._offset(spec), spec.hash_variant)[0])).numel())
+        for lv in hg.general_levels(spec))
+    return rows, int(inb.sum())
+
+
+def general_forward(torch, kernels, hg, spec, table, x, tag, timing):
+    """Phase 10: K4 (a) against its plain version on points x [N, D];
+    with `timing`, its and the plain version's times and the bound.
+    Returns (error, ms, plain ms, bound ms, bound by) (the error alone
+    without `timing`)."""
+    meta, scales = hg.general_meta(spec)
+    off, xor = hg._offset(spec), spec.hash_variant == 'xor'
+    k_out = kernels.hash_encode_general(table, x, meta, scales, off, 1.0, xor)
+    p_out = hg.encode_general_plain(spec, table, x)
+    torch.cuda.synchronize()
+    err = float((k_out - p_out).abs().max())
+    n, d = x.shape
+    log(f'[{tag}] forward {n} points -> {tuple(k_out.shape)} max abs err '
+        f'{err:.3g} (tolerance 1e-5: the same float32 operations in the '
+        f'same order), out mean |x| {float(k_out.abs().mean()):.3f}')
+    assert err <= 1e-5, f'{tag} forward differs from plain'
+    del k_out, p_out
+    if not timing:
+        return (err,)
+    t = median_ms(lambda: kernels.hash_encode_general(
+        table, x, meta, scales, off, 1.0, xor))
+    t_plain = median_ms(lambda: hg.encode_general_plain(spec, table, x),
+                        reps=3)
+    rows_read, n_inb = _general_rows(torch, hg, spec, x)
+    c, lvs = spec.level_dim, spec.num_levels
+    bound = bound_ms(n * d * 4 + rows_read * c * 4 + n * lvs * c * 4,
+                     n_inb * lvs * 2 ** d * (2 * c + d))
+    log(f'[{tag}] (a) encode {t:.3f} ms (plain {t_plain:.1f}, bound '
+        f'{bound[0]:.3f} by {bound[1]}, {rows_read} distinct rows)')
+    return err, t, t_plain, *bound
+
+
 def general_check(torch, kernels, hg, spec, x, dev, tag, timing=False):
     """Phase 10: K4 (a)/(b) against the plain versions on points x
     [N, D]; with `timing`, the kernels' and plain versions' times and
@@ -900,20 +1107,12 @@ def general_check(torch, kernels, hg, spec, x, dev, tag, timing=False):
     off, xor, rows = hg._offset(spec), spec.hash_variant == 'xor', \
         spec.table_size
     levels = hg.general_levels(spec)
-    k_out = kernels.hash_encode_general(table, x, meta, scales, off, 1.0, xor)
-    p_out = hg.encode_general_plain(spec, table, x)
-    torch.cuda.synchronize()
-    fwd_err = float((k_out - p_out).abs().max())
     log(f'[{tag}] spec D={d} x {spec.num_levels} levels x {spec.level_dim} '
         f'(gridtype {spec.gridtype}, align_corners {spec.align_corners}, '
         f'{spec.hash_variant}), table {spec.table_size} rows; level sizes '
         f'{[lv.size for lv in levels]}, hashed '
         f'{[int(lv.hashed) for lv in levels]}')
-    log(f'[{tag}] forward {n} points -> {tuple(k_out.shape)} max abs err '
-        f'{fwd_err:.3g} (tolerance 1e-5: the same float32 operations in the '
-        f'same order), out mean |x| {float(k_out.abs().mean()):.3f}')
-    assert fwd_err <= 1e-5, f'{tag} forward differs from plain'
-    del k_out, p_out
+    fwd = general_forward(torch, kernels, hg, spec, table, x, tag, timing)
     k_grad, k_dx = kernels.hash_encode_general_bwd(g, x, meta, scales, off,
                                                    1.0, xor, rows, table)
     _, p_dx = hg.encode_general_bwd_plain(spec, g, x, 1.0, rows, table,
@@ -926,8 +1125,7 @@ def general_check(torch, kernels, hg, spec, x, dev, tag, timing=False):
                       - 1e-7).max())
     dx_rel = float((k_dx - p_dx).abs().max() / p_dx.abs().max())
     x01 = (x + 1.0) / 2.0
-    inb = ((x01 >= 0) & (x01 <= 1)).all(-1)
-    n_inb = int(inb.sum())
+    n_inb = int(((x01 >= 0) & (x01 <= 1)).all(-1).sum())
     log(f'[{tag}] G (scatter) max abs err {g_err:.3g} against the float64 '
         f'sum; tolerance per row: 1e-5 x (sum of |w g| into the row, plain '
         f'path) + 1e-7, because float32 atomics add in a run-dependent '
@@ -937,38 +1135,24 @@ def general_check(torch, kernels, hg, spec, x, dev, tag, timing=False):
     assert g_excess <= 0, f'{tag} G differs from plain'
     assert dx_rel <= 1e-4, f'{tag} dx differs from plain'
     del p_grad, p_dx, abs_grad, k_grad, k_dx
-    out = dict(points=n, in_bounds=n_inb)
+    out = dict(points=n, in_bounds=n_inb, hash_encode_general=fwd)
     if not timing:
-        out.update(hash_encode_general=(fwd_err,),
-                   hash_encode_general_bwd=(g_err,))
+        out.update(hash_encode_general_bwd=(g_err,))
         return out
-    t_fwd = median_ms(lambda: kernels.hash_encode_general(
-        table, x, meta, scales, off, 1.0, xor))
-    t_fwd_plain = median_ms(lambda: hg.encode_general_plain(spec, table, x),
-                            reps=3)
     t_bwd = median_ms(lambda: kernels.hash_encode_general_bwd(
         g, x, meta, scales, off, 1.0, xor, rows, table))
     t_bwd_plain = median_ms(lambda: hg.encode_general_bwd_plain(
         spec, g, x, 1.0, rows, table), reps=3)
-    # distinct table rows the in-bounds points read, each once
-    rows_read = 0
-    for lv in levels:
-        idx, _, _ = hg._general_corners(x01[inb], lv, off, spec.hash_variant)
-        rows_read += int(torch.unique(torch.cat(idx)).numel())
     c, lvs, k = spec.level_dim, spec.num_levels, 2 ** d
-    fwd_bound = bound_ms(n * d * 4 + rows_read * c * 4 + n * lvs * c * 4,
-                         n_inb * lvs * k * (2 * c + d))
+    rows_read, _ = _general_rows(torch, hg, spec, x)
     # g rows of in-bounds points, x, the rows read for dx, G and dx
     # written once
     bwd_bound = bound_ms(n_inb * lvs * c * 4 + n * d * 4 + rows_read * c * 4
                          + rows * c * 4 + n * d * 4,
                          n_inb * lvs * k * (4 * c + d * d))
-    log(f'[{tag}] (a) encode {t_fwd:.3f} ms (plain {t_fwd_plain:.1f}, bound '
-        f'{fwd_bound[0]:.3f} by {fwd_bound[1]}, {rows_read} distinct rows); '
-        f'(b) scatter + dx {t_bwd:.3f} ms (plain {t_bwd_plain:.1f}, bound '
-        f'{bwd_bound[0]:.3f} by {bwd_bound[1]})')
+    log(f'[{tag}] (b) scatter + dx {t_bwd:.3f} ms (plain '
+        f'{t_bwd_plain:.1f}, bound {bwd_bound[0]:.3f} by {bwd_bound[1]})')
     out.update(rows_read=rows_read,
-               hash_encode_general=(fwd_err, t_fwd, t_fwd_plain, *fwd_bound),
                hash_encode_general_bwd=(g_err, t_bwd, t_bwd_plain,
                                         *bwd_bound))
     return out
@@ -1198,11 +1382,13 @@ def kernel_rows(serving, k3, k3_split, train, k5, loop):
     ]
 
 
-def general_rows(k4, k4_split, render, step, loop):
+def general_rows(k4, k4_split, k4c, render, step, loop):
     """The `kernels` JSON rows of K4 (a) and (b): `launches` from the
     path each was ported for (the unfolded serving frame for (a), the
     unfolded training loop for (b)), per-frame / per-step / per-loop-
-    iteration counts from phase 11."""
+    iteration counts from phase 11; (a) at the training points and, under
+    `at_serving_chunk`, at phase 3's serving chunk (`k4c`: points and the
+    forward's error, ms, plain ms, bound ms, bound by)."""
     src = 'scenedreamer_tpu_torch/csrc/hashgrid_general.cu'
     jax_hg = 'scenedreamer_tpu/ops/hashgrid.py'
     out = []
@@ -1219,7 +1405,10 @@ def general_rows(k4, k4_split, render, step, loop):
             launches_per_loop_iteration=(loop['counts'][name]
                                          / loop['iterations']),
             points=k4['points'],
-            **(split_extra(k4_split) if name.endswith('_bwd') else {})))
+            **(split_extra(k4_split) if name.endswith('_bwd') else
+               dict(at_serving_chunk=dict(zip(
+                   ('points', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                    'bound_by'), k4c))))))
     return out
 
 
@@ -1235,13 +1424,9 @@ def main():
     from scenedreamer_tpu_torch.models.generator import (
         GeneratorConfig, SceneDreamerGenerator)
     from scenedreamer_tpu_torch.ops import hashgrid as hg
-    from scenedreamer_tpu_torch.ops.ray_voxel import camera_rays, dda_plain
-    from scenedreamer_tpu_torch.ops.rounding import fma
-    from scenedreamer_tpu_torch.ops.sampling import sample_depth
-    from scenedreamer_tpu_torch.render.pipeline import (CHUNK_RAYS,
-                                                        TiledRenderer,
+    from scenedreamer_tpu_torch.ops.ray_voxel import dda_plain
+    from scenedreamer_tpu_torch.render.pipeline import (TiledRenderer,
                                                         render_trajectory)
-    from scenedreamer_tpu_torch.scene.camera import EvalCameraController
     from scenedreamer_tpu_torch.scene.terrain import generate_terrain
     from scenedreamer_tpu_torch.scene.voxel_world import build_voxel_world
 
@@ -1260,9 +1445,8 @@ def main():
     kernels.build()
     log(f'[build] {time.time() - t0:.1f} s')
     for name, text in kernels.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if 'registers' in line or 'spill' in line:
-                log(f'[build] {name}: {line.strip()}')
+        for kernel, report in ptxas_report(text):
+            log(f'[build] {name}: {kernel}: {report}')
 
     # 2. K1 vs plain -------------------------------------------------------
     t0 = time.time()
@@ -1273,13 +1457,7 @@ def main():
         f'in {time.time() - t0:.1f} s')
     voxel = torch.from_numpy(world.voxel).to(dev)
     h, w = RES[0] + PAD, RES[1] + PAD
-    ctl = EvalCameraController(world, maxstep=2, pattern=4, cam_ang=72,
-                               smooth_decay_multiplier=150.0 / 2)
-    ori, cdir, up, f_ratio = ctl[0]
-    rays = camera_rays(cdir, up, f_ratio * (RES[1] - 1),
-                       ((h - 1) / 2.0, (w - 1) / 2.0), (h, w),
-                       device=dev).reshape(-1, 3)
-    ori_t = torch.as_tensor(ori, dtype=torch.float32, device=dev)
+    ctl, rays, ori_t = frame_rays(torch, world, dev)
     k_vid, k_dep, k_hit, k_steps = kernels.dda(
         voxel, ori_t, rays, M, sum(world.dims) + 2, with_steps=True)
     p_vid, p_dep, p_hit, p_steps = dda_plain(voxel, ori_t, rays, M,
@@ -1302,20 +1480,14 @@ def main():
     table = torch.rand((spec.table_size, spec.level_dim), generator=gen,
                        device=dev) * 2 - 1
     model = SceneDreamerGenerator(cfg, seed=SEED).to(dev).eval()
+    fields = (torch.from_numpy(world.height_field.transpose(0, 2, 3, 1))
+              .to(dev),
+              torch.from_numpy(world.semantic_field.transpose(0, 2, 3, 1))
+              .to(dev))
     with torch.no_grad():
-        scene = model.world_code(
-            torch.from_numpy(world.height_field.transpose(0, 2, 3, 1)).to(dev),
-            torch.from_numpy(world.semantic_field.transpose(0, 2, 3, 1))
-            .to(dev))[0]
-    rows = CHUNK_RAYS // w
-    r0 = h // 2
-    sl = slice(r0 * w, (r0 + rows) * w)
-    rdepth, _, _ = sample_depth(k_dep[sl], k_hit[sl], SAMPLES + 1,
-                                deterministic=True, use_box_boundaries=False,
-                                sample_depth_clip=3.0)
-    wc = fma(rays[sl, None, :], rdepth[..., None], ori_t)
-    dims = torch.tensor(world.dims, dtype=torch.float32, device=dev)
-    xyz = (wc / dims * 2.0 - 1.0).reshape(-1, 3).contiguous()
+        scene = model.world_code(*fields)[0]
+    xyz, rows = chunk_points(torch, rays, ori_t, k_dep, k_hit, world.dims)
+    chunk = xyz
     masks, weights, scene_oob = hg.scene_fold_weights(spec, scene)
     table3 = table.reshape(spec.num_levels, -1, spec.level_dim)
     masks32 = masks.to(torch.int32).contiguous()
@@ -1402,20 +1574,10 @@ def main():
         k_baked, xyz, scales, offset, 1.0, scene_oob))
     enc_plain_ms = median_ms(lambda: hg.encode_plain(
         p_baked, xyz, scales, offset, 1.0, scene_oob))
+    k2_split = k2_levels(torch, kernels, hg, k_baked, xyz, scales, offset,
+                         scene_oob, dev)
     # distinct baked rows this chunk reads, per level (each read once)
-    rows_read = 0
-    x01 = (xyz + 1.0) / 2.0
-    inb = ((x01 >= 0) & (x01 <= 1)).all(-1)
-    for lv in range(spec.num_levels):
-        pos = fma(x01[inb], scales[lv], offset)
-        u = torch.floor(pos).to(torch.int64)
-        idx = []
-        for k in range(8):
-            hsh = torch.zeros_like(u[:, 0])
-            for d in range(3):
-                hsh = hsh ^ ((u[:, d] + ((k >> d) & 1)) * hg.PRIMES[d])
-            idx.append(hsh & (table3.shape[1] - 1))
-        rows_read += int(torch.unique(torch.cat(idx)).numel())
+    rows_read = sum(r['distinct'] for r in k2_split['levels'])
     row_bytes = spec.level_dim * 4
     out_bytes = n_pts * spec.output_dim * 4
     enc_bound, enc_by = bound_ms(
@@ -1423,7 +1585,8 @@ def main():
         n_pts * spec.num_levels * 8 * (2 * spec.level_dim + 3))
     # the gather traffic as issued: 8 random 32-byte rows per point and
     # level, plus the output
-    gather_ms = (out_bytes + int(inb.sum()) * spec.num_levels * 8 * 32) \
+    gather_ms = (out_bytes
+                 + sum(r['issued'] for r in k2_split['levels']) * 32) \
         / HBM_BYTES_PER_S * 1e3
     log(f'[K1] {dda_ms:.3f} ms (plain {dda_plain_ms:.1f} ms), {steps_total} '
         f'axis steps, {hits_total} hits')
@@ -1484,7 +1647,21 @@ def main():
                        timing=True)
     torch.cuda.empty_cache()
     k4_split = k4_levels(torch, kernels, hg, uspec, pts, dev)
+    torch.cuda.empty_cache()
+    k4a_levels(torch, kernels, hg, uspec, pts, dev, 'train')
     del xyz, pts
+    # K4a on phase 3's serving chunk with the serving world's scene code
+    with torch.no_grad():
+        scode = umodel.world_code(*fields)[0]
+    cpts = torch.cat([chunk, scode.expand(chunk.shape[0], 2)],
+                     dim=-1).contiguous()
+    k4c = general_forward(torch, kernels, hg, uspec, torch.rand(
+        (uspec.table_size, uspec.level_dim), generator=torch.Generator(
+            device=dev).manual_seed(SEED), device=dev) * 2 - 1, cpts,
+        'K4 chunk', timing=True)
+    k4a_levels(torch, kernels, hg, uspec, cpts, dev, 'chunk')
+    chunk_n = chunk.shape[0]
+    del cpts, chunk
     torch.cuda.empty_cache()
     _, _, tspec = get_encoder('tiledgrid', input_dim=3, level_dim=2,
                               align_corners=True)
@@ -1514,7 +1691,8 @@ def main():
     uloop = general_loop(torch, kernels)
 
     table_rows = kernel_rows(serving, k3, k3_split, train, k5, loop) \
-        + general_rows(k4, k4_split, urender, ustep, uloop)
+        + general_rows(k4, k4_split, (int(chunk_n), *k4c), urender, ustep,
+                       uloop)
     log(json.dumps({'kernels': table_rows}))
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',

@@ -14,20 +14,30 @@
 //      B_l[j] = 0 + w_0*T_l[j^m_0] + w_1*T_l[j^m_1] + ... in that order.
 //      Masks and weights come from the scene code, computed by the
 //      caller once per frame.
-//  (b) sd_hash_encode: one thread per (point, level). Corner hashes
-//      idx = ((x*1) ^ (y*P1) ^ (z*P2)) & (size-1) in u32, weights as
-//      products in ascending dimension order, 8 row loads of C floats
-//      (float4s), and out[n, l*C:(l+1)*C] = sum_k w_k * B_l[idx_k] in
-//      ascending k. Out-of-bounds points (or an out-of-bounds scene code)
-//      give zeros. Levels run on blockIdx.y, so the blocks in flight
-//      read one level's baked table (16 MB at 2^19 x 8 floats), which
-//      stays in the 50 MB L2.
+//  (b) sd_hash_encode: C / 4 lanes per point (a lane pair at C = 8),
+//      each lane 4 channels of every level; a thread walks the levels in
+//      order. Corner hashes idx = ((x*1) ^ (y*P1) ^ (z*P2)) & (size-1) in
+//      u32, weights as products in ascending dimension order, the 8 rows
+//      loaded before their sums, and out[n, l*C:(l+1)*C] = sum_k w_k *
+//      B_l[idx_k] in ascending k. Out-of-bounds points (or an
+//      out-of-bounds scene code) give zeros.
 //
-// What bounds it: the encode is a gather, random 32-byte rows (8 per
-// point and level) plus N*L*C*4 output bytes, so device-memory and L2
-// transaction rate, not arithmetic; the bake streams its table once.
-// The design keeps each level's working set L2-resident and moves a
-// corner row as two 16-byte loads.
+// What bounds it, measured level by level on an H100 at the serving
+// chunk of 1,306,800 points (`scripts/torch_encode_levels.py`): not the
+// gather. One-level launches take 0.030-0.041 ms in ray order, and as
+// long with every point equal, so a level costs its instructions; their
+// sum is 0.54 ms. One thread per (point, level) with the levels on
+// blockIdx.y took 1.21 ms for the whole launch, 1.11 with every point
+// equal: each pass over the points wrote 32 bytes of every point's
+// 512-byte output row, so the rows reached device memory in 32-byte
+// pieces. Walking the levels inside the thread writes a point's row
+// within one block's lifetime; its sectors meet in L2 and leave as whole
+// lines: 0.38 ms (the 669 MB output alone is 0.20 ms at the HBM rate).
+// The lane pair moves a 32-byte row as one sector of one warp-wide load
+// (one thread per point with two 16-byte loads per row took 0.77 ms).
+// The touched rows of all 16 baked levels of a chunk (616,211, 20 MB)
+// fit the 50 MB L2, so point-major order loses nothing to misses there;
+// shuffled points take 0.85 ms.
 //
 // Numerics: the cell position x01 * scale + offset is one fused
 // multiply-add (__fmaf_rn), rounded once as the JAX op's compiled encode
@@ -68,69 +78,83 @@ __global__ void bake_kernel(const float4* __restrict__ table,
   baked[i] = acc;
 }
 
+// C / 4 lanes per point, lane q holding channels [4q, 4q + 4) of every
+// level: at C = 8 a lane pair fetches each 32-byte corner row as one
+// sector of one warp-wide load, where one thread per row issued two
+// 16-byte loads of the same sector. A thread walks the levels in order,
+// so x01 is computed once per point and the block writes each point's
+// output row (levels * C floats) within a short span: the row's sectors
+// meet in L2 and reach device memory as whole lines, where one block per
+// (points, level) wrote 32 bytes of each 512-byte row a level apart. All
+// 8 corner rows of a level are loaded before their sums; a row's offset
+// from the level's base is 32-bit (slots * C <= 2^32, checked by the
+// launcher).
 template <int C>
-__global__ void encode_kernel(const float* __restrict__ xyz,
-                              const float* __restrict__ baked,
-                              const float* __restrict__ scales,
-                              float* __restrict__ out, long long n_pts,
-                              int levels, long long slots, float bound,
-                              float two_bound, float offset, int scene_oob) {
-  long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(256) encode_kernel(
+    const float* __restrict__ xyz, const float* __restrict__ baked,
+    const float* __restrict__ scales, float* __restrict__ out,
+    long long n_pts, int levels, long long slots, float bound,
+    float two_bound, float offset, int scene_oob) {
+  constexpr int kLanes = C / 4;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n = t / kLanes;
+  const int q = (int)(t % kLanes);
   if (n >= n_pts) return;
-  const int l = blockIdx.y;
-  float4* o = reinterpret_cast<float4*>(out + n * (long long)levels * C
-                                        + (long long)l * C);
+  float4* o = reinterpret_cast<float4*>(out + n * levels * C) + q;
   float x01[3];
   bool oob = scene_oob != 0;
+#pragma unroll
   for (int d = 0; d < 3; ++d) {
     x01[d] = __fdiv_rn(__fadd_rn(xyz[3 * n + d], bound), two_bound);
     oob |= x01[d] < 0.f || x01[d] > 1.f;
   }
   if (oob) {
-    for (int q = 0; q < C / 4; ++q) o[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int l = 0; l < levels; ++l)
+      o[l * kLanes] = make_float4(0.f, 0.f, 0.f, 0.f);
     return;
   }
   const unsigned primes[3] = {1u, 2654435761u, 805459861u};
-  const float scale = scales[l];
-  unsigned h0[3], h1[3];
-  float t0[3], t1[3];
-  for (int d = 0; d < 3; ++d) {
-    float pos = __fmaf_rn(x01[d], scale, offset);
-    float cell = floorf(pos);
-    float frac = __fsub_rn(pos, cell);
-    unsigned u = (unsigned)cell;
-    h0[d] = u * primes[d];
-    h1[d] = (u + 1u) * primes[d];
-    t1[d] = frac;
-    t0[d] = __fsub_rn(1.f, frac);
-  }
   const unsigned mask = (unsigned)(slots - 1);
-  const float4* tl = reinterpret_cast<const float4*>(
-      baked + (long long)l * slots * C);
-  float acc[C];
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  const float4* tl = reinterpret_cast<const float4*>(baked) + q;
+  for (int l = 0; l < levels; ++l, tl += slots * kLanes) {
+    const float scale = scales[l];
+    unsigned h0[3], h1[3];
+    float t0[3], t1[3];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    unsigned h = (k & 1) ? h1[0] : h0[0];
-    float w = (k & 1) ? t1[0] : t0[0];
-    for (int d = 1; d < 3; ++d) {
-      bool bit = (k >> d) & 1;
-      h ^= bit ? h1[d] : h0[d];
-      w = __fmul_rn(w, bit ? t1[d] : t0[d]);
+    for (int d = 0; d < 3; ++d) {
+      const float pos = __fmaf_rn(x01[d], scale, offset);
+      const float cell = floorf(pos);
+      const float frac = __fsub_rn(pos, cell);
+      const unsigned u = (unsigned)cell;
+      h0[d] = u * primes[d];
+      h1[d] = (u + 1u) * primes[d];
+      t1[d] = frac;
+      t0[d] = __fsub_rn(1.f, frac);
     }
-    const float4* row = tl + (long long)(h & mask) * (C / 4);
+    float4 v[8];
+    float w[8];
 #pragma unroll
-    for (int q = 0; q < C / 4; ++q) {
-      float4 v = row[q];
-      acc[4 * q] = __fadd_rn(acc[4 * q], __fmul_rn(w, v.x));
-      acc[4 * q + 1] = __fadd_rn(acc[4 * q + 1], __fmul_rn(w, v.y));
-      acc[4 * q + 2] = __fadd_rn(acc[4 * q + 2], __fmul_rn(w, v.z));
-      acc[4 * q + 3] = __fadd_rn(acc[4 * q + 3], __fmul_rn(w, v.w));
+    for (int k = 0; k < 8; ++k) {
+      unsigned h = (k & 1) ? h1[0] : h0[0];
+      w[k] = (k & 1) ? t1[0] : t0[0];
+#pragma unroll
+      for (int d = 1; d < 3; ++d) {
+        const bool bit = (k >> d) & 1;
+        h ^= bit ? h1[d] : h0[d];
+        w[k] = __fmul_rn(w[k], bit ? t1[d] : t0[d]);
+      }
+      v[k] = tl[(h & mask) * (unsigned)kLanes];
     }
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      acc.x = __fadd_rn(acc.x, __fmul_rn(w[k], v[k].x));
+      acc.y = __fadd_rn(acc.y, __fmul_rn(w[k], v[k].y));
+      acc.z = __fadd_rn(acc.z, __fmul_rn(w[k], v[k].z));
+      acc.w = __fadd_rn(acc.w, __fmul_rn(w[k], v[k].w));
+    }
+    o[l * kLanes] = acc;
   }
-  for (int q = 0; q < C / 4; ++q)
-    o[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
-                       acc[4 * q + 3]);
 }
 
 }  // namespace
@@ -159,19 +183,19 @@ int sd_hash_encode(const float* xyz, const float* baked, const float* scales,
                    int channels, float bound, float two_bound, float offset,
                    int scene_oob, void* stream) {
   const int threads = 256;
-  dim3 grid((unsigned)((n_pts + threads - 1) / threads), (unsigned)levels);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (channels == 8) {
-    encode_kernel<8><<<grid, threads, 0, s>>>(xyz, baked, scales, out,
-                                              n_pts, levels, slots, bound,
-                                              two_bound, offset, scene_oob);
-  } else if (channels == 4) {
-    encode_kernel<4><<<grid, threads, 0, s>>>(xyz, baked, scales, out,
-                                              n_pts, levels, slots, bound,
-                                              two_bound, offset, scene_oob);
-  } else {
+  if ((channels != 4 && channels != 8) || slots * channels > (1ll << 32))
     return (int)cudaErrorInvalidValue;
-  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long lanes = n_pts * (channels / 4);
+  const unsigned grid = (unsigned)((lanes + threads - 1) / threads);
+  if (channels == 8)
+    encode_kernel<8><<<grid, threads, 0, s>>>(
+        xyz, baked, scales, out, n_pts, levels, slots, bound, two_bound,
+        offset, scene_oob);
+  else
+    encode_kernel<4><<<grid, threads, 0, s>>>(
+        xyz, baked, scales, out, n_pts, levels, slots, bound, two_bound,
+        offset, scene_oob);
   return (int)cudaGetLastError();
 }
 

@@ -377,12 +377,13 @@ def _bake_dw(source, fn, counter, table3, grad, masks):
 
 GENERAL_CHANNELS = (1, 2, 4, 8, 16)
 GENERAL_MAX_DIMS, GENERAL_MAX_LEVELS = 7, 32
-GENERAL_META_COLS = 3 + GENERAL_MAX_DIMS    # offset, size, hashed, strides
+# offset, size, hashed, strides, the modulo's multiplier
+GENERAL_META_COLS = 4 + GENERAL_MAX_DIMS
 
 
 def _general_args(x, meta, scales, c, rows, tensors):
     """Checks shared by K4 (a) and (b): x [N, D] float32 on the card; meta
-    [L, 10] int64 and scales [L] float32 on the CPU whose levels lie
+    [L, 11] int64 and scales [L] float32 on the CPU whose levels lie
     inside `rows` table rows; C a supported width; `tensors` (name ->
     tensor or None) float32 and aligned for C's vector accesses."""
     _require(x, torch.float32, 'x', 2)
@@ -414,11 +415,11 @@ def _general_args(x, meta, scales, c, rows, tensors):
 
 def hash_encode_general(table, x, meta, scales, offset, bound, xor_hash):
     """K4 (a). table [rows, C] float32 (C in 1, 2, 4, 8, 16); x [N, D]
-    float32 (1 <= D <= 7); meta [L, 10] int64 and scales [L] float32, on
-    the CPU: each level's (offset, size, hashed, tiled strides) and
-    scale, as `ops/hashgrid.py:general_meta` packs them; offset the cell
-    offset (0.5, or 0 with aligned corners); `xor_hash` False for the
-    paired (add) hash -> [N, L*C] float32."""
+    float32 (1 <= D <= 7); meta [L, 11] int64 and scales [L] float32, on
+    the CPU: each level's (offset, size, hashed, tiled strides, modulo
+    multiplier) and scale, as `ops/hashgrid.py:general_meta` packs them;
+    offset the cell offset (0.5, or 0 with aligned corners); `xor_hash`
+    False for the paired (add) hash -> [N, L*C] float32."""
     c = table.shape[1] if table.dim() == 2 else 0
     lv = _general_args(x, meta, scales, c, table.shape[0], {'table': table})
     n, dims = x.shape

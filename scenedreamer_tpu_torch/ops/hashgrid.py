@@ -542,13 +542,23 @@ def general_levels(spec):
     return tuple(out)
 
 
+def mod_magic(size):
+    """The multiplier with which K4 reduces a uint32 corner index modulo a
+    level size that is not a power of two without dividing:
+    ceil(2^64 / size), so that h % size == (((magic * h) mod 2^64) * size)
+    >> 64 for every uint32 h (Lemire, Kaser and Kurz, 2019); 0 for a
+    power of two, which K4 reduces with a mask. Fits an int64."""
+    return 0 if size & (size - 1) == 0 else (2 ** 64 - 1) // size + 1
+
+
 @functools.lru_cache(maxsize=64)
 def general_meta(spec):
-    """`general_levels` packed for K4: [L, 10] int64 (offset, size,
-    hashed, strides padded to 7 dims) and [L] float32 scales, on the
-    CPU."""
+    """`general_levels` packed for K4: [L, 11] int64 (offset, size,
+    hashed, strides padded to 7 dims, `mod_magic(size)`) and [L] float32
+    scales, on the CPU."""
     rows = [[lv.offset, lv.size, int(lv.hashed)]
             + list(lv.strides) + [0] * (7 - len(lv.strides))
+            + [mod_magic(lv.size)]
             for lv in general_levels(spec)]
     return (torch.tensor(rows, dtype=torch.int64),
             torch.tensor([lv.scale for lv in general_levels(spec)],

@@ -223,21 +223,56 @@ def test_paired_hash_kernels_match_plain(cuda, levels, channels, log2):
     # seven dimensions, C = 1 (scalar rows)
     dict(input_dim=7, num_levels=3, level_dim=1, base_resolution=2,
          log2_hashmap_size=12, desired_resolution=8),
-], ids=['d5_c8', 'd3_tiled_c2', 'd2_paired_c4', 'd7_c1'])
+    # each shape the forward dispatches to, with every level kind it takes
+    # the generator's shape: level 0 tiled at 9^5 -> 59056 rows (not a
+    # power of two; its index cannot reach the size), the rest hashed
+    dict(input_dim=5, num_levels=6, level_dim=8, base_resolution=8,
+         log2_hashmap_size=16, desired_resolution=256),
+    dict(input_dim=5, num_levels=4, level_dim=8, base_resolution=8,
+         log2_hashmap_size=14, desired_resolution=64, hash_variant='paired'),
+    # aligned corners: level 0's tiled index (7^5 -> 16808 rows) wraps
+    dict(input_dim=5, num_levels=3, level_dim=8, base_resolution=7,
+         log2_hashmap_size=16, desired_resolution=64, align_corners=True),
+    # get_encoder's shapes at C = 2: tiled (1336 rows; wrapping; past the
+    # cut-off) with aligned corners, and tiled (4920 rows) then hashed
+    dict(input_dim=3, num_levels=6, level_dim=2, base_resolution=4,
+         log2_hashmap_size=12, desired_resolution=512, gridtype='tiled',
+         align_corners=True),
+    dict(input_dim=3, num_levels=6, level_dim=2, base_resolution=16,
+         log2_hashmap_size=14, desired_resolution=1024),
+    # the generic kernel: D = 1, D = 7, and D = 3 at C = 8
+    dict(input_dim=1, num_levels=5, level_dim=4, base_resolution=16,
+         log2_hashmap_size=6, desired_resolution=4096),
+    dict(input_dim=7, num_levels=2, level_dim=2, base_resolution=2,
+         log2_hashmap_size=10, desired_resolution=4),
+    dict(input_dim=3, num_levels=4, level_dim=8, base_resolution=7,
+         log2_hashmap_size=12, desired_resolution=128, align_corners=True),
+], ids=['d5_c8', 'd3_tiled_c2', 'd2_paired_c4', 'd7_c1',
+        'fixed_d5_c8', 'fixed_d5_c8_paired', 'fixed_d5_c8_aligned',
+        'fixed_d3_c2_tiled_aligned', 'fixed_d3_c2_hash', 'generic_d1_c4',
+        'generic_d7_c2', 'generic_d3_c8_aligned'])
 def test_general_hash_kernels_match_plain(cuda, kw):
-    """K4 (a)/(b) against the plain versions: the forward 1e-6 (same
-    float32 operations in the same order), G per row 1e-5 of the sum of
-    absolute contributions + 1e-7 (atomics add in a run-dependent
-    order), dx 1e-4 of its largest magnitude (float32 atomics over the
-    levels); the autograd path launches each kernel once."""
+    """K4 (a)/(b) against the plain versions on every shape the forward
+    dispatches to (the compile-time D = 5 / C = 8 and D = 3 / C = 2
+    kernels and the generic one): the forward 1e-6 (same float32
+    operations in the same order), zeros at points outside the bounds; G
+    per row 1e-5 of the sum of absolute contributions + 1e-7 (atomics add
+    in a run-dependent order), dx 1e-4 of its largest magnitude (float32
+    atomics over the levels); the autograd path launches each kernel
+    once. The point count is no multiple of a block."""
     spec = hg.HashGridSpec.create(**kw)
+    levels = hg.general_levels(spec)
+    if spec.input_dim == 5 and spec.hash_variant == 'xor':
+        assert levels[0].size & (levels[0].size - 1) and not levels[0].hashed
+        assert levels[1].hashed
     gen = torch.Generator(device=cuda).manual_seed(4)
-    n = 20000 if spec.input_dim == 7 else 50000
+    n = 20003 if spec.input_dim == 7 else 50003
     table = torch.rand((spec.table_size, spec.level_dim), generator=gen,
                        device=cuda) * 2 - 1
     x = torch.rand((n, spec.input_dim), generator=gen, device=cuda) \
         * 2.2 - 1.1
     x[:4] = torch.tensor([-1.0, 1.0, 0.0, 1.0], device=cuda)[:, None]
+    x[-1] = 1.5
     g = torch.randn((n, spec.output_dim), generator=gen, device=cuda)
     meta, scales = hg.general_meta(spec)
     off, xor = hg._offset(spec), spec.hash_variant == 'xor'
@@ -245,6 +280,8 @@ def test_general_hash_kernels_match_plain(cuda, kw):
     want = hg.encode_general_plain(spec, table, x)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
     assert want.abs().max() > 0.1
+    oob = (x.abs() > 1.0).any(-1)
+    assert oob.any() and (got[oob] == 0).all()
     rows = spec.table_size
     k_grad, k_dx = kernels.hash_encode_general_bwd(
         g, x, meta, scales, off, 1.0, xor, rows, table)
@@ -262,6 +299,29 @@ def test_general_hash_kernels_match_plain(cuda, kw):
         assert after[name] == before[name] + 1, name
     assert ((dt - p_grad).abs() <= 1e-5 * abs_grad + 1e-7).all()
     assert (dx - p_dx).abs().max() <= 1e-4 * p_dx.abs().max()
+
+
+@pytest.mark.parametrize('channels', [4, 8])
+@pytest.mark.parametrize('scene_oob', [False, True])
+def test_folded_encode_edges_match_plain(cuda, channels, scene_oob):
+    """K2 (b) on a point count that is no multiple of a block, points on
+    and outside the bounds, and an out-of-bounds scene code (every
+    feature zero), against the plain version, 1e-6."""
+    spec = hg.HashGridSpec.create(input_dim=5, num_levels=5,
+                                  level_dim=channels, log2_hashmap_size=12,
+                                  desired_resolution=512)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    baked = torch.rand((spec.num_levels, 2 ** 12, channels), generator=gen,
+                       device=cuda) * 2 - 1
+    xyz = torch.rand((4099, 3), generator=gen, device=cuda) * 2.2 - 1.1
+    xyz[:4] = torch.tensor([-1.0, 1.0, 0.0, 1.0], device=cuda)[:, None]
+    scales, off = hg._scales(spec, cuda), hg._offset(spec)
+    got = kernels.hash_encode(baked, xyz, scales, off, 1.0, scene_oob)
+    want = hg.encode_plain(baked, xyz, scales, off, 1.0, scene_oob)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    oob = (xyz.abs() > 1.0).any(-1)
+    assert (got[oob] == 0).all() and oob.any()
+    assert (got == 0).all() if scene_oob else got.abs().max() > 0.1
 
 
 def _scatter_points(case, n, dims, scales, gen, dev):

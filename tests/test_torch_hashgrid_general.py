@@ -32,7 +32,9 @@ import jax
 import jax.numpy as jnp
 
 from scenedreamer_tpu.ops import hashgrid as jhg
+from scenedreamer_tpu_torch.models.generator import GeneratorConfig
 from scenedreamer_tpu_torch.ops import hashgrid as thg
+from scenedreamer_tpu_torch.ops.encoders import get_encoder
 from _torch_parity import cap_torch_threads
 
 cap_torch_threads()
@@ -192,6 +194,59 @@ def test_tiled_index_wraps_like_uint32():
         h = c[0] * np.uint32(1) + c[1] * np.uint32(70001)   # wraps
         assert (c[1].astype(np.uint64) * 70001 >= 2 ** 32).all()
         np.testing.assert_array_equal(got.numpy(), h % np.uint32(1000))
+
+
+def _kernel_mod(h, magic, size):
+    """K4's `fast_mod` (`csrc/hashgrid_general.cu`) in numpy: the high 64
+    bits of ((magic * h) mod 2^64) * size, formed from 32-bit halves."""
+    low = h * np.uint64(magic)                      # wraps mod 2^64
+    lo, hi = low & np.uint64(0xffffffff), low >> np.uint64(32)
+    s = np.uint64(size)
+    return (hi * s + ((lo * s) >> np.uint64(32))) >> np.uint64(32)
+
+
+MOD_SPECS = {
+    'flagship_19': lambda: GeneratorConfig().hash_spec,
+    'flagship_21': lambda: GeneratorConfig(hash_log2_size=21).hash_spec,
+    'flagship_22': lambda: GeneratorConfig(hash_log2_size=22).hash_spec,
+    'hashgrid': lambda: get_encoder('hashgrid')[2],
+    'tiledgrid_aligned': lambda: get_encoder('tiledgrid', level_dim=2,
+                                             align_corners=True)[2],
+}
+
+
+@pytest.mark.parametrize('name', list(MOD_SPECS))
+def test_mod_magic_matches_remainder(name):
+    """The per-level multiplier `general_meta` hands K4 for its division-
+    free `% size` gives h % size for every level size of the generator's
+    specs and `get_encoder`'s: checked on the first and the last 2^20
+    uint32 values, 2^20 random ones and the last 4,097 multiples of the
+    size below 2^32, +-1; power-of-two sizes carry 0 (the kernel masks
+    them)."""
+    spec = MOD_SPECS[name]()
+    meta, _ = thg.general_meta(spec)
+    sizes = [lv.size for lv in thg.general_levels(spec)]
+    assert meta[:, 10].tolist() == [thg.mod_magic(s) for s in sizes]
+    rng = np.random.default_rng(7)
+    top = np.uint64(2 ** 32)
+    base = np.concatenate([np.arange(1 << 20, dtype=np.uint64),
+                           top - np.uint64(1)
+                           - np.arange(1 << 20, dtype=np.uint64),
+                           rng.integers(0, 2 ** 32, 1 << 20,
+                                        dtype=np.uint64)])
+    assert any(s & (s - 1) for s in sizes) or name == 'flagship_19'
+    for size in sorted(set(sizes)):
+        magic = thg.mod_magic(size)
+        if size & (size - 1) == 0:
+            assert magic == 0
+            continue
+        assert 0 < magic < 2 ** 63 and magic == -(-2 ** 64 // size)
+        k = np.arange(max(1, 2 ** 32 // size - 4096), 2 ** 32 // size + 1,
+                      dtype=np.uint64) * np.uint64(size)
+        near = np.concatenate([k - np.uint64(1), k, k + np.uint64(1)])
+        h = np.concatenate([base, near[near < top]])
+        np.testing.assert_array_equal(_kernel_mod(h, magic, size),
+                                      h % np.uint64(size))
 
 
 def test_foldable_spec_encodes_as_the_folded_path():
