@@ -11,8 +11,13 @@ of the repository. Phases, each fatal on failure:
      one process per source, in parallel) and print the build time and
      the ptxas report;
   2. K1 (DDA) against its plain PyTorch version on a 570x990 frame of a
-     scene-1024 world (seed 8888, camera pattern 4): voxel ids and hit
-     masks equal, entry/exit t max-abs difference printed;
+     scene-1024 world (seed 8888, camera pattern 4), as the main path
+     launches it (the empty-space skip over the world's brick occupancy,
+     8x4 pixel tiles) and in flat order, and on the
+     training sampler's 4 proposals (262x262 rays each) in one launch
+     with 4 origins: voxel ids, hit masks and step counts equal, entry /
+     exit t difference 0; then '[K1 shapes]': the per-warp issued /
+     needed axis steps in launch order and in 8x4 tiles;
   3. K2 (hash bake + encode) against the plain versions on one field
      chunk of that frame's sample points, flagship hash spec (16 levels
      x 2^19 x 8), table uniform in [-1, 1]: max abs error <= 1e-5
@@ -27,7 +32,12 @@ of the repository. Phases, each fatal on failure:
      the bound the card could reach; and K2b split by level on phase
      3's chunk ('[K2 levels]': each level alone in ray order, shuffled
      and with every point equal, its distinct rows and issued sectors
-     per ms; the whole launch in each order);
+     per ms; the whole launch in each order); K1 at its shapes ('[K1
+     shapes]': the frame, the frame's rays sorted by step count, one
+     sampler proposal, 4 proposals launched one by one and in one launch,
+     each with the world's brick bits and with every bit set; the voxel
+     loads the skip leaves; the bits' build time, and what a sampled
+     world's first round costs with and without the skip);
   6. K3 (the hash backward: scatter, dT bake, dw reduction) against its
      plain version at the flagship spec on the sample points of one
      training batch (crop 256 + pad 6, 262x262 rays, 24 samples), table
@@ -54,8 +64,10 @@ of the repository. Phases, each fatal on failure:
   8. K5 (the paired hash variant: shift bake, paired encode, paired
      scatter, dT shift bake, dw reduction) against its plain versions at
      the flagship spec with `hash_variant='paired'` on the sample points
-     of phase 6's training batch, tolerances as phases 3 and 6, then the
-     timings and bounds of K5 (a)-(d);
+     of phase 6's training batch, tolerances as phases 3 and 6 (G and
+     dT against the float64 sum of the same terms), then the timings and
+     bounds of K5 (a)-(d), and the scatter K5c split by level and held
+     in the adversarial cases as K3a in phase 6 ('[K5 levels]');
   9. the training loop: writes a terrain cache of the scene-1024 world
      and 16 synthetic 320x320 PNG pairs under `smoke_out/`, and runs
      `scenedreamer_tpu_torch.cli.train.main` on
@@ -67,7 +79,9 @@ of the repository. Phases, each fatal on failure:
      Every meter must be finite, the checkpoints and
      `latest_checkpoint.txt` must exist, the second run must resume at
      iteration 6, the hash table must move, the paired run must launch
-     K1 and all of K5 and none of K2/K3, the xor run the reverse.
+     K1 and all of K5 and none of K2/K3, the xor run the reverse; the
+     `--speed-benchmark` run must launch K1 once per sampler round of 4
+     proposals.
 
  10. K4 (the general, unfolded encode: forward, table scatter and point
      gradient) against its plain versions: the flagship hash spec at
@@ -214,6 +228,144 @@ def frame_rays(torch, world, dev):
     return ctl, rays, ori_t
 
 
+PROPOSALS = 4   # camera proposals per sampler round (CameraSamplerConfig)
+
+
+def proposal_rays(torch, world, dev, k=PROPOSALS, seed=SEED):
+    """k camera proposals of the training sampler (its default config:
+    262x262 rays each) on `world`, drawn as `CameraBatchSampler` draws
+    them: rays [k, h*w, 3], origins [k, 3] and (h, w)."""
+    import numpy as np
+    from scenedreamer_tpu_torch.ops.ray_voxel import camera_rays
+    from scenedreamer_tpu_torch.train.sampling import (CameraBatchSampler,
+                                                       CameraSamplerConfig)
+    sampler = CameraBatchSampler(CameraSamplerConfig(), device=dev)
+    rng = np.random.default_rng(seed)
+    rays, oris = [], []
+    for _ in range(k):
+        ori, cdir, up, cam_f, cam_c = sampler._propose(world, rng)
+        rays.append(camera_rays(
+            np.asarray(cdir, np.float32), np.asarray(up, np.float32),
+            float(np.float32(cam_f)),
+            tuple(float(np.float32(v)) for v in cam_c), sampler.crop_res,
+            device=dev).reshape(-1, 3))
+        oris.append(torch.tensor(np.asarray(ori, np.float32), device=dev))
+    return torch.stack(rays), torch.stack(oris), sampler.crop_res
+
+
+def step_ratios(torch, steps, h, w):
+    """Issued over needed axis steps of K1's warps on rays [G*h*w] (G
+    row-major images of h x w) whose per-ray step counts are `steps`: the
+    sum over warps of 32 x the warp's largest count, over the sum of the
+    counts, with a warp taking 32 consecutive rays (launch order) and with
+    a warp taking an 8x4 pixel tile."""
+    s = steps.reshape(-1, h, w).float()
+    total = float(s.sum())
+    flat = s.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 32)])
+    launch = float(flat.reshape(-1, 32).amax(1).sum()) * 32 / total
+    t = torch.nn.functional.pad(s, (0, -w % 8, 0, -h % 4))
+    t = t.reshape(s.shape[0], t.shape[1] // 4, 4, t.shape[2] // 8, 8)
+    tiled = float(t.permute(0, 1, 3, 2, 4).reshape(-1, 32).amax(1).sum()) \
+        * 32 / total
+    return launch, tiled
+
+
+def k1_bound(steps, hits, rays):
+    """K1's bound for rays whose axis steps and recorded hits are given:
+    directions in, ids / t / hit flags out, the voxel byte of every hit,
+    and 8 float32 operations per axis step."""
+    return bound_ms(rays * 12 + rays * M * 13 + hits, steps * 8)
+
+
+def k1_shapes(torch, kernels, world, voxel, rays, ori_t, size, dev):
+    """Phase 5, '[K1 shapes]': K1's time (median of 5, L2 flushed) at (a)
+    the frame's rays (`size` = (h, w)), (b) the same rays sorted by their
+    step count, (c) one training-sampler proposal (262x262 rays), (d)
+    PROPOSALS such proposals back to back, one launch each, (e) the
+    PROPOSALS proposals in one launch, as the sampler launches a round,
+    and (f) the frame's 32 longest rays. Rays that form images go in 8x4
+    tiles, the others in flat order. Each shape is timed with the world's
+    brick bits ('skip', the main path) and with every bit set ('no skip':
+    every step loads its voxel). Prints the per-warp step ratios
+    (`step_ratios`), the voxel loads the skip leaves, the time to build
+    the world's bits, and what a sampled world's K1 costs with and without
+    the skip for its first round (the build included). Returns {shape:
+    {variant: ms}}, the proposals' bounds and that build time."""
+    max_steps = sum(world.dims) + 2
+    prays, poris, (ph, pw) = proposal_rays(torch, world, dev)
+    k = prays.shape[0]
+    occ = kernels.occupancy_bits(voxel)
+    bits = dict(skip=occ, no_skip=torch.full_like(occ, -1))
+
+    def launch(x, o, width, variant, **kw):
+        return kernels.dda(voxel, o, x, M, max_steps, occupancy=bits[variant],
+                           image_width=width, **kw)
+
+    _, _, f_hit, f_steps = launch(rays, ori_t, None, 'skip', with_steps=True)
+    order = torch.argsort(f_steps)
+    p_out = [launch(prays[i].contiguous(), poris[i], pw, 'skip',
+                    with_steps=True) for i in range(k)]
+    p_steps = torch.stack([o[3] for o in p_out])
+    h, w = size
+    for name, st, hh, ww in (('frame', f_steps, h, w),
+                             (f'{k} proposals', p_steps, ph, pw)):
+        lr, tr = step_ratios(torch, st, hh, ww)
+        log(f'[K1 shapes] {name}: {st.numel()} rays, axis steps mean '
+            f'{float(st.float().mean()):.1f} max {int(st.max())} sum '
+            f'{int(st.sum())}; per-warp issued / needed steps: launch order '
+            f'{lr:.3f}, 8x4 tiles {tr:.3f}')
+    # each shape: its launches as (rays, origins, image width or None)
+    all_rays = (prays.reshape(-1, 3).contiguous(), poris, pw)
+    shapes = {
+        '(a) frame': [(rays, ori_t, w)],
+        '(b) frame sorted by steps': [(rays[order].contiguous(), ori_t,
+                                       None)],
+        '(c) one proposal': [(prays[0].contiguous(), poris[0], pw)],
+        # the critical path: the frame's 32 rays with the most steps
+        '(f) the 32 longest frame rays, one warp': [
+            (rays[order[-32:]].contiguous(), ori_t, None)],
+        f'(d) {k} proposals, {k} launches': [
+            (prays[i].contiguous(), poris[i], pw) for i in range(k)],
+        f'(e) {k} proposals, one launch': [all_rays],
+    }
+    out = {}
+    for name, calls in shapes.items():
+        out[name] = {v: median_ms(lambda: [launch(*c, v) for c in calls])
+                     for v in bits}
+        log(f'[K1 shapes] {name}: ' + ', '.join(
+            f'{v.replace("_", " ")} {t:.3f} ms'
+            for v, t in out[name].items()))
+    bound_one = k1_bound(int(p_steps[0].sum()), int(p_out[0][2].sum()),
+                         ph * pw)
+    bound_all = k1_bound(int(p_steps.sum()),
+                         sum(int(o[2].sum()) for o in p_out), k * ph * pw)
+    log(f'[K1 shapes] bound: one proposal {bound_one[0]:.4f} ms, {k} '
+        f'proposals {bound_all[0]:.4f} ms (by {bound_all[1]})')
+    build_ms = median_ms(lambda: kernels.occupancy_bits(voxel))
+    log(f'[K1 shapes] the brick occupancy of the {tuple(voxel.shape)} '
+        f'grid ({occ.numel() * 4} bytes), built once per world: '
+        f'{build_ms:.3f} ms')
+    rnd = out[f'(e) {k} proposals, one launch']
+    saved = rnd['no_skip'] - rnd['skip']
+    log(f'[K1 shapes] a sampled world, first round of {k} proposals: build + '
+        f'round with the skip {build_ms + rnd["skip"]:.3f} ms, without '
+        f'{rnd["no_skip"]:.3f} ms; the skip repays its build from '
+        + (f'{build_ms / saved:.2f} rounds per world' if saved > 0
+           else 'no number of rounds'))
+    for name, c, st in (('frame', (rays, ori_t, w), f_steps),
+                        (f'{k} proposals', all_rays, p_steps)):
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        launch(*c, 'skip', stats=stats)
+        loads, lookups = stats.tolist()
+        log(f'[K1 shapes] {name} with the skip: {loads} voxel loads '
+            f'(steps in occupied bricks) of {int(st.sum())} axis steps '
+            f'({loads / int(st.sum()):.3f}), {lookups} occupancy bits read')
+    return dict(shapes=out, proposal_bound=bound_one,
+                proposals_bound=bound_all, proposals=k,
+                occupancy_build_ms=build_ms)
+
+
 def chunk_points(torch, rays, ori_t, depth, hit, dims):
     """One serving field chunk (phase 3): the CHUNK_RAYS // W image rows
     from the middle of the frame, SAMPLES + 1 deterministic depths per ray
@@ -268,8 +420,10 @@ def _exact_scatter(torch, g, c, rows, corners):
     return out
 
 
-def exact_folded_grad(torch, hg, g, xyz, scales, offset, slots):
-    """K3a's table gradient [L, slots, C] in float64 (`_exact_scatter`)."""
+def exact_folded_grad(torch, hg, g, xyz, scales, offset, slots,
+                      variant='xor'):
+    """K3a's (K5c's under variant 'paired') table gradient [L, slots, C]
+    in float64 (`_exact_scatter`)."""
     lvs, c = scales.shape[0], g.shape[1] // scales.shape[0]
     x01 = (xyz + 1.0) / 2.0
     ok = ((x01 >= 0) & (x01 <= 1)).all(-1)
@@ -277,7 +431,8 @@ def exact_folded_grad(torch, hg, g, xyz, scales, offset, slots):
 
     def corners():
         for lv in range(lvs):
-            idx, ws, _ = hg._corners(x01, scales[lv], offset, slots)
+            idx, ws, _ = hg._corners(x01, scales[lv], offset, slots,
+                                     variant)
             yield lv, [i + lv * slots for i in idx], ws
     return _exact_scatter(torch, g, c, lvs * slots, corners()) \
         .reshape(lvs, slots, c)
@@ -351,8 +506,9 @@ def backward_check(torch, kernels, hg, cfg, batch, dims, dev, tag):
     k_grad, k_dxyz = k_bwd(g, xyz, scales, off, 1.0, oob, slots, baked)
     p_grad, p_dxyz = hg.encode_bwd_plain(g, xyz, scales, off, 1.0, oob,
                                          slots, baked, variant)
-    if not paired and not oob:   # K3a: against the exact sum
-        p_grad = exact_folded_grad(torch, hg, g, xyz, scales, off, slots)
+    if not oob:     # K3a, K5c: against the exact sum
+        p_grad = exact_folded_grad(torch, hg, g, xyz, scales, off, slots,
+                                   variant)
     abs_grad, _ = hg.encode_bwd_plain(g.abs(), xyz, scales, off, 1.0, oob,
                                       slots, None, variant)
     k_dt = k_bake(k_grad, inv32, weights, names['dt'])
@@ -373,12 +529,11 @@ def backward_check(torch, kernels, hg, cfg, batch, dims, dev, tag):
     log(f'[{tag}] {n} points ({inb} in bounds), spec {spec.num_levels} x '
         f'{slots} x {spec.level_dim}, variant {variant}')
     log(f'[{tag}] G (scatter) max abs err {g_err:.3g}, dT max abs err '
-        f'{dt_err:.3g} (against '
-        f'{"the plain path" if paired else "the float64 sum"}); tolerance '
-        f'for each, per slot: 1e-5 x (sum of |w g| into the slot, plain '
-        f'path) + 1e-7, because float32 atomics add in a run-dependent '
-        f'order: worst margin G {g_excess:.3g}, dT {dt_excess:.3g} (<= 0 '
-        f'passes)')
+        f'{dt_err:.3g} (against the float64 sum of the same terms); '
+        f'tolerance for each, per slot: 1e-5 x (sum of |w g| into the slot, '
+        f'plain path) + 1e-7, because float32 atomics add in a '
+        f'run-dependent order: worst margin G {g_excess:.3g}, dT '
+        f'{dt_excess:.3g} (<= 0 passes)')
     log(f'[{tag}] dw max rel err {dw_rel:.3g}; tolerance 1e-5 (float64 sums '
         f'on both sides, the kernel in a fixed block order)')
     log(f'[{tag}] dxyz max err / max|dxyz| {dx_rel:.3g}; tolerance 1e-4 '
@@ -662,41 +817,45 @@ def k3_levels(torch, kernels, hg, spec, xyz, dev, coarse=True):
     """Phase 6, K3a: the per-level split (`scatter_split`) and the two
     adversarial cases, every point in one cell (the most sharing: 2^20
     points) and the training points shuffled (which sends the coarse
-    levels' tables into overflow), held to the plain version with the
-    wrapper's split and a seeded table as the baked one. Without
-    `coarse`, the direct path's split alone."""
+    levels' tables into overflow), held to the float64 sum of the same
+    terms with the wrapper's split and a seeded table as the baked one.
+    Without `coarse`, the direct path's split alone. Under a paired
+    `spec` the same for K5c (phase 8, '[K5 levels]')."""
+    paired = spec.hash_variant == 'paired'
+    tag = 'K5' if paired else 'K3'
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     n, c, lvs = xyz.shape[0], spec.level_dim, spec.num_levels
     slots = spec.table_size // lvs
     scales, off = hg._scales(spec, dev), hg._offset(spec)
+    variant = spec.hash_variant
     g = torch.randn((n, spec.output_dim), generator=gen, device=dev)
     perm = torch.randperm(n, generator=gen, device=dev)
     pts = dict(ray=xyz, shuffled=xyz[perm].contiguous())
     gs = dict(ray=g, shuffled=g[perm].contiguous())
     cols = {o: [v[:, lv * c:(lv + 1) * c].contiguous() for lv in range(lvs)]
             for o, v in gs.items()}
+    split = kernels.hash_encode_paired_bwd_split if paired \
+        else kernels.hash_encode_bwd_split
 
     def launch(order, lv, cms, stats=None):
         if lv is None:
-            return kernels.hash_encode_bwd_split(
-                gs[order], pts[order], scales, off, 1.0, False, slots, None,
-                cms, stats)
-        return kernels.hash_encode_bwd_split(
-            cols[order][lv], pts[order], scales[lv:lv + 1], off, 1.0, False,
-            slots, None, cms, stats)
+            return split(gs[order], pts[order], scales, off, 1.0, False,
+                         slots, None, cms, stats)
+        return split(cols[order][lv], pts[order], scales[lv:lv + 1], off,
+                     1.0, False, slots, None, cms, stats)
 
     x01 = (xyz + 1.0) / 2.0
     x01 = x01[((x01 >= 0) & (x01 <= 1)).all(-1)]
     _, repeats = torch.unique(xyz, dim=0, return_counts=True)
-    log(f'[K3 levels] {n} points, {x01.shape[0]} in bounds; the most '
+    log(f'[{tag} levels] {n} points, {x01.shape[0]} in bounds; the most '
         f'repeated point occurs {int(repeats.max())} times (the samples of '
         f'rays that hit nothing, all at the camera)')
 
     def distinct(lv):
-        rows, _, _ = hg._corners(x01, scales[lv], off, slots)
+        rows, _, _ = hg._corners(x01, scales[lv], off, slots, variant)
         return int(torch.unique(torch.cat(rows)).numel())
 
-    out = scatter_split(torch, kernels, 'K3', scales.tolist(), launch,
+    out = scatter_split(torch, kernels, tag, scales.tolist(), launch,
                         distinct, dev, coarse)
     del cols
     if not coarse:
@@ -704,14 +863,15 @@ def k3_levels(torch, kernels, hg, spec, xyz, dev, coarse=True):
 
     def where(row):
         lv, slot = divmod(row, slots)
-        idx, _, _ = hg._corners(x01, scales[lv], off, slots)
+        idx, _, _ = hg._corners(x01, scales[lv], off, slots, variant)
         return f'level {lv}, {sum(int((i == slot).sum()) for i in idx)} adds'
-    report_sums(torch, 'K3', exact_folded_grad(torch, hg, g, xyz, scales, off,
-                                               slots),
+    report_sums(torch, tag, exact_folded_grad(torch, hg, g, xyz, scales, off,
+                                              slots, variant),
                 hg.encode_bwd_plain(g.abs(), xyz, scales, off, 1.0, False,
-                                    slots)[0],
+                                    slots, None, variant)[0],
                 {'float32 plain twin': hg.encode_bwd_plain(
-                    g, xyz, scales, off, 1.0, False, slots)[0],
+                    g, xyz, scales, off, 1.0, False, slots, None,
+                    variant)[0],
                  'direct path': launch('ray', None, kernels.DIRECT_ONLY)[0],
                  'coarse path': launch('ray', None, None)[0]}, where)
     baked = torch.rand((lvs, slots, c), generator=gen, device=dev) * 2 - 1
@@ -722,17 +882,18 @@ def k3_levels(torch, kernels, hg, spec, xyz, dev, coarse=True):
     for case, x, gg in (('one cell', cell, g1),
                         ('shuffled', pts['shuffled'], gs['shuffled'])):
         stats = torch.zeros(2, dtype=torch.int64, device=dev)
-        k_grad, k_d = kernels.hash_encode_bwd_split(
-            gg, x, scales, off, 1.0, False, slots, baked, stats=stats)
+        k_grad, k_d = split(gg, x, scales, off, 1.0, False, slots, baked,
+                            stats=stats)
         _, p_d = hg.encode_bwd_plain(gg, x, scales, off, 1.0, False, slots,
-                                     baked)
-        p_grad = exact_folded_grad(torch, hg, gg, x, scales, off, slots)
+                                     baked, variant)
+        p_grad = exact_folded_grad(torch, hg, gg, x, scales, off, slots,
+                                   variant)
         abs_grad, _ = hg.encode_bwd_plain(gg.abs(), x, scales, off, 1.0,
-                                          False, slots)
-        out[case] = _held('K3', case, k_grad, p_grad, abs_grad, k_d,
+                                          False, slots, None, variant)
+        out[case] = _held(tag, case, k_grad, p_grad, abs_grad, k_d,
                           p_d, stats)
         del k_grad, p_grad, abs_grad, k_d, p_d
-    check_split('K3', out)
+    check_split(tag, out)
     return out
 
 
@@ -1035,6 +1196,14 @@ def loop_path(torch, kernels, world, dev):
         torch, kernels, argv('paired', 'logs_speed', '--max-iter', '3',
                              '--speed-benchmark'))
     finite(series, 'speed benchmark')
+    # no prefetch here, so the last logged proposal count is the run's
+    proposals = int(series['sampler/proposals'][-1][1])
+    log(f'[loop] --speed-benchmark: K1 launched {counts["dda"]} times for '
+        f'{proposals} camera proposals in 3 iterations (one launch per '
+        f'round of {PROPOSALS})')
+    assert counts['dda'] * PROPOSALS == proposals, \
+        'the sampler did not launch K1 once per round'
+    loop.update(speed_dda_launches=counts['dda'], speed_proposals=proposals)
     phases = {}
     for name in ('world_sample', 'batch_build', 'train_step'):
         vals = [v for step, v in series[f'speed/{name}_ms'] if step > 1]
@@ -1325,7 +1494,7 @@ def split_extra(split):
                 coarse_levels=sum(r['coarse'] for r in split['levels']))
 
 
-def kernel_rows(serving, k3, k3_split, train, k5, loop):
+def kernel_rows(serving, k3, k3_split, train, k5, k5_split, loop):
     """The `kernels` JSON rows: K1, K2a, K2b on the serving path, K3a-c
     on the training path and K5a-d on the training loop's paired run,
     each read from the kernel's own counter. `launches` is the count of
@@ -1374,7 +1543,8 @@ def kernel_rows(serving, k3, k3_split, train, k5, loop):
         row('hash_encode_paired', paired, f'{jax_hg}:458',
             *k5['hash_encode_paired'], lcounts, points=k5['points']),
         row('hash_encode_paired_bwd', paired, f'{jax_hg}:427',
-            *k5['hash_encode_paired_bwd'], lcounts, points=k5['points']),
+            *k5['hash_encode_paired_bwd'], lcounts, points=k5['points'],
+            **split_extra(k5_split)),
         row('hash_shift_bake_bwd', paired, f'{jax_hg}:642',
             *k5['hash_shift_bake_bwd'], lcounts),
         row('hash_shift_bake_dw', paired, f'{jax_hg}:642',
@@ -1424,7 +1594,8 @@ def main():
     from scenedreamer_tpu_torch.models.generator import (
         GeneratorConfig, SceneDreamerGenerator)
     from scenedreamer_tpu_torch.ops import hashgrid as hg
-    from scenedreamer_tpu_torch.ops.ray_voxel import dda_plain
+    from scenedreamer_tpu_torch.ops.ray_voxel import (build_occupancy_bits,
+                                                      dda_plain)
     from scenedreamer_tpu_torch.render.pipeline import (TiledRenderer,
                                                         render_trajectory)
     from scenedreamer_tpu_torch.scene.terrain import generate_terrain
@@ -1458,20 +1629,44 @@ def main():
     voxel = torch.from_numpy(world.voxel).to(dev)
     h, w = RES[0] + PAD, RES[1] + PAD
     ctl, rays, ori_t = frame_rays(torch, world, dev)
-    k_vid, k_dep, k_hit, k_steps = kernels.dda(
-        voxel, ori_t, rays, M, sum(world.dims) + 2, with_steps=True)
+    occ = build_occupancy_bits(voxel)
     p_vid, p_dep, p_hit, p_steps = dda_plain(voxel, ori_t, rays, M,
                                              with_steps=True)
-    torch.cuda.synchronize()
-    assert torch.equal(k_vid, p_vid), 'K1 voxel ids differ from plain'
-    assert torch.equal(k_hit, p_hit), 'K1 hit masks differ from plain'
-    assert torch.equal(k_steps, p_steps), 'K1 step counts differ'
-    dda_err = float((k_dep - p_dep).abs().max())
-    log(f'[K1] {rays.shape[0]} rays: ids/hits equal, depth max abs diff '
-        f'{dda_err:.3g}, rays with a hit '
-        f'{float(k_hit[:, 0].float().mean()):.3f}, steps mean '
-        f'{float(k_steps.float().mean()):.1f} max {int(k_steps.max())}')
-    assert dda_err == 0.0, 'K1 depth differs from plain'
+    # the main path's form (8x4 tiles), then flat order, each with the
+    # world's brick bits and held equal to the plain version
+    for how, width in (('skip, 8x4 tiles', w), ('skip, flat order', None)):
+        k_vid, k_dep, k_hit, k_steps = kernels.dda(
+            voxel, ori_t, rays, M, sum(world.dims) + 2, with_steps=True,
+            occupancy=occ, image_width=width)
+        torch.cuda.synchronize()
+        assert torch.equal(k_vid, p_vid), f'K1 ({how}) ids differ from plain'
+        assert torch.equal(k_hit, p_hit), f'K1 ({how}) hits differ from plain'
+        assert torch.equal(k_steps, p_steps), f'K1 ({how}) step counts differ'
+        dda_err = float((k_dep - p_dep).abs().max())
+        log(f'[K1] {rays.shape[0]} rays ({how}): ids/hits/steps equal, depth '
+            f'max abs diff {dda_err:.3g}, rays with a hit '
+            f'{float(k_hit[:, 0].float().mean()):.3f}, steps mean '
+            f'{float(k_steps.float().mean()):.1f} max {int(k_steps.max())}')
+        assert dda_err == 0.0, f'K1 ({how}) depth differs from plain'
+    # the training sampler's round: its proposals' rays in one launch
+    prays, poris, (ph, pw) = proposal_rays(torch, world, dev)
+    prays = prays.reshape(-1, 3).contiguous()
+    got = kernels.dda(voxel, poris, prays, M, sum(world.dims) + 2,
+                      with_steps=True, occupancy=occ, image_width=pw)
+    want = dda_plain(voxel, poris, prays, M, with_steps=True)
+    for name, a, b in zip(('ids', 'depth', 'hits', 'steps'), got, want):
+        assert torch.equal(a, b), f'K1 ({PROPOSALS} origins) {name} differ'
+    log(f'[K1] {PROPOSALS} sampler proposals of {ph}x{pw} rays in one launch '
+        f'({PROPOSALS} origins, skip, 8x4 tiles): ids/depth/hits/steps equal '
+        f'to the plain version, rays with a hit '
+        f'{float(got[2][:, 0].float().mean()):.3f}, steps mean '
+        f'{float(got[3].float().mean()):.1f} max {int(got[3].max())}')
+    for name, st, hh, ww in (('frame', k_steps, h, w),
+                             (f'{PROPOSALS} proposals', got[3], ph, pw)):
+        lr, tr = step_ratios(torch, st, hh, ww)
+        log(f'[K1 shapes] {name}: per-warp issued / needed axis steps, launch '
+            f'order {lr:.3f}, 8x4 tiles {tr:.3f}')
+    del prays, poris, got, want, p_vid, p_dep, p_hit, p_steps
 
     # 3. K2 vs plain -------------------------------------------------------
     cfg = GeneratorConfig(num_samples=SAMPLES, num_blocks_early_stop=M)
@@ -1557,14 +1752,25 @@ def main():
     n_frames = len(frames)
     r_rays = rays.shape[0]
     max_steps = sum(world.dims) + 2
-    dda_ms = median_ms(lambda: kernels.dda(voxel, ori_t, rays, M,
-                                           max_steps))
+    # K1 as the main path launches it: the skip and 8x4 tiles
+    dda_ms = median_ms(lambda: kernels.dda(voxel, ori_t, rays, M, max_steps,
+                                           occupancy=occ, image_width=w))
     dda_plain_ms = median_ms(lambda: dda_plain(voxel, ori_t, rays, M))
     steps_total = int(k_steps.sum())
     hits_total = int(k_hit.sum())
-    # dirs in, ids/t/hit out, and the voxel byte of every recorded hit
-    dda_bound, dda_by = bound_ms(r_rays * 12 + r_rays * M * 13 + hits_total,
-                                 steps_total * 8)
+    dda_bound, dda_by = k1_bound(steps_total, hits_total, r_rays)
+    k1 = k1_shapes(torch, kernels, world, voxel, rays, ori_t, (h, w), dev)
+    k1_loop = dict(
+        one_proposal_ms=k1['shapes']['(c) one proposal']['skip'],
+        one_proposal_bound_ms=k1['proposal_bound'][0],
+        proposals=k1['proposals'],
+        proposals_one_launch_ms=k1['shapes'][
+            f'(e) {k1["proposals"]} proposals, one launch']['skip'],
+        proposals_one_launch_bound_ms=k1['proposals_bound'][0],
+        proposals_one_launch_no_skip_ms=k1['shapes'][
+            f'(e) {k1["proposals"]} proposals, one launch']['no_skip'],
+        frame_no_skip_ms=k1['shapes']['(a) frame']['no_skip'],
+        occupancy_build_ms=k1['occupancy_build_ms'])
     bake_ms = median_ms(lambda: kernels.hash_bake(table3, masks32,
                                                   weights.contiguous()))
     bake_plain_ms = median_ms(lambda: hg.bake_plain(table3, masks, weights))
@@ -1599,7 +1805,7 @@ def main():
         dda=(dda_ms, dda_plain_ms, dda_bound, dda_by),
         hash_bake=(bake_ms, bake_plain_ms, bake_bound, bake_by),
         hash_encode=(enc_ms, enc_plain_ms, enc_bound, enc_by)),
-        extra=dict(dda=dict(rays=r_rays, axis_steps=steps_total),
+        extra=dict(dda=dict(rays=r_rays, axis_steps=steps_total, **k1_loop),
                    hash_encode=dict(points=n_pts, gather_bound_ms=gather_ms)))
     del table, k_baked, p_baked, k_enc, p_enc, table3, renderer, model
     torch.cuda.empty_cache()
@@ -1622,9 +1828,12 @@ def main():
     torch.cuda.empty_cache()
 
     # 8. K5 vs plain -------------------------------------------------------
-    k5 = backward_check(torch, kernels, hg,
-                        GeneratorConfig(hash_variant='paired'), batch,
-                        world.dims, dev, 'K5')
+    pcfg = GeneratorConfig(hash_variant='paired')
+    k5 = backward_check(torch, kernels, hg, pcfg, batch, world.dims, dev,
+                        'K5')
+    torch.cuda.empty_cache()
+    k5_split = k3_levels(torch, kernels, hg, pcfg.hash_spec,
+                         sample_points(batch, pcfg, world.dims), dev)
     torch.cuda.empty_cache()
 
     # 9. the training loop -------------------------------------------------
@@ -1690,7 +1899,8 @@ def main():
     torch.cuda.empty_cache()
     uloop = general_loop(torch, kernels)
 
-    table_rows = kernel_rows(serving, k3, k3_split, train, k5, loop) \
+    table_rows = kernel_rows(serving, k3, k3_split, train, k5, k5_split,
+                             loop) \
         + general_rows(k4, k4_split, (int(chunk_n), *k4c), urender, ustep,
                        uloop)
     log(json.dumps({'kernels': table_rows}))

@@ -474,6 +474,8 @@ def _run(a, cfg, device, stop_requested):
                     # (the reference retries forever; here bounded + counted)
                     writer.scalar('sampler/fallback_rate',
                                   builder.sampler.fallback_rate, it)
+                    writer.scalar('sampler/proposals',
+                                  builder.sampler.stats['proposals'], it)
                     print(f'epoch {epoch} iter {it} '
                           f'({logging_iter / dt:.2f} it/s) '
                           f"G {float(metrics['gen/total']):.3f} "

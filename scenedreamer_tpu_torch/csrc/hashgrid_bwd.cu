@@ -19,14 +19,17 @@
 //      points out of bounds, and every point when the scene code is out
 //      of bounds, are skipped (the forward wrote zeros there). Two paths,
 //      chosen per level by the caller's coarse_max_scale:
-//      - coarse (`encode_bwd_coarse_kernel`, `scatter_accum.cuh`): a
+//      - coarse (`sa::folded_bwd_coarse_kernel<XorCorners>`): a
 //        block walks 2,048 consecutive points of one level; each
 //        corner's w * g is summed over the warp's lanes on the same
 //        slot, added into the block's shared-memory table and flushed
 //        with one float4 atomic per 4 channels and slot;
-//      - direct (`encode_bwd_kernel`): one thread per (point, level),
-//        one float4 `atomicAdd` per 4 channels and corner (sm_90's
-//        16-byte vector atomic on global memory; rows are C * 4 bytes).
+//      - direct (`sa::folded_bwd_direct_kernel<XorCorners>`): one
+//        thread per (point, level), one float4 `atomicAdd` per 4
+//        channels and corner (sm_90's 16-byte vector atomic on global
+//        memory; rows are C * 4 bytes).
+//      Both are `scatter_accum.cuh`'s, shared with K5c; this file gives
+//      the xor hash's corners (`XorCorners`).
 //      With the baked table B both also add, per level, the gradient
 //      through frac to dxyz:
 //        dxyz[n,d] += (scale_l / 2 bound) * sum_k gv_k * sign_{k,d}
@@ -74,201 +77,50 @@ namespace sa = scatter_accum;
 constexpr int kMaxCorners = 8;
 constexpr int kDwThreads = 256;
 
-// Cell, taps and per-dimension corner hashes of point n at one level, as
-// `hashgrid_fwd.cu` computes them; false when the point is out of bounds.
-__device__ __forceinline__ bool point_setup(const float* __restrict__ xyz,
-                                            long long n, float scale,
-                                            float two_bound, float bound,
-                                            float offset, unsigned (&h0)[3],
-                                            unsigned (&h1)[3],
-                                            float (&t0)[3], float (&t1)[3]) {
-  float x01[3];
-  bool oob = false;
-  for (int d = 0; d < 3; ++d) {
-    x01[d] = __fdiv_rn(__fadd_rn(xyz[3 * n + d], bound), two_bound);
-    oob |= x01[d] < 0.f || x01[d] > 1.f;
-  }
-  if (oob) return false;
-  const unsigned primes[3] = {1u, 2654435761u, 805459861u};
-  for (int d = 0; d < 3; ++d) {
-    float pos = __fmaf_rn(x01[d], scale, offset);
-    float cell = floorf(pos);
-    float frac = __fsub_rn(pos, cell);
-    unsigned u = (unsigned)cell;
-    h0[d] = u * primes[d];
-    h1[d] = (u + 1u) * primes[d];
-    t1[d] = frac;
-    t0[d] = __fsub_rn(1.f, frac);
-  }
-  return true;
-}
-
-// Slot hash (before the mask) and weight of corner k.
-__device__ __forceinline__ unsigned corner_hash(int k, const unsigned (&h0)[3],
-                                                const unsigned (&h1)[3],
-                                                const float (&t0)[3],
-                                                const float (&t1)[3],
-                                                float& w) {
-  unsigned h = (k & 1) ? h1[0] : h0[0];
-  w = (k & 1) ? t1[0] : t0[0];
-  for (int d = 1; d < 3; ++d) {
-    bool bit = (k >> d) & 1;
-    h ^= bit ? h1[d] : h0[d];
-    w = __fmul_rn(w, bit ? t1[d] : t0[d]);
-  }
-  return h;
-}
-
-template <int C>
-__device__ __forceinline__ void load_g(const float* __restrict__ g,
-                                       long long n, int levels, int l,
-                                       float (&gc)[C]) {
-  const float4* grow = reinterpret_cast<const float4*>(
-      g + n * (long long)levels * C + (long long)l * C);
-#pragma unroll
-  for (int q = 0; q < C / 4; ++q) {
-    float4 v = grow[q];
-    gc[4 * q] = v.x;
-    gc[4 * q + 1] = v.y;
-    gc[4 * q + 2] = v.z;
-    gc[4 * q + 3] = v.w;
-  }
-}
-
-template <int C>
-__device__ __forceinline__ float dot_row(const float (&gc)[C],
-                                         const float* __restrict__ row) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) s = __fadd_rn(s, __fmul_rn(gc[c], row[c]));
-  return s;
-}
-
-// dxyz[n, d] += (scale / 2 bound) * sum_k gv_k sign_{k,d} prod_{d' != d}
-// t_{k,d'}: d/dfrac_d of w_k is sign_{k,d} times the other two taps.
-__device__ __forceinline__ void add_dxyz(float* __restrict__ dxyz, long long n,
-                                         const float (&gv)[8],
-                                         const float (&t0)[3],
-                                         const float (&t1)[3], float scale,
-                                         float two_bound) {
-  const float dpos_scale = __fdiv_rn(scale, two_bound);
-  for (int d = 0; d < 3; ++d) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float excl = 1.f;
-      for (int e = 0; e < 3; ++e) {
-        if (e == d) continue;
-        excl = __fmul_rn(excl, ((k >> e) & 1) ? t1[e] : t0[e]);
-      }
-      float term = __fmul_rn(gv[k], excl);
-      s = ((k >> d) & 1) ? __fadd_rn(s, term) : __fsub_rn(s, term);
-    }
-    atomicAdd(dxyz + 3 * n + d, __fmul_rn(s, dpos_scale));
-  }
-}
-
-// The direct path: one thread per (point, level), one global float4
-// atomic per 4 channels of each corner. Levels with scale <=
-// coarse_max_scale belong to `encode_bwd_coarse_kernel`.
-template <int C>
-__global__ void encode_bwd_kernel(const float* __restrict__ g,
-                                  const float* __restrict__ xyz,
-                                  const float* __restrict__ scales,
-                                  const float* __restrict__ baked,
-                                  float* __restrict__ grad,
-                                  float* __restrict__ dxyz, long long n_pts,
-                                  int levels, long long slots, float bound,
-                                  float two_bound, float offset,
-                                  float coarse_max_scale) {
-  long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_pts) return;
-  const int l = blockIdx.y;
-  const float scale = scales[l];
-  if (scale <= coarse_max_scale) return;
+// K3a's corners under the xor hash (`sa::launch_folded_bwd`'s policy):
+// the cell, taps and per-dimension corner hashes of point n at one level,
+// as `hashgrid_fwd.cu` computes them, and corner k's slot hash (before
+// the mask) and weight.
+struct XorCorners {
   unsigned h0[3], h1[3];
   float t0[3], t1[3];
-  if (!point_setup(xyz, n, scale, two_bound, bound, offset, h0, h1, t0, t1))
-    return;
-  float gc[C];
-  load_g<C>(g, n, levels, l, gc);
-  const unsigned mask = (unsigned)(slots - 1);
-  float* gl = grad + (long long)l * slots * C;
-  const float* bl = baked ? baked + (long long)l * slots * C : nullptr;
-  float gv[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    float w;
-    const unsigned h = corner_hash(k, h0, h1, t0, t1, w);
-    const long long row = (long long)(h & mask) * C;
-    // sm_90's 16-byte vector atomic: C / 4 per corner instead of C
-    float4* g4 = reinterpret_cast<float4*>(gl + row);
-#pragma unroll
-    for (int q = 0; q < C / 4; ++q)
-      atomicAdd(g4 + q, make_float4(__fmul_rn(w, gc[4 * q]),
-                                    __fmul_rn(w, gc[4 * q + 1]),
-                                    __fmul_rn(w, gc[4 * q + 2]),
-                                    __fmul_rn(w, gc[4 * q + 3])));
-    if (bl) gv[k] = dot_row<C>(gc, bl + row);
-  }
-  if (dxyz) add_dxyz(dxyz, n, gv, t0, t1, scale, two_bound);
-}
 
-// The coarse path (`scatter_accum.cuh`): block (b, l) walks points
-// [b * kBlockPoints, (b + 1) * kBlockPoints) of level l when scales[l] <=
-// coarse_max_scale (other levels' blocks return at once); each corner's
-// w * g is summed over the warp's lanes on the same slot, added into the
-// block's shared-memory table and flushed once per slot at the end. The
-// gradient through frac is the direct path's, per point.
-template <int C>
-__global__ void __launch_bounds__(sa::kThreads) encode_bwd_coarse_kernel(
-    const float* __restrict__ g, const float* __restrict__ xyz,
-    const float* __restrict__ scales, const float* __restrict__ baked,
-    float* __restrict__ grad, float* __restrict__ dxyz, long long n_pts,
-    int levels, long long slots, float bound, float two_bound, float offset,
-    float coarse_max_scale, unsigned long long* __restrict__ stats) {
-  const int l = blockIdx.y;
-  const float scale = scales[l];
-  if (!(scale <= coarse_max_scale)) return;
-  extern __shared__ __align__(16) unsigned char smem[];
-  sa::Table<C> table(smem);
-  table.clear();
-  const long long first = (long long)blockIdx.x * sa::kBlockPoints;
-  const long long last =
-      first + sa::kBlockPoints < n_pts ? first + sa::kBlockPoints : n_pts;
-  const unsigned mask = (unsigned)(slots - 1);
-  const unsigned level_row = (unsigned)(l * slots);
-  // every lane runs the same iterations: the warp reduction needs them all
-  for (long long base = first; base < last; base += blockDim.x) {
-    const long long n = base + threadIdx.x;
-    unsigned h0[3], h1[3];
-    float t0[3], t1[3];
-    const bool ok = n < last && point_setup(xyz, n, scale, two_bound, bound,
-                                            offset, h0, h1, t0, t1);
-    float gc[C];
-    if (ok) {
-      load_g<C>(g, n, levels, l, gc);
-    } else {
-#pragma unroll
-      for (int c = 0; c < C; ++c) gc[c] = 0.f;
+  __device__ __forceinline__ bool setup(const float* __restrict__ xyz,
+                                        long long n, float scale,
+                                        float bound, float two_bound,
+                                        float offset) {
+    float x01[3];
+    bool oob = false;
+    for (int d = 0; d < 3; ++d) {
+      x01[d] = __fdiv_rn(__fadd_rn(xyz[3 * n + d], bound), two_bound);
+      oob |= x01[d] < 0.f || x01[d] > 1.f;
     }
-    float gv[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      unsigned key = sa::kEmpty;
-      float v[C];
-      float w = 0.f;
-      if (ok) key = level_row + (corner_hash(k, h0, h1, t0, t1, w) & mask);
-#pragma unroll
-      for (int c = 0; c < C; ++c) v[c] = __fmul_rn(w, gc[c]);
-      if (sa::warp_reduce_peers<C>(key, v) && key != sa::kEmpty)
-        table.insert(key, v, grad);
-      if (baked && ok) gv[k] = dot_row<C>(gc, baked + (long long)key * C);
+    if (oob) return false;
+    const unsigned primes[3] = {1u, 2654435761u, 805459861u};
+    for (int d = 0; d < 3; ++d) {
+      float pos = __fmaf_rn(x01[d], scale, offset);
+      float cell = floorf(pos);
+      float frac = __fsub_rn(pos, cell);
+      unsigned u = (unsigned)cell;
+      h0[d] = u * primes[d];
+      h1[d] = (u + 1u) * primes[d];
+      t1[d] = frac;
+      t0[d] = __fsub_rn(1.f, frac);
     }
-    if (dxyz && ok) add_dxyz(dxyz, n, gv, t0, t1, scale, two_bound);
+    return true;
   }
-  table.flush(grad, stats);
-}
+
+  __device__ __forceinline__ unsigned row(int k, float& w) const {
+    unsigned h = (k & 1) ? h1[0] : h0[0];
+    w = (k & 1) ? t1[0] : t0[0];
+    for (int d = 1; d < 3; ++d) {
+      bool bit = (k >> d) & 1;
+      h ^= bit ? h1[d] : h0[d];
+      w = __fmul_rn(w, bit ? t1[d] : t0[d]);
+    }
+    return h;
+  }
+};
 
 __global__ void bake_dw_partial_kernel(const float4* __restrict__ table,
                                        const float4* __restrict__ grad,
@@ -324,32 +176,6 @@ __global__ void bake_dw_finish_kernel(const double* __restrict__ partial,
   dw[i] = (float)s;
 }
 
-template <int C>
-int launch_encode_bwd(const float* g, const float* xyz, const float* scales,
-                      const float* baked, float* grad, float* dxyz,
-                      long long n_pts, int levels, long long slots,
-                      float bound, float two_bound, float offset,
-                      float coarse_max_scale, unsigned long long* stats,
-                      cudaStream_t s) {
-  if (coarse_max_scale >= 0.f) {
-    if ((long long)levels * slots >= (long long)sa::kEmpty)
-      return (int)cudaErrorInvalidValue;    // the tables' keys are u32
-    dim3 grid((unsigned)((n_pts + sa::kBlockPoints - 1) / sa::kBlockPoints),
-              (unsigned)levels);
-    encode_bwd_coarse_kernel<C><<<grid, sa::kThreads, sa::smem_bytes(C), s>>>(
-        g, xyz, scales, baked, grad, dxyz, n_pts, levels, slots, bound,
-        two_bound, offset, coarse_max_scale, stats);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int threads = 256;
-  dim3 grid((unsigned)((n_pts + threads - 1) / threads), (unsigned)levels);
-  encode_bwd_kernel<C><<<grid, threads, 0, s>>>(
-      g, xyz, scales, baked, grad, dxyz, n_pts, levels, slots, bound,
-      two_bound, offset, coarse_max_scale);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -369,16 +195,10 @@ int sd_hash_encode_bwd(const float* g, const float* xyz, const float* scales,
                        int channels, float bound, float two_bound,
                        float offset, float coarse_max_scale,
                        unsigned long long* stats, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (channels == 8)
-    return launch_encode_bwd<8>(g, xyz, scales, baked, grad, dxyz, n_pts,
-                                levels, slots, bound, two_bound, offset,
-                                coarse_max_scale, stats, s);
-  if (channels == 4)
-    return launch_encode_bwd<4>(g, xyz, scales, baked, grad, dxyz, n_pts,
-                                levels, slots, bound, two_bound, offset,
-                                coarse_max_scale, stats, s);
-  return (int)cudaErrorInvalidValue;
+  return sa::launch_folded_bwd<XorCorners>(
+      g, xyz, scales, baked, grad, dxyz, n_pts, levels, slots, channels,
+      bound, two_bound, offset, coarse_max_scale, stats,
+      (cudaStream_t)stream);
 }
 
 // table, grad: [levels, slots, channels] f32, channels % 4 == 0;

@@ -1,5 +1,6 @@
 // Scene-folded hash-grid encode under the 'paired' hash variant (K5),
-// forward and backward, for Hopper: four simple kernels.
+// forward and backward, for Hopper: four kernels, the scatter on two
+// paths.
 //
 // Replaces, in the JAX package's `scenedreamer_tpu/ops/hashgrid.py`, the
 // paired branch of `hashgrid_encode_folded`: `_shift_bake` (the scene
@@ -30,11 +31,24 @@
 //      mod S], the order the plain PyTorch version sums in. When base_k
 //      != S-1 the two rows are 2*C*4 contiguous bytes (64 at C = 8).
 //      Out-of-bounds points, or an out-of-bounds scene code, give zeros.
-//  (c) sd_hash_encode_paired_bwd: one thread per (point, level);
-//      recomputes bases and weights as (b) does and atomically adds
-//      w_kj * g into G_l[(base_k+j) & (S-1)] with sm_90's float4
-//      `atomicAdd` (C/4 per row). With B it also adds the gradient
-//      through frac to dxyz, the 8 corners taken as (x_bit, y_bit, z_bit).
+//  (c) sd_hash_encode_paired_bwd: the table scatter G_l[(base_k+j) &
+//      (S-1)] += w_kj * g for the 8 rows of every in-bounds point and
+//      level, bases and weights recomputed as (b) does. Two paths, chosen
+//      per level by the caller's coarse_max_scale, as K3a's
+//      (`hashgrid_bwd.cu`):
+//      - coarse (`sa::folded_bwd_coarse_kernel<PairedCorners>`):
+//        a block walks 2,048 consecutive points of one level; each row's
+//        w * g is summed over the warp's lanes on the same row, added into
+//        the block's shared-memory table and flushed with one float4
+//        atomic per 4 channels and row. The two rows of a pair are two
+//        keys that differ by one;
+//      - direct (`sa::folded_bwd_direct_kernel<PairedCorners>`): one
+//        thread per (point, level), one float4 `atomicAdd` per 4
+//        channels and row.
+//      Both are `scatter_accum.cuh`'s, shared with K3a; this file gives
+//      the paired hash's rows (`PairedCorners`).
+//      With B both also add the gradient through frac to dxyz, the 8
+//      rows taken as corners (x_bit, y_bit, z_bit).
 //  (d) sd_hash_shift_bake_dw: dw_{l,a} = sum_{j,c} T_l[(j+m_a)&(S-1), c]
 //      * G_l[j, c]; float64 partial sums per block, reduced in shared
 //      memory, then summed per (l, a) in block order by a second kernel:
@@ -44,8 +58,16 @@
 // through 4 shifted windows of the same level (16 MB at 2^19 x 8 floats,
 // L2 resident), so device-memory bytes; (b) is a gather of 4 random
 // 64-byte pairs per point and level plus N*L*C*4 output bytes, so
-// transaction rate; (c) is a scatter whose coarse levels put thousands of
-// atomics on each row, so contention.
+// transaction rate; (c) moves g's rows, xyz and G once (0.338 ms on an
+// H100 for the 1,647,456 points of a 262x262x24 training crop at 16 x
+// 2^19 x 8), but its direct path issues 2 float4 atomics per row, 26.4M
+// per level, and is bound by that count as K3a's direct path is: 2.96-
+// 5.26 ms on every level, 47.5 ms in all, on an NVIDIA H100 80GB HBM3 at
+// 700 W. The coarse path sums on chip first, so its global atomics drop
+// to the rows each block touched plus the inserts that overflow its
+// table: in ray order 17k (level 0) to 373k (level 15) flushed rows and
+// 0 to 3.0M overflowed inserts, 0.20-0.35 ms per level and 3.16 ms in
+// all on the same card; shuffled 9.0 ms against 38.6.
 //
 // Numerics as in hashgrid_fwd.cu: the cell position is one __fmaf_rn,
 // every other product and sum an explicit round-to-nearest intrinsic in
@@ -55,7 +77,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "scatter_accum.cuh"
+
 namespace {
+
+namespace sa = scatter_accum;
 
 constexpr int kMaxCorners = 8;
 constexpr int kDwThreads = 256;
@@ -92,8 +118,8 @@ __global__ void shift_bake_kernel(const float4* __restrict__ table,
 __device__ __forceinline__ bool paired_cell(const float* __restrict__ xyz,
                                             long long n, float scale,
                                             float bound, float two_bound,
-                                            float offset, unsigned u[3],
-                                            float t0[3], float t1[3]) {
+                                            float offset, unsigned (&u)[3],
+                                            float (&t0)[3], float (&t1)[3]) {
   float x01[3];
   bool oob = false;
   for (int d = 0; d < 3; ++d) {
@@ -163,83 +189,28 @@ __global__ void encode_paired_kernel(const float* __restrict__ xyz,
                        acc[4 * q + 3]);
 }
 
-template <int C>
-__global__ void encode_paired_bwd_kernel(const float* __restrict__ g,
-                                         const float* __restrict__ xyz,
-                                         const float* __restrict__ scales,
-                                         const float* __restrict__ baked,
-                                         float* __restrict__ grad,
-                                         float* __restrict__ dxyz,
-                                         long long n_pts, int levels,
-                                         long long slots, float bound,
-                                         float two_bound, float offset) {
-  long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_pts) return;
-  const int l = blockIdx.y;
-  const float scale = scales[l];
+// K5c's rows under the paired hash (`sa::launch_folded_bwd`'s policy):
+// corner k = x + 2 y + 4 z is row j = x of the pair (y, z), the row
+// base + j before the mask with base = x + y' P1 + z' P2, and weight
+// (t_y t_z) t_x, the order the forward (b) multiplies in.
+struct PairedCorners {
   unsigned u[3];
   float t0[3], t1[3];
-  if (!paired_cell(xyz, n, scale, bound, two_bound, offset, u, t0, t1))
-    return;
-  float gc[C];
-  const float4* grow = reinterpret_cast<const float4*>(
-      g + n * (long long)levels * C + (long long)l * C);
-#pragma unroll
-  for (int q = 0; q < C / 4; ++q) {
-    float4 v = grow[q];
-    gc[4 * q] = v.x;
-    gc[4 * q + 1] = v.y;
-    gc[4 * q + 2] = v.z;
-    gc[4 * q + 3] = v.w;
+
+  __device__ __forceinline__ bool setup(const float* __restrict__ xyz,
+                                        long long n, float scale,
+                                        float bound, float two_bound,
+                                        float offset) {
+    return paired_cell(xyz, n, scale, bound, two_bound, offset, u, t0, t1);
   }
-  const unsigned mask = (unsigned)(slots - 1);
-  float* gl = grad + (long long)l * slots * C;
-  const float* bl = baked ? baked + (long long)l * slots * C : nullptr;
-  float gv[8];      // indexed by the corner bits x + 2 y + 4 z
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int by = k & 1, bz = k >> 1;
-    const unsigned base = (u[0] + (u[1] + by) * kP1 + (u[2] + bz) * kP2)
-                          & mask;
+
+  __device__ __forceinline__ unsigned row(int k, float& w) const {
+    const unsigned j = k & 1, by = (k >> 1) & 1, bz = k >> 2;
     const float wr = __fmul_rn(by ? t1[1] : t0[1], bz ? t1[2] : t0[2]);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float w = __fmul_rn(wr, j ? t1[0] : t0[0]);
-      const long long row = (long long)((base + j) & mask) * C;
-      float4* g4 = reinterpret_cast<float4*>(gl + row);
-#pragma unroll
-      for (int q = 0; q < C / 4; ++q)
-        atomicAdd(g4 + q, make_float4(__fmul_rn(w, gc[4 * q]),
-                                      __fmul_rn(w, gc[4 * q + 1]),
-                                      __fmul_rn(w, gc[4 * q + 2]),
-                                      __fmul_rn(w, gc[4 * q + 3])));
-      if (bl) {
-        float s = 0.f;
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          s = __fadd_rn(s, __fmul_rn(gc[c], bl[row + c]));
-        gv[2 * k + j] = s;
-      }
-    }
+    w = __fmul_rn(wr, j ? t1[0] : t0[0]);
+    return u[0] + (u[1] + by) * kP1 + (u[2] + bz) * kP2 + j;
   }
-  if (!dxyz) return;
-  // d/dfrac_d of w_k = sign_{k,d} * product of the other two taps
-  const float dpos_scale = __fdiv_rn(scale, two_bound);
-  for (int d = 0; d < 3; ++d) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float excl = 1.f;
-      for (int e = 0; e < 3; ++e) {
-        if (e == d) continue;
-        excl = __fmul_rn(excl, ((k >> e) & 1) ? t1[e] : t0[e]);
-      }
-      float term = __fmul_rn(gv[k], excl);
-      s = ((k >> d) & 1) ? __fadd_rn(s, term) : __fsub_rn(s, term);
-    }
-    atomicAdd(dxyz + 3 * n + d, __fmul_rn(s, dpos_scale));
-  }
-}
+};
 
 __global__ void shift_dw_partial_kernel(const float4* __restrict__ table,
                                         const float4* __restrict__ grad,
@@ -343,28 +314,23 @@ int sd_hash_encode_paired(const float* xyz, const float* baked,
 // g [n, levels*channels] f32; xyz [n, 3] f32; scales [levels] f32;
 // baked [levels, slots, channels] f32 or null (then dxyz is not written);
 // grad [levels, slots, channels] f32, zero-filled; dxyz [n, 3] f32,
-// zero-filled, or null. slots a power of two, channels 4 or 8.
+// zero-filled, or null. slots a power of two, channels 4 or 8. Levels
+// whose scale is <= coarse_max_scale take the coarse path
+// (`scatter_accum.cuh`; it needs levels * slots < 2^32 - 1), the others
+// the direct one; a negative coarse_max_scale launches the direct path
+// alone. stats: null, or [2] u64 to which the coarse path adds the rows
+// it flushed and the inserts that overflowed its tables.
 int sd_hash_encode_paired_bwd(const float* g, const float* xyz,
                               const float* scales, const float* baked,
                               float* grad, float* dxyz, long long n_pts,
                               int levels, long long slots, int channels,
                               float bound, float two_bound, float offset,
-                              void* stream) {
-  const int threads = 256;
-  dim3 grid((unsigned)((n_pts + threads - 1) / threads), (unsigned)levels);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (channels == 8) {
-    encode_paired_bwd_kernel<8><<<grid, threads, 0, s>>>(
-        g, xyz, scales, baked, grad, dxyz, n_pts, levels, slots, bound,
-        two_bound, offset);
-  } else if (channels == 4) {
-    encode_paired_bwd_kernel<4><<<grid, threads, 0, s>>>(
-        g, xyz, scales, baked, grad, dxyz, n_pts, levels, slots, bound,
-        two_bound, offset);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+                              float coarse_max_scale,
+                              unsigned long long* stats, void* stream) {
+  return sa::launch_folded_bwd<PairedCorners>(
+      g, xyz, scales, baked, grad, dxyz, n_pts, levels, slots, channels,
+      bound, two_bound, offset, coarse_max_scale, stats,
+      (cudaStream_t)stream);
 }
 
 // table, grad: [levels, slots, channels] f32, channels % 4 == 0;

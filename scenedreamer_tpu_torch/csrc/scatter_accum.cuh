@@ -1,5 +1,6 @@
 // Two-tier accumulation for the hash-grid table scatters (K3a in
-// `hashgrid_bwd.cu`, K4b in `hashgrid_general.cu`), for Hopper.
+// `hashgrid_bwd.cu`, K5c in `hashgrid_paired.cu`, K4b in
+// `hashgrid_general.cu`), for Hopper, and the skeleton K3a and K5c share.
 //
 // A table scatter adds w_k * g_n into row idx_k of a table gradient for
 // every (point n, corner k) of a level. One thread per (point, level)
@@ -195,5 +196,217 @@ struct Table {
     }
   }
 };
+
+// The scatter of the scene-folded encodes (K3a in `hashgrid_bwd.cu`,
+// K5c in `hashgrid_paired.cu`): 3-D points, a gradient table of [levels,
+// slots, C] rows (slots a power of two), 8 rows per (point, level). The
+// two differ only in the hash that names a corner's row and in the order
+// a corner's weight is multiplied out, which a `Corners` policy gives:
+//
+//   struct Corners {
+//     float t0[3], t1[3];   // taps 1 - frac and frac per dimension
+//     // the cell of point n at this level; false when out of bounds
+//     __device__ bool setup(const float* xyz, long long n, float scale,
+//                           float bound, float two_bound, float offset);
+//     // corner k (bits x + 2 y + 4 z): its row before the mask, and w
+//     __device__ unsigned row(int k, float& w) const;
+//   };
+//
+// With g the cotangent [N, levels * C], G[l, row_k & (S-1)] += w_k * g
+// for every in-bounds point and corner k in ascending k, and with the
+// baked table B the gradient through frac goes to dxyz (`add_dxyz`). Two
+// paths, chosen per level by coarse_max_scale: the coarse one through the
+// block tables above, and the direct one, one global vector atomic per
+// corner.
+
+template <int C>
+__device__ __forceinline__ void load_g(const float* __restrict__ g,
+                                       long long n, int levels, int l,
+                                       float (&gc)[C]) {
+  const float4* grow = reinterpret_cast<const float4*>(
+      g + n * (long long)levels * C + (long long)l * C);
+#pragma unroll
+  for (int q = 0; q < C / 4; ++q) {
+    float4 v = grow[q];
+    gc[4 * q] = v.x;
+    gc[4 * q + 1] = v.y;
+    gc[4 * q + 2] = v.z;
+    gc[4 * q + 3] = v.w;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ float dot_row(const float (&gc)[C],
+                                         const float* __restrict__ row) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) s = __fadd_rn(s, __fmul_rn(gc[c], row[c]));
+  return s;
+}
+
+// dxyz[n, d] += (scale / 2 bound) * sum_k gv_k sign_{k,d} prod_{d' != d}
+// t_{k,d'}, gv_k = sum_c g_c B[row_k, c]: d/dfrac_d of w_k is sign_{k,d}
+// times the other two taps.
+__device__ __forceinline__ void add_dxyz(float* __restrict__ dxyz, long long n,
+                                         const float (&gv)[8],
+                                         const float (&t0)[3],
+                                         const float (&t1)[3], float scale,
+                                         float two_bound) {
+  const float dpos_scale = __fdiv_rn(scale, two_bound);
+  for (int d = 0; d < 3; ++d) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float excl = 1.f;
+      for (int e = 0; e < 3; ++e) {
+        if (e == d) continue;
+        excl = __fmul_rn(excl, ((k >> e) & 1) ? t1[e] : t0[e]);
+      }
+      float term = __fmul_rn(gv[k], excl);
+      s = ((k >> d) & 1) ? __fadd_rn(s, term) : __fsub_rn(s, term);
+    }
+    atomicAdd(dxyz + 3 * n + d, __fmul_rn(s, dpos_scale));
+  }
+}
+
+// The direct path: one thread per (point, level), one global vector
+// atomic per corner. Levels with scale <= coarse_max_scale belong to
+// `folded_bwd_coarse_kernel`.
+template <class Corners, int C>
+__global__ void folded_bwd_direct_kernel(
+    const float* __restrict__ g, const float* __restrict__ xyz,
+    const float* __restrict__ scales, const float* __restrict__ baked,
+    float* __restrict__ grad, float* __restrict__ dxyz, long long n_pts,
+    int levels, long long slots, float bound, float two_bound, float offset,
+    float coarse_max_scale) {
+  long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= n_pts) return;
+  const int l = blockIdx.y;
+  const float scale = scales[l];
+  if (scale <= coarse_max_scale) return;
+  Corners cs;
+  if (!cs.setup(xyz, n, scale, bound, two_bound, offset)) return;
+  float gc[C];
+  load_g<C>(g, n, levels, l, gc);
+  const unsigned mask = (unsigned)(slots - 1);
+  float* gl = grad + (long long)l * slots * C;
+  const float* bl = baked ? baked + (long long)l * slots * C : nullptr;
+  float gv[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float w;
+    const long long row = (long long)(cs.row(k, w) & mask) * C;
+    float v[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = __fmul_rn(w, gc[c]);
+    add_row<C>(gl + row, v);
+    if (bl) gv[k] = dot_row<C>(gc, bl + row);
+  }
+  if (dxyz) add_dxyz(dxyz, n, gv, cs.t0, cs.t1, scale, two_bound);
+}
+
+// The coarse path: block (b, l) walks points [b * kBlockPoints, (b + 1) *
+// kBlockPoints) of level l when scales[l] <= coarse_max_scale (other
+// levels' blocks return at once); each corner's w * g is summed over the
+// warp's lanes on the same row, added into the block's table under the
+// key l * S + row and flushed once per key at the end. The gradient
+// through frac is the direct path's, per point.
+template <class Corners, int C>
+__global__ void __launch_bounds__(kThreads) folded_bwd_coarse_kernel(
+    const float* __restrict__ g, const float* __restrict__ xyz,
+    const float* __restrict__ scales, const float* __restrict__ baked,
+    float* __restrict__ grad, float* __restrict__ dxyz, long long n_pts,
+    int levels, long long slots, float bound, float two_bound, float offset,
+    float coarse_max_scale, unsigned long long* __restrict__ stats) {
+  const int l = blockIdx.y;
+  const float scale = scales[l];
+  if (!(scale <= coarse_max_scale)) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Table<C> table(smem);
+  table.clear();
+  const long long first = (long long)blockIdx.x * kBlockPoints;
+  const long long last =
+      first + kBlockPoints < n_pts ? first + kBlockPoints : n_pts;
+  const unsigned mask = (unsigned)(slots - 1);
+  const unsigned level_row = (unsigned)(l * slots);
+  // every lane runs the same iterations: the warp reduction needs them all
+  for (long long base = first; base < last; base += blockDim.x) {
+    const long long n = base + threadIdx.x;
+    Corners cs;
+    const bool ok =
+        n < last && cs.setup(xyz, n, scale, bound, two_bound, offset);
+    float gc[C];
+    if (ok) {
+      load_g<C>(g, n, levels, l, gc);
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) gc[c] = 0.f;
+    }
+    float gv[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      unsigned key = kEmpty;
+      float v[C];
+      float w = 0.f;
+      if (ok) key = level_row + (cs.row(k, w) & mask);
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = __fmul_rn(w, gc[c]);
+      if (warp_reduce_peers<C>(key, v) && key != kEmpty)
+        table.insert(key, v, grad);
+      if (baked && ok) gv[k] = dot_row<C>(gc, baked + (long long)key * C);
+    }
+    if (dxyz && ok) add_dxyz(dxyz, n, gv, cs.t0, cs.t1, scale, two_bound);
+  }
+  table.flush(grad, stats);
+}
+
+// Both paths of one folded scatter (C 4 or 8): the coarse kernel, unless
+// coarse_max_scale is negative (every level direct), then the direct one.
+template <class Corners, int C>
+int launch_folded_bwd(const float* g, const float* xyz, const float* scales,
+                      const float* baked, float* grad, float* dxyz,
+                      long long n_pts, int levels, long long slots,
+                      float bound, float two_bound, float offset,
+                      float coarse_max_scale, unsigned long long* stats,
+                      cudaStream_t s) {
+  if (coarse_max_scale >= 0.f) {
+    if ((long long)levels * slots >= (long long)kEmpty)
+      return (int)cudaErrorInvalidValue;    // the tables' keys are u32
+    dim3 grid((unsigned)((n_pts + kBlockPoints - 1) / kBlockPoints),
+              (unsigned)levels);
+    folded_bwd_coarse_kernel<Corners, C><<<grid, kThreads, smem_bytes(C), s>>>(
+        g, xyz, scales, baked, grad, dxyz, n_pts, levels, slots, bound,
+        two_bound, offset, coarse_max_scale, stats);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int threads = 256;
+  dim3 grid((unsigned)((n_pts + threads - 1) / threads), (unsigned)levels);
+  folded_bwd_direct_kernel<Corners, C><<<grid, threads, 0, s>>>(
+      g, xyz, scales, baked, grad, dxyz, n_pts, levels, slots, bound,
+      two_bound, offset, coarse_max_scale);
+  return (int)cudaGetLastError();
+}
+
+// The C ABI entry point's dispatch on the channel count.
+template <class Corners>
+int launch_folded_bwd(const float* g, const float* xyz, const float* scales,
+                      const float* baked, float* grad, float* dxyz,
+                      long long n_pts, int levels, long long slots,
+                      int channels, float bound, float two_bound,
+                      float offset, float coarse_max_scale,
+                      unsigned long long* stats, cudaStream_t s) {
+  if (channels == 8)
+    return launch_folded_bwd<Corners, 8>(g, xyz, scales, baked, grad, dxyz,
+                                         n_pts, levels, slots, bound,
+                                         two_bound, offset, coarse_max_scale,
+                                         stats, s);
+  if (channels == 4)
+    return launch_folded_bwd<Corners, 4>(g, xyz, scales, baked, grad, dxyz,
+                                         n_pts, levels, slots, bound,
+                                         two_bound, offset, coarse_max_scale,
+                                         stats, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace scatter_accum

@@ -44,28 +44,26 @@ def make_batch(world, batch_size=2, height=34, width=34, max_samples=4,
                fov=26.0, device='cpu', voxel=None):
     """Build a training batch: a dict of NHWC tensors on `device`
     (`voxel`: the world's grid already on the device, to reuse one
-    upload across batches)."""
+    upload across batches). The batch's cameras are traced in one
+    `ray_voxel_intersection` call."""
     dev = torch.device(device)
     rng = np.random.default_rng(seed)
     if voxel is None:
         voxel = torch.from_numpy(world.voxel).to(dev)
-    cols = {k: [] for k in ('voxel_id', 'depth', 'hit_mask', 'raydirs',
-                            'cam_ori')}
     f = 0.5 / np.tan(0.5 * np.deg2rad(fov))
+    rds, oris = [], []
     for _ in range(batch_size):
         ori, d, up, _f = cam.rand_camera_pose_tour(world, rng)
-        rd = camera_rays(d, up, f * (width - 1),
-                         ((height - 1) / 2, (width - 1) / 2),
-                         (height, width), device=dev)
-        ori = torch.as_tensor(ori, dtype=torch.float32, device=dev)
-        vid, dep, hit = ray_voxel_intersection(voxel, ori, rd.reshape(-1, 3),
-                                               max_samples)
-        cols['voxel_id'].append(vid.reshape(height, width, max_samples))
-        cols['depth'].append(dep.reshape(height, width, max_samples, 2))
-        cols['hit_mask'].append(hit.reshape(height, width, max_samples))
-        cols['raydirs'].append(rd)
-        cols['cam_ori'].append(ori)
-    data = {k: torch.stack(v) for k, v in cols.items()}
+        rds.append(camera_rays(d, up, f * (width - 1),
+                               ((height - 1) / 2, (width - 1) / 2),
+                               (height, width), device=dev))
+        oris.append(torch.as_tensor(ori, dtype=torch.float32, device=dev))
+    rd, ori = torch.stack(rds), torch.stack(oris)
+    vid, dep, hit = ray_voxel_intersection(voxel, ori, rd.reshape(-1, 3),
+                                           max_samples, image_width=width)
+    shape = (batch_size, height, width, max_samples)
+    data = dict(voxel_id=vid.reshape(shape), depth=dep.reshape(shape + (2,)),
+                hit_mask=hit.reshape(shape), raydirs=rd, cam_ori=ori)
     for name, field in (('height_field', world.height_field),
                         ('semantic_field', world.semantic_field)):
         data[name] = torch.from_numpy(np.repeat(

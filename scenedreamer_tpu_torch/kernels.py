@@ -36,7 +36,7 @@ SOURCES = {'dda': 'dda.cu', 'hashgrid_fwd': 'hashgrid_fwd.cu',
            'hashgrid_bwd': 'hashgrid_bwd.cu',
            'hashgrid_paired': 'hashgrid_paired.cu',
            'hashgrid_general': 'hashgrid_general.cu'}
-HEADERS = ('scatter_accum.cuh',)    # included by the two table scatters
+HEADERS = ('scatter_accum.cuh',)    # included by the three table scatters
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-Xptxas=-v', '-shared', '-Xcompiler',
               '-fPIC']
@@ -57,15 +57,13 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    'sd_dda_i8': [_P, _I, _I, _I, _F, _F, _F, _P, _LL, _I, _I, _P, _P, _P,
-                  _P, _P],
+    'sd_dda_i8': [_P, _I, _I, _I, _P, _LL, _P, _I, _P, _LL, _I, _I, _P, _P,
+                  _P, _P, _P, _P],
     'sd_hash_bake': [_P, _P, _P, _P, _I, _LL, _I, _I, _P],
     'sd_hash_encode': [_P, _P, _P, _P, _LL, _I, _LL, _I, _F, _F, _F, _I,
                        _P],
     'sd_hash_encode_bwd': [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _F,
                            _F, _F, _F, _P, _P],
-    'sd_hash_encode_paired_bwd': [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I,
-                                  _F, _F, _F, _P],
     'sd_hash_bake_dw': [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
     'sd_hash_encode_general': [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F,
                                _F, _F, _P],
@@ -76,18 +74,20 @@ _SIGNATURES = {
 # counterparts
 for _xor, _paired in (('sd_hash_bake', 'sd_hash_shift_bake'),
                       ('sd_hash_encode', 'sd_hash_encode_paired'),
+                      ('sd_hash_encode_bwd', 'sd_hash_encode_paired_bwd'),
                       ('sd_hash_bake_dw', 'sd_hash_shift_bake_dw')):
     _SIGNATURES[_paired] = _SIGNATURES[_xor]
 DW_BLOCKS = 256     # blocks per level of the dw reduction (K3 (c))
-# The table scatters K3 (a) and K4 (b) take their coarse path
+# The table scatters K3 (a), K4 (b) and K5 (c) take their coarse path
 # (`csrc/scatter_accum.cuh`: warp sums, a shared-memory table per block,
 # one global add per row and block) on the levels whose scale (the
 # level's resolution - 1) is at most this, and the direct path (one
 # global atomic per corner) on the others. On the training points, in
 # the ray order training feeds them, every level of the flagship spec up
 # to its finest (scale 2047) ran faster on the coarse path: 2.8x to 7.0x
-# for K4 (b), 8x to 26x for K3 (a), and shuffled too (`chip_smoke.py`
-# phases 6 and 10, `PERF.md`); finer levels stay direct until measured.
+# for K4 (b), 8x to 26x for K3 (a), 8x to 25x for K5 (c), and shuffled
+# too (`chip_smoke.py` phases 6, 8 and 10, `PERF.md`); finer levels stay
+# direct until measured.
 COARSE_MAX_SCALE = 2048.0
 DIRECT_ONLY = -1.0  # flags no level coarse: the direct path everywhere
 
@@ -165,9 +165,19 @@ def _require(t, dtype, name, ndim=None):
         raise ValueError(f'{name} must have {ndim} dims, got {t.dim()}')
 
 
-def dda(voxel, cam_ori, raydirs, max_samples, max_steps, with_steps=False):
-    """K1. voxel [Y, X, Z] int8 (0 = empty); cam_ori [3]; raydirs [R, 3]
-    float32. Returns voxel_id [R, M] int32, depth [R, M, 2] float32,
+def dda(voxel, origins, raydirs, max_samples, max_steps, with_steps=False,
+        occupancy=None, image_width=None, stats=None):
+    """K1. voxel [Y, X, Z] int8 (0 = empty); origins [3], or [G, 3] with
+    ray r belonging to origin r // (R / G) (R a multiple of G), float32 on
+    the voxel grid's device (read there by the kernel: nothing comes back
+    to the host; a tensor elsewhere is copied there); raydirs [R, 3]
+    float32. `occupancy`: the grid's `occupancy_bits`, for the exact
+    empty-space skip; None builds them here (a caller that traces one
+    world many times builds them once). `image_width`: None for flat ray
+    order, else the width of the row-major images (one per origin) whose
+    8x4 pixel tiles a warp takes. `stats`: None, or an int64 [2] CUDA
+    tensor to which the launch adds its voxel loads and the occupancy
+    bits it read. Returns voxel_id [R, M] int32, depth [R, M, 2] float32,
     hit_mask [R, M] bool (and per-ray axis-step counts [R] int32 with
     `with_steps`)."""
     _require(voxel, torch.int8, 'voxel', 3)
@@ -176,21 +186,81 @@ def dda(voxel, cam_ori, raydirs, max_samples, max_steps, with_steps=False):
         raise ValueError('raydirs must be [R, 3] on the voxel grid device')
     r, m = raydirs.shape[0], int(max_samples)
     dev = voxel.device
+    origins = torch.as_tensor(origins).to(dev, torch.float32).reshape(-1, 3) \
+        .contiguous()
+    g = origins.shape[0]
+    if g < 1 or r % g:
+        raise ValueError(f'{r} rays do not split among {g} origins')
+    per = r // g
+    width = 0 if image_width is None else int(image_width)
+    if width < 0 or (width and per % width):
+        raise ValueError(f'{per} rays per origin are not rows of '
+                         f'{image_width}')
+    if occupancy is None:
+        occupancy = occupancy_bits(voxel)
+    _require(occupancy, torch.int32, 'occupancy', 1)
+    if occupancy.device != dev or occupancy.numel() != \
+            occupancy_words(voxel.shape):
+        raise ValueError('occupancy must be the grid\'s brick bits on its '
+                         'device')
+    if stats is not None:
+        _require(stats, torch.int64, 'stats', 1)
     out_id = torch.empty((r, m), dtype=torch.int32, device=dev)
     out_t = torch.empty((r, m, 2), dtype=torch.float32, device=dev)
     hit = torch.empty((r, m), dtype=torch.bool, device=dev)
     steps = torch.empty((r,), dtype=torch.int32, device=dev) \
         if with_steps else None
     if r:
-        ori = [float(v) for v in torch.as_tensor(cam_ori).detach()
-               .to('cpu', torch.float32).reshape(3)]
         _launch('dda', 'sd_dda_i8', 'dda', dev, voxel.data_ptr(),
-                *voxel.shape, *ori, raydirs.data_ptr(), r, m, int(max_steps),
+                *voxel.shape, origins.data_ptr(), per, occupancy.data_ptr(),
+                width, raydirs.data_ptr(), r, m, int(max_steps),
                 out_id.data_ptr(), out_t.data_ptr(), hit.data_ptr(),
-                steps.data_ptr() if with_steps else None)
+                steps.data_ptr() if with_steps else None,
+                stats.data_ptr() if stats is not None else None)
     if with_steps:
         return out_id, out_t, hit, steps
     return out_id, out_t, hit
+
+
+BRICK = 8   # voxels per side of an occupancy brick (K1's empty-space skip)
+
+
+def occupancy_words(dims):
+    """int32 words of the brick bits of a [Y, X, Z] grid."""
+    bricks = 1
+    for d in dims:
+        bricks *= -(-int(d) // BRICK)
+    return -(-bricks // 32)
+
+
+def occupancy_bits(voxel):
+    """K1's `occupancy`: one flag per 8^3 brick of the [Y, X, Z] grid
+    (0 = empty), set where a voxel of the brick is solid, as the JAX
+    package's `build_occupancy` (the grid zero-padded to whole bricks),
+    packed into int32 words: brick b = (y8 * ceil(X/8) + x8) * ceil(Z/8)
+    + z8 at bit b % 32 of word b // 32 (59,392 bytes at scene 1024).
+    Plain PyTorch on the grid's device, no kernel of its own: the 8 bytes
+    of a brick row along Z are read as one int64, so the grid is read
+    once and only an eighth of it is written."""
+    y, x, z = (int(d) for d in voxel.shape)
+    by, bx, bz = (-(-d // BRICK) for d in (y, x, z))
+    v = voxel if voxel.element_size() == 1 else (voxel != 0).to(torch.int8)
+    if z % BRICK or v.storage_offset() % BRICK or not v.is_contiguous():
+        whole = v.new_zeros((y, x, bz * BRICK))
+        whole[..., :z] = v
+        v = whole
+    rows = v.view(torch.int64) != 0                     # [Y, X, bz]
+    if y % BRICK or x % BRICK:
+        whole = rows.new_zeros((by * BRICK, bx * BRICK, bz))
+        whole[:y, :x] = rows
+        rows = whole
+    flags = rows.reshape(by, BRICK, bx, BRICK, bz).amax(dim=(1, 3))
+    bits = flags.reshape(-1).to(torch.int64)
+    bits = torch.cat([bits, bits.new_zeros(-bits.numel() % 32)])
+    shifts = torch.arange(32, dtype=torch.int64, device=voxel.device)
+    words = (bits.reshape(-1, 32) << shifts).sum(dim=1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words) \
+        .to(torch.int32)
 
 
 def hash_bake(table3, masks, weights, counter='hash_bake'):
@@ -289,28 +359,45 @@ def hash_encode_bwd_split(g, xyz, scales, offset, bound, scene_oob, slots,
     rows it flushed and the inserts that overflowed its tables. For the
     per-level measurements and the tests; the training path runs
     `hash_encode_bwd`."""
-    if stats is not None:
-        _require(stats, torch.int64, 'stats', 1)
-    if coarse_max_scale is None:
-        coarse_max_scale = COARSE_MAX_SCALE
     return _encode_bwd('hashgrid_bwd', 'sd_hash_encode_bwd',
                        'hash_encode_bwd', g, xyz, scales, offset, bound,
                        scene_oob, slots, baked,
-                       (float(coarse_max_scale),
-                        stats.data_ptr() if stats is not None else None))
+                       _split(coarse_max_scale, stats))
 
 
 def hash_encode_paired_bwd(g, xyz, scales, offset, bound, scene_oob, slots,
                            baked=None):
     """K5 (c). As `hash_encode_bwd` under the paired hash: the scatter
-    goes into rows base_k and (base_k + 1) mod slots."""
+    goes into rows base_k and (base_k + 1) mod slots. Levels of scale <=
+    COARSE_MAX_SCALE take the coarse path."""
+    return hash_encode_paired_bwd_split(g, xyz, scales, offset, bound,
+                                        scene_oob, slots, baked)
+
+
+def hash_encode_paired_bwd_split(g, xyz, scales, offset, bound, scene_oob,
+                                 slots, baked=None, coarse_max_scale=None,
+                                 stats=None):
+    """`hash_encode_paired_bwd` with the levels' split given, as
+    `hash_encode_bwd_split`."""
     return _encode_bwd('hashgrid_paired', 'sd_hash_encode_paired_bwd',
                        'hash_encode_paired_bwd', g, xyz, scales, offset,
-                       bound, scene_oob, slots, baked)
+                       bound, scene_oob, slots, baked,
+                       _split(coarse_max_scale, stats))
+
+
+def _split(coarse_max_scale, stats):
+    """The (coarse_max_scale, stats pointer) arguments of a scatter with
+    a coarse path; COARSE_MAX_SCALE read at the call when None."""
+    if stats is not None:
+        _require(stats, torch.int64, 'stats', 1)
+    if coarse_max_scale is None:
+        coarse_max_scale = COARSE_MAX_SCALE
+    return (float(coarse_max_scale),
+            stats.data_ptr() if stats is not None else None)
 
 
 def _encode_bwd(source, fn, counter, g, xyz, scales, offset, bound,
-                scene_oob, slots, baked, split=()):
+                scene_oob, slots, baked, split):
     _require(g, torch.float32, 'g', 2)
     _require(xyz, torch.float32, 'xyz', 2)
     _require(scales, torch.float32, 'scales', 1)
@@ -458,10 +545,7 @@ def hash_encode_general_bwd_split(g, x, meta, scales, offset, bound,
     if g.shape != (n, lv * c) or (table is not None
                                   and table.shape != (rows, c)):
         raise ValueError('g must be [N, L*C] and table [rows, C]')
-    if stats is not None:
-        _require(stats, torch.int64, 'stats', 1)
-    if coarse_max_scale is None:
-        coarse_max_scale = COARSE_MAX_SCALE
+    coarse_max_scale, stats_ptr = _split(coarse_max_scale, stats)
     dev = x.device
     grad = torch.zeros((rows, c), dtype=torch.float32, device=dev) \
         if table_grad else None
@@ -475,6 +559,5 @@ def hash_encode_general_bwd_split(g, x, meta, scales, offset, bound,
                 grad.data_ptr() if grad is not None else None,
                 dx.data_ptr() if dx is not None else None, n, dims, lv, c,
                 int(bool(xor_hash)), float(bound), float(2.0 * bound),
-                float(offset), float(coarse_max_scale),
-                stats.data_ptr() if stats is not None else None)
+                float(offset), coarse_max_scale, stats_ptr)
     return grad, dx

@@ -7,8 +7,10 @@ empty, image rows top-down, the camera basis of
 masks.
 
 `ray_voxel_intersection` launches kernel K1 (`csrc/dda.cu`, one thread
-per ray) for CUDA tensors and runs `dda_plain`, a lockstep PyTorch loop
-with the same arithmetic, for CPU tensors.
+per ray, with the JAX op's exact empty-space skip over 8^3 bricks,
+`kernels.occupancy_bits`) for CUDA tensors and runs `dda_plain`, a lockstep
+PyTorch loop with the same arithmetic and no skip, for CPU tensors. The
+rays of several camera origins go through one call.
 """
 import torch
 
@@ -44,18 +46,36 @@ def camera_rays(cam_dir, cam_up, cam_f, cam_c, img_dims, device='cpu'):
     return raydir / norm3(raydir, keepdim=True)
 
 
+def build_occupancy_bits(voxel):
+    """K1's occupancy argument for a grid on the card
+    (`kernels.occupancy_bits`: one bit per 8^3 brick, as the JAX
+    package's `build_occupancy`). Build it once per world and pass it to
+    every `ray_voxel_intersection` over that world; None for a grid on
+    the CPU, whose plain DDA needs none."""
+    if not voxel.is_cuda:
+        return None
+    return kernels.occupancy_bits(voxel)
+
+
 def ray_voxel_intersection(voxel, cam_ori, raydirs, max_samples,
-                           max_steps=None):
+                           max_steps=None, occupancy=None, image_width=None):
     """Traverse the grid; record the first `max_samples` solid intervals.
 
     Args:
         voxel: [Y, X, Z] integer grid tensor, 0 = empty (int8, the
             SceneDreamer worlds' type, on CUDA; any integer type on CPU).
-        cam_ori: [3] ray origin shared by all rays.
+        cam_ori: [3] ray origin shared by all rays, or [G, 3]: the rays
+            of G cameras, R / G each, ray r from origin r // (R / G).
         raydirs: [R, 3] float32 unit ray directions, on the grid's device.
         max_samples: M, intervals recorded per ray.
         max_steps: bound on single axis steps; default Y+X+Z+2, which no
             ray from the grid's AABB entry reaches.
+        occupancy: the grid's `build_occupancy_bits`, or None to build
+            them here (callers that trace one world many times build them
+            once and pass them). Unused on the CPU.
+        image_width: None, or the width of the row-major images (one per
+            origin) the rays form; K1 then walks them in 8x4 pixel tiles.
+            The outputs do not depend on it.
 
     Returns:
         voxel_id [R, M] int32 (0 where no hit), depth [R, M, 2] float32
@@ -64,7 +84,8 @@ def ray_voxel_intersection(voxel, cam_ori, raydirs, max_samples,
     if max_steps is None:
         max_steps = int(sum(voxel.shape)) + 2
     if raydirs.is_cuda:
-        return kernels.dda(voxel, cam_ori, raydirs, max_samples, max_steps)
+        return kernels.dda(voxel, cam_ori, raydirs, max_samples, max_steps,
+                           occupancy=occupancy, image_width=image_width)
     return dda_plain(voxel, cam_ori, raydirs, max_samples, max_steps)
 
 
@@ -72,17 +93,26 @@ def dda_plain(voxel, cam_ori, raydirs, max_samples, max_steps=None,
               with_steps=False):
     """Plain PyTorch version of K1: all rays step in lockstep, one axis
     step per iteration, with the kernel's (and the JAX op's) float
-    operations in the same order and rounding. With `with_steps`, also
-    returns the per-ray count of axis steps taken (the kernel's
-    `out_steps`)."""
+    operations in the same order and rounding; `cam_ori` [3] or [G, 3] as
+    `ray_voxel_intersection` takes it. It reads every voxel it steps
+    through (the kernel's empty-space skip changes no result). With
+    `with_steps`, also returns the per-ray count of axis steps taken (the
+    kernel's `out_steps`)."""
     dims = tuple(int(d) for d in voxel.shape)
     if max_steps is None:
         max_steps = sum(dims) + 2
     dev = raydirs.device
     m = int(max_samples)
-    ori = torch.as_tensor(cam_ori).to(device=dev, dtype=torch.float32)
     dirs = raydirs.to(torch.float32)
     r = dirs.shape[0]
+    ori = torch.as_tensor(cam_ori).to(device=dev, dtype=torch.float32) \
+        .reshape(-1, 3)
+    if r % ori.shape[0]:
+        raise ValueError(f'{r} rays do not split among {ori.shape[0]} '
+                         f'origins')
+    # per-ray origins [R, 3] (one origin broadcasts as [1, 3])
+    if ori.shape[0] > 1:
+        ori = ori.repeat_interleave(r // ori.shape[0], dim=0)
     dims_f = torch.tensor(dims, dtype=torch.float32, device=dev)
     dims_i = torch.tensor(dims, dtype=torch.int64, device=dev)
 

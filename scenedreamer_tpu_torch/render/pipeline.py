@@ -3,7 +3,8 @@
 Counterpart of the split-refine path of `scenedreamer_tpu/render/pipeline.py`
 (reference `imaginaire/generators/scenedreamer.py:479-632`
 inference_givenstyle). Per frame:
-  1. camera rays and the full-frame DDA (kernel K1 on CUDA);
+  1. camera rays and the full-frame DDA (kernel K1 on CUDA, with the
+     world's brick occupancy built once per renderer);
   2. one frame-global sky average (`pipeline.py:165-169`);
   3. the hash table baked once for the world's scene code (K2 (a); a
      spec that is not foldable has no bake and encodes unfolded, K4);
@@ -25,7 +26,8 @@ import numpy as np
 import torch
 
 from scenedreamer_tpu_torch.device import resolve_device
-from scenedreamer_tpu_torch.ops.ray_voxel import (camera_rays,
+from scenedreamer_tpu_torch.ops.ray_voxel import (build_occupancy_bits,
+                                                  camera_rays,
                                                   ray_voxel_intersection)
 from scenedreamer_tpu_torch.scene.camera import EvalCameraController
 from scenedreamer_tpu_torch.utils.png import write_png
@@ -70,6 +72,7 @@ class TiledRenderer:
         self.cam_res = (self.res[0] + pad, self.res[1] + pad)
         self.chunk_rays = chunk_rays
         self.voxel = torch.from_numpy(world.voxel).to(self.device)
+        self.occupancy = build_occupancy_bits(self.voxel)
         with torch.no_grad():
             hf = torch.from_numpy(
                 world.height_field.transpose(0, 2, 3, 1)).to(self.device)
@@ -98,7 +101,8 @@ class TiledRenderer:
         raydirs = camera_rays(cdir, up, cam_f, cam_c, (h, w), device=dev)
         cam_ori = torch.as_tensor(ori, dtype=torch.float32, device=dev)
         vid, dep, hit = ray_voxel_intersection(
-            self.voxel, cam_ori, raydirs.reshape(-1, 3), self.m)
+            self.voxel, cam_ori, raydirs.reshape(-1, 3), self.m,
+            occupancy=self.occupancy, image_width=w)
         vid = vid.reshape(1, h, w, self.m)
         dep = dep.reshape(1, h, w, self.m, 2)
         hit = hit.reshape(1, h, w, self.m)

@@ -20,7 +20,8 @@ Counterpart of `scenedreamer_tpu/train/sampling.py` (reference
 Camera proposals and the accept/reject loop run on the host with a numpy
 generator, in the JAX package's order of draws, so one seed gives both
 packages the same cameras. The ray-voxel intersection (kernel K1 on
-CUDA, one launch per proposal), the accept metrics, SPADE, the label
+CUDA: the K proposals of a round in one launch, as the JAX package vmaps
+them into one dispatch), the accept metrics, SPADE, the label
 translation and the smoothing run on the models' device, without
 gradients. Tensors are NHWC.
 """
@@ -32,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from scenedreamer_tpu_torch.ops.masks import rand_crop, segmask_smooth
-from scenedreamer_tpu_torch.ops.ray_voxel import (camera_rays,
+from scenedreamer_tpu_torch.ops.ray_voxel import (build_occupancy_bits,
+                                                  camera_rays,
                                                   ray_voxel_intersection)
 from scenedreamer_tpu_torch.ops.resize import resize_bilinear
 from scenedreamer_tpu_torch.scene import camera as camctl
@@ -51,9 +53,10 @@ class CameraSamplerConfig:
     camera_rej_avg_depth: float = 2.0
     camera_min_entropy: float = 0.75
     max_rejections: int = 100
-    # proposals intersected per round: their accept metrics come back in
-    # one [2, K] device->host fetch (accept semantics unchanged: the
-    # first passing proposal in proposal order wins)
+    # proposals intersected per round, in one K1 launch: their accept
+    # metrics come back in one [2, K] device->host fetch (accept
+    # semantics unchanged: the first passing proposal in proposal order
+    # wins)
     proposals_per_dispatch: int = 4
     num_reduced_labels: int = 12
     use_label_smooth: bool = True
@@ -117,25 +120,38 @@ class CameraBatchSampler:
         cam_c = rand_crop(rng, cam_c, c.cam_res, self.crop_res)
         return ori, cdir, up, cam_f, cam_c
 
-    def _intersect(self, voxel, prop):
-        """Rays, intersections and accept metrics of one proposal; the
-        proposal's numbers are rounded to float32 first, as the JAX
-        package hands them to its device program."""
-        ori, cdir, up, cam_f, cam_c = prop
-        ori = np.asarray(ori, np.float32)
-        rd = camera_rays(np.asarray(cdir, np.float32),
-                         np.asarray(up, np.float32),
-                         float(np.float32(cam_f)),
-                         tuple(float(np.float32(v)) for v in cam_c),
-                         self.crop_res, device=self.device)
+    def _intersect(self, voxel, props, occupancy):
+        """Rays, intersections and accept metrics of a round's proposals,
+        all traced in one `ray_voxel_intersection` call over the grid
+        `voxel` and its `build_occupancy_bits`; each proposal's
+        numbers are rounded to float32 first, as the JAX package hands
+        them to its device program. Returns [((vid, dep, hit, rd, ori),
+        (avg_depth, entropy))] in proposal order."""
+        h, w = self.crop_res
+        oris = np.stack([np.asarray(p[0], np.float32) for p in props])
+        rds = torch.stack([
+            camera_rays(np.asarray(cdir, np.float32),
+                        np.asarray(up, np.float32), float(np.float32(cam_f)),
+                        tuple(float(np.float32(v)) for v in cam_c),
+                        self.crop_res, device=self.device)
+            for _, cdir, up, cam_f, cam_c in props])
         vid, dep, hit = ray_voxel_intersection(
-            voxel, torch.from_numpy(ori).to(self.device), rd.reshape(-1, 3),
-            self.cfg.num_blocks_early_stop)
-        return (vid, dep, hit, rd, ori), accept_metrics(vid, dep, hit)
+            voxel, torch.from_numpy(oris).to(self.device), rds.reshape(-1, 3),
+            self.cfg.num_blocks_early_stop, occupancy=occupancy,
+            image_width=w)
+        m = vid.shape[-1]
+        vid = vid.reshape(len(props), h * w, m)
+        dep = dep.reshape(len(props), h * w, m, 2)
+        hit = hit.reshape(len(props), h * w, m)
+        return [((vid[i], dep[i], hit[i], rds[i], oris[i]),
+                 accept_metrics(vid[i], dep[i], hit[i]))
+                for i in range(len(props))]
 
     @torch.no_grad()
     def sample(self, world, batch_size, rng, voxel_dev=None):
-        """Rejection-sample batch_size cameras against one world.
+        """Rejection-sample batch_size cameras against one world
+        (`voxel_dev`: its grid already on the device), building the
+        grid's brick occupancy once for all of them.
 
         Returns dict: voxel_id [B,h,w,M], depth [B,h,w,M,2], hit_mask,
         raydirs [B,h,w,3], cam_ori [B,3] (NHWC tensors on the device).
@@ -145,6 +161,7 @@ class CameraBatchSampler:
         k = max(1, c.proposals_per_dispatch)
         voxel = torch.from_numpy(world.voxel).to(self.device) \
             if voxel_dev is None else voxel_dev
+        occupancy = build_occupancy_bits(voxel)
         out = {kk: [] for kk in ('voxel_id', 'depth', 'hit_mask',
                                  'raydirs', 'cam_ori')}
         for _ in range(batch_size):
@@ -153,7 +170,7 @@ class CameraBatchSampler:
             rounds = max(1, -(-c.max_rejections // k))
             for _round in range(rounds):
                 props = [self._propose(world, rng) for _ in range(k)]
-                results = [self._intersect(voxel, p) for p in props]
+                results = self._intersect(voxel, props, occupancy)
                 self.stats['proposals'] += k
                 # reject: too close (`scenedreamer.py:129-133`) or low
                 # entropy (`:136-143`); ONE [2, K] device->host fetch

@@ -18,9 +18,9 @@ and peak device memory. With `--scatter_order`, last the variant's hash
 scatter (K3a or K5c) alone on one crop's sample points in ray order (as
 training feeds it) and in a random order, to show how much of its time
 is atomic contention between neighbouring samples. `--direct_only` puts
-every level of the table scatters K3a and K4b on the direct path (one
-global atomic per corner: the scatters before their coarse path), for a
-before / after pair in one run of the card. The models and the sample
+every level of the table scatters K3a, K4b and K5c on the direct path
+(one global atomic per corner: the scatters before their coarse path),
+for a before / after pair in one run of the card. The models and the sample
 points come from `chip_smoke.py` (`make_trainer`, `sample_points`).
 Float32 throughout (TF32 off). Needs CUDA.
 """

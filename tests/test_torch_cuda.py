@@ -3,15 +3,17 @@ card. Each test skips, with its reason, where CUDA is absent; on a GPU
 machine run `python -m pytest tests/test_torch_cuda.py`.
 
 K1 must equal its plain version exactly (ids, masks, t values and step
-counts); K2 is expected exact as well (same float32 operations in the
+counts), also with the empty-space skip, in 8x4 tiles and with several
+origins in one launch; K2 is expected exact as well (same float32 operations in the
 same order) and is held to 1e-6. K3 (the hash backward) is held to its
 plain version with the tolerances stated in its test (its scatter adds
 atomically, in a run-dependent order). K5 (the paired variant's four
 kernels) is held as K2 and K3 are, and so is K4 (the general encode,
-forward and backward). The two table scatters' coarse path (K3a and
-K4b through `csrc/scatter_accum.cuh`) is forced onto every level and held
-to the same tolerances where a block's shared-memory table overflows,
-where every point lies in one cell, and in ray order."""
+forward and backward). The three table scatters' coarse path (K3a, K4b
+and K5c through `csrc/scatter_accum.cuh`) is forced onto every level and
+held to the same tolerances where a block's shared-memory table
+overflows, where every point lies in one cell, and in ray order or
+shuffled."""
 import math
 
 import numpy as np
@@ -20,7 +22,8 @@ import torch
 
 from scenedreamer_tpu_torch import kernels
 from scenedreamer_tpu_torch.ops import hashgrid as hg
-from scenedreamer_tpu_torch.ops.ray_voxel import dda_plain
+from scenedreamer_tpu_torch.ops.ray_voxel import (build_occupancy_bits,
+                                                  dda_plain)
 from _torch_parity import cap_torch_threads
 
 cap_torch_threads()
@@ -57,11 +60,78 @@ def test_dda_kernel_matches_plain(cuda):
         assert got[2].any()
 
 
+def _dda_grid(rng, dims, dev):
+    """A grid whose dims are not multiples of the 8-voxel brick: a solid
+    floor, solid blobs of a few bricks, scattered solid voxels and wide
+    empty space."""
+    vox = np.zeros(dims, np.int64)
+    vox[:3] = 7
+    for c in rng.integers(0, np.asarray(dims) - 12, (6, 3)):
+        vox[c[0]:c[0] + 11, c[1]:c[1] + 9, c[2]:c[2] + 13] = 21
+    solid = rng.integers(0, np.asarray(dims), (150, 3))
+    vox[solid[:, 0], solid[:, 1], solid[:, 2]] = 60
+    return torch.tensor(vox, dtype=torch.int8, device=dev)
+
+
+def test_dda_kernel_skip_tiles_origins_match_plain(cuda):
+    """K1 with the empty-space skip, in 8x4 tiles of 23x29-ray images (not
+    whole tiles) and with 4 origins in one launch (two inside the grid,
+    two outside) equals the plain version with the same per-ray origins,
+    in flat order and in tiles, whether the caller passes the grid's
+    bits, passes none (the wrapper builds them) or passes every bit set
+    (a walk that loads every voxel it steps through); the card's bits
+    equal the CPU's, and the grid's bits leave fewer voxel loads than all
+    bits set, which load at every in-grid step."""
+    rng = np.random.default_rng(3)
+    dims = (45, 83, 70)
+    voxel = _dda_grid(rng, dims, cuda)
+    occ = build_occupancy_bits(voxel)
+    assert occ.dtype == torch.int32
+    assert torch.equal(occ.cpu(), kernels.occupancy_bits(voxel.cpu()))
+    h, w = 23, 29
+    dirs = rng.standard_normal((4, h * w, 3)).astype(np.float32)
+    dirs[:, :40, 1:] = 0.0                              # axis-parallel
+    dirs[:, 40:80, 0] = 0.0
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    dirs = torch.tensor(dirs.reshape(-1, 3), device=cuda)
+    oris = torch.tensor([[20.5, 40.2, 30.7], [60.0, -8.0, 33.3],
+                         [3.5, 77.9, 66.1], [-4.0, 100.0, -9.5]],
+                        device=cuda)
+    want = dda_plain(voxel, oris, dirs, 6, with_steps=True)
+    assert want[2].any() and not want[2].all()
+    loads = {}
+    for bits, o in (('grid', occ), ('built', None),
+                    ('all set', torch.full_like(occ, -1))):
+        for width in (None, w):
+            stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+            got = kernels.dda(voxel, oris, dirs, 6, sum(dims) + 2,
+                              with_steps=True, occupancy=o,
+                              image_width=width, stats=stats)
+            for g, x in zip(got, want):
+                assert torch.equal(g, x), (bits, width)
+            loads[bits] = stats.tolist()
+    steps = int(want[3].sum())
+    assert loads['grid'] == loads['built']
+    assert 0 < loads['all set'][0] <= steps
+    assert 0 < loads['grid'][0] < loads['all set'][0]
+    assert 0 < loads['grid'][1] < loads['all set'][0]
+
+
 def test_dda_kernel_rejects_bad_input(cuda):
     voxel = torch.zeros((4, 4, 4), dtype=torch.int32, device=cuda)
     dirs = torch.ones((3, 3), device=cuda)
     with pytest.raises(ValueError):
         kernels.dda(voxel, torch.zeros(3), dirs, 2, 14)
+    voxel = voxel.to(torch.int8)
+    with pytest.raises(ValueError):        # 3 rays among 2 origins
+        kernels.dda(voxel, torch.zeros((2, 3), device=cuda), dirs, 2, 14)
+    with pytest.raises(ValueError):        # 3 rays are no rows of 2
+        kernels.dda(voxel, torch.zeros(3, device=cuda), dirs, 2, 14,
+                    image_width=2)
+    with pytest.raises(ValueError):        # bits of another grid
+        kernels.dda(voxel, torch.zeros(3, device=cuda), dirs, 2, 14,
+                    occupancy=torch.zeros(2, dtype=torch.int32,
+                                          device=cuda))
 
 
 @pytest.mark.parametrize('levels,channels', [(4, 4), (16, 8)])
@@ -395,6 +465,76 @@ def test_hash_backward_coarse_path_matches_plain(cuda, case, channels):
         assert (flushed, overflowed) == (blocks * rows, 0)
     else:
         assert 0 < flushed < n * 8 * 4
+
+
+def _exact_folded_grad(g, xyz, scales, off, slots, variant):
+    """The folded table scatter [L, slots, C] summed in float64 from the
+    plain version's rows and float32 weights."""
+    lv, c = scales.shape[0], g.shape[1] // scales.shape[0]
+    x01 = (xyz + 1.0) / 2.0
+    ok = ((x01 >= 0) & (x01 <= 1)).all(-1)
+    x01, g = x01[ok], g[ok].double()
+    out = torch.zeros((lv, slots, c), dtype=torch.float64, device=g.device)
+    for level in range(lv):
+        idx, ws, _ = hg._corners(x01, scales[level], off, slots, variant)
+        for i, wt in zip(idx, ws):
+            out[level].index_add_(0, i, wt.double()[:, None]
+                                  * g[:, level * c:(level + 1) * c])
+    return out
+
+
+@pytest.mark.parametrize('channels', [4, 8])
+@pytest.mark.parametrize('case', ['overflow', 'one_cell', 'shuffled'])
+def test_paired_backward_coarse_path_matches_exact(cuda, case, channels):
+    """K5c with every level on the coarse path, and with every level on
+    the direct path, against the float64 sum of the same terms: G per row
+    1e-5 of the sum of absolute contributions + 1e-7 (float32 atomics in a
+    run-dependent order), dxyz 1e-4 of its largest magnitude; 'shuffled'
+    is the rays case in a random order. 'overflow' must send inserts past
+    the tables to the global atomics; 'one_cell' must flush each level's
+    rows (8: 4 pairs of adjacent rows, fewer where two coincide) once per
+    block and overflow none. The 2^10-row levels make pairs that wrap at
+    the last row common."""
+    spec = hg.HashGridSpec.create(input_dim=5, num_levels=4,
+                                  level_dim=channels, log2_hashmap_size=10,
+                                  desired_resolution=256,
+                                  hash_variant='paired')
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    scales, off = hg._scales(spec, cuda), hg._offset(spec)
+    n, slots = 50000, spec.table_size // 4
+    xyz = _scatter_points('rays' if case == 'shuffled' else case, n, 3,
+                          scales.tolist(), gen, cuda)
+    if case == 'shuffled':
+        xyz = xyz[torch.randperm(n, generator=gen, device=cuda)].contiguous()
+    g = torch.randn((n, spec.output_dim), generator=gen, device=cuda)
+    baked = torch.rand((4, slots, channels), generator=gen,
+                       device=cuda) * 2 - 1
+    want = _exact_folded_grad(g, xyz, scales, off, slots, 'paired')
+    _, p_dxyz = hg.paired_encode_bwd_plain(g, xyz, scales, off, 1.0, False,
+                                           slots, baked)
+    abs_grad, _ = hg.paired_encode_bwd_plain(g.abs(), xyz, scales, off, 1.0,
+                                             False, slots)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    for cms in (math.inf, kernels.DIRECT_ONLY):
+        k_grad, k_dxyz = kernels.hash_encode_paired_bwd_split(
+            g, xyz, scales, off, 1.0, False, slots, baked, cms,
+            stats if cms == math.inf else None)
+        assert ((k_grad.double() - want).abs()
+                <= 1e-5 * abs_grad + 1e-7).all(), cms
+        assert (k_dxyz - p_dxyz).abs().max() <= 1e-4 * p_dxyz.abs().max()
+    flushed, overflowed = stats.tolist()
+    if case == 'overflow':
+        assert overflowed > 0
+    elif case == 'one_cell':
+        x01 = (xyz + 1) / 2
+        rows = sum(torch.unique(torch.cat(hg._corners(
+            x01, scales[lv], off, slots, 'paired')[0])).numel()
+            for lv in range(4))
+        assert (flushed, overflowed) == (-(-n // BLOCK_POINTS) * rows, 0)
+    else:
+        assert 0 < flushed < n * 8 * 4
+    # the default split sends every level of this spec down the coarse path
+    assert all(kernels.coarse_levels(scales.tolist()))
 
 
 @pytest.mark.parametrize('channels', [2, 4, 8])

@@ -291,3 +291,44 @@ def _encode64(baked, xyz, scales, offset, slots):
             acc = acc + w[:, None] * baked[lv][idx & (slots - 1)]
         outs.append(acc)
     return torch.cat(outs, -1)
+
+
+def test_paired_scatter_split_checks_its_arguments():
+    """K5c's split wrapper checks its arguments before it builds or
+    launches anything: a stats tensor off the card, and points off the
+    card, are refused on the CPU too."""
+    from scenedreamer_tpu_torch import kernels
+    g, xyz = torch.zeros((4, 8)), torch.zeros((4, 3))
+    scales = torch.ones(2)
+    with pytest.raises(ValueError, match='stats must be a CUDA tensor'):
+        kernels.hash_encode_paired_bwd_split(
+            g, xyz, scales, 0.5, 1.0, False, 16, None, 2048.0,
+            torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match='g must be a CUDA tensor'):
+        kernels.hash_encode_paired_bwd_split(g, xyz, scales, 0.5, 1.0, False,
+                                             16)
+
+
+def test_kernel_builds_hash_the_headers_they_include():
+    """Every header a kernel source includes is hashed into that source's
+    library name (`kernels.HEADERS`), so a changed `scatter_accum.cuh`
+    rebuilds K3, K4 and K5 rather than loading a stale library."""
+    import os
+    import re
+    import shutil
+    import tempfile
+    from scenedreamer_tpu_torch import kernels
+    from scenedreamer_tpu_torch.utils.build import library_path
+    for src in kernels.SOURCES.values():
+        with open(os.path.join(kernels.CSRC, src)) as f:
+            for inc in re.findall(r'#include "([^"]+)"', f.read()):
+                assert inc in kernels.HEADERS, (src, inc)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ('hashgrid_paired.cu',) + kernels.HEADERS:
+            shutil.copy(os.path.join(kernels.CSRC, name), tmp)
+        deps = tuple(os.path.join(tmp, h) for h in kernels.HEADERS)
+        src = os.path.join(tmp, 'hashgrid_paired.cu')
+        before = library_path(src, ['nvcc'], 'hashgrid_paired', deps)
+        with open(deps[0], 'a') as f:
+            f.write('// changed\n')
+        assert library_path(src, ['nvcc'], 'hashgrid_paired', deps) != before

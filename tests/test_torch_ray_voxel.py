@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from scenedreamer_tpu.data.synthetic import make_world
 from scenedreamer_tpu.ops import ray_voxel as jrv
 from scenedreamer_tpu.scene.camera import EvalCameraController
+from scenedreamer_tpu_torch import kernels
 from scenedreamer_tpu_torch.ops import ray_voxel as trv
 from test_ray_voxel import dda_oracle
 from _torch_parity import cap_torch_threads
@@ -136,3 +137,72 @@ def test_step_counts_bound():
     vox = torch.from_numpy(world.voxel)
     *_, steps = trv.dda_plain(vox, ori, dirs, 6, with_steps=True)
     assert int(steps.max()) < sum(world.voxel.shape) + 2
+
+
+def _grid_not_whole_bricks(seed=4):
+    """A [29, 45, 38] int8 grid (no dim a multiple of 8): a floor, a few
+    solid blocks, scattered voxels and wide empty space."""
+    rng = np.random.default_rng(seed)
+    vox = np.zeros((29, 45, 38), np.int8)
+    vox[:2] = 3
+    for c in rng.integers(0, (20, 36, 29), (4, 3)):
+        vox[c[0]:c[0] + 9, c[1]:c[1] + 7, c[2]:c[2] + 10] = 11
+    solid = rng.integers(0, vox.shape, (60, 3))
+    vox[solid[:, 0], solid[:, 1], solid[:, 2]] = 40
+    return vox
+
+
+def test_occupancy_matches_jax_build_occupancy():
+    """K1's packed brick bits (`kernels.occupancy_bits`, plain PyTorch,
+    here on the CPU) hold JAX's `build_occupancy` flags bit for bit: on an
+    int8 grid whose dims are not whole bricks, and on an int32 grid whose
+    dims are (each brick row along Z then one int64 word)."""
+    whole = np.zeros((24, 40, 32), np.int32)
+    whole[:3] = 5
+    whole[17, 9, 30] = 2
+    whole[8:12, 33:40, 0:9] = 7
+    for vox in (_grid_not_whole_bricks(), whole):
+        want = np.asarray(jrv.build_occupancy(jnp.asarray(vox)))
+        assert want.any() and not want.all()
+        words = kernels.occupancy_bits(torch.from_numpy(vox))
+        assert words.dtype == torch.int32
+        assert words.numel() == kernels.occupancy_words(vox.shape)
+        bits = (words.long()[:, None] >> torch.arange(32)) & 1
+        np.testing.assert_array_equal(
+            bits.reshape(-1)[:want.size].numpy().astype(bool),
+            want.reshape(-1))
+        assert not bits.reshape(-1)[want.size:].any()
+    assert trv.build_occupancy_bits(torch.from_numpy(whole)) is None  # CPU
+
+
+def test_grouped_origins_match_separate_calls_and_jax():
+    """`dda_plain` (and `ray_voxel_intersection` on the CPU) with K=3
+    origins of R/K rays each equals K one-origin calls and JAX's
+    `ray_voxel_intersection` per origin: rays from inside and outside the
+    grid, axis-parallel ones among them."""
+    vox = _grid_not_whole_bricks()
+    rng = np.random.default_rng(9)
+    oris = np.array([[14.3, 20.6, 17.2], [35.0, -6.0, 12.5],
+                     [-3.0, 50.2, 41.0]], np.float32)
+    dirs = _unit(rng, 3 * 96).reshape(3, 96, 3)
+    dirs[:, :6] = np.concatenate([np.eye(3), -np.eye(3)]).astype(np.float32)
+    tv = torch.from_numpy(vox)
+    grouped = trv.ray_voxel_intersection(tv, torch.from_numpy(oris),
+                                         torch.from_numpy(dirs.reshape(-1, 3)),
+                                         5)
+    *_, steps = trv.dda_plain(tv, torch.from_numpy(oris),
+                              torch.from_numpy(dirs.reshape(-1, 3)), 5,
+                              with_steps=True)
+    assert grouped[2].any() and not grouped[2].all()
+    for k in range(3):
+        sl = slice(96 * k, 96 * (k + 1))
+        one = trv.dda_plain(tv, torch.from_numpy(oris[k]),
+                            torch.from_numpy(dirs[k]), 5, with_steps=True)
+        for a, b in zip([x[sl] for x in grouped] + [steps[sl]], one):
+            assert torch.equal(a, b)
+        j = jrv.ray_voxel_intersection(jnp.asarray(vox), jnp.asarray(oris[k]),
+                                       jnp.asarray(dirs[k]), 5)
+        _assert_match([np.asarray(x) for x in j],
+                      [x[sl].numpy() for x in grouped])
+        np.testing.assert_array_equal(grouped[1][sl].numpy(),
+                                      np.asarray(j[1]))

@@ -182,6 +182,40 @@ def test_sampler_accepts_the_same_cameras(sampled):
     _rays_close(got, want)
 
 
+def test_sampler_traces_each_round_in_one_call(sampled, worlds):
+    """The sampler traces a round's K proposals in one
+    `ray_voxel_intersection` call (one K1 launch on the card) with K
+    origins and the crop's image width: as many calls as rounds, the same
+    cameras and tensors as the fixture's run with the same seed, and each
+    accepted camera's intersections equal to a call of its own."""
+    _, tsampler, got, _, _ = sampled
+    k = tsampler.cfg.proposals_per_dispatch
+    calls = []
+    real = tsamp.ray_voxel_intersection
+
+    def counted(voxel, cam_ori, raydirs, m, **kw):
+        calls.append((tuple(cam_ori.shape), raydirs.shape[0],
+                      kw.get('image_width')))
+        return real(voxel, cam_ori, raydirs, m, **kw)
+    sampler = tsamp.CameraBatchSampler(tsamp.CameraSamplerConfig(**CFG))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tsamp, 'ray_voxel_intersection', counted)
+        again = sampler.sample(worlds[1], 3, np.random.default_rng(11))
+    h, w = sampler.crop_res
+    assert len(calls) * k == sampler.stats['proposals'] \
+        == tsampler.stats['proposals']
+    assert set(calls) == {((k, 3), k * h * w, w)}
+    for name, t in got.items():
+        assert torch.equal(again[name], t), name
+    # each accepted camera traced alone, as the sampler traced it before
+    voxel = torch.from_numpy(worlds[1].voxel)
+    for i in range(3):
+        one = real(voxel, got['cam_ori'][i], got['raydirs'][i].reshape(-1, 3),
+                   CFG['num_blocks_early_stop'])
+        for name, t in zip(('voxel_id', 'depth', 'hit_mask'), one):
+            assert torch.equal(got[name][i].reshape(t.shape), t), name
+
+
 def test_accept_metrics_match_jax(sampled, worlds):
     """The metrics of the accepted cameras, recomputed from the JAX
     sampler's tensors with the JAX formulas."""
