@@ -49,7 +49,8 @@ of the repository. Phases, each fatal on failure:
      the coarse path's rows flushed and inserts overflowed; the whole
      launch before, every level direct, and after), and K3a held in two
      adversarial cases, 2^20 points in one cell and the batch's points
-     shuffled;
+     shuffled; dw bitwise equal across two launches, and timed whole,
+     level by level, with one corner and with every mask 0 ('[K3c dw]');
   7. the training path: `GANTrainer` at the flagship training width of
      configs/scenedreamer_train.yaml (`GeneratorConfig()`: hash 16 x
      2^19 x 8, MLP 256, style 128/256, feature 64, 24 samples, M=6,
@@ -65,9 +66,14 @@ of the repository. Phases, each fatal on failure:
      scatter, dT shift bake, dw reduction) against its plain versions at
      the flagship spec with `hash_variant='paired'` on the sample points
      of phase 6's training batch, tolerances as phases 3 and 6 (G and
-     dT against the float64 sum of the same terms), then the timings and
-     bounds of K5 (a)-(d), and the scatter K5c split by level and held
-     in the adversarial cases as K3a in phase 6 ('[K5 levels]');
+     dT against the float64 sum of the same terms) but the paired encode
+     K5b equal to its plain version (error 0), then the timings and
+     bounds of K5 (a)-(d), K5d's dw as K3c's in phase 6 ('[K5d dw]'),
+     the scatter K5c split by level and held in the adversarial cases as
+     K3a in phase 6 ('[K5 levels]'), and K5b split by level as K2b in
+     phase 5, on the training points and on phase 3's serving chunk,
+     the table baked with the paired flagship generator's scene code of
+     each ('[K5b levels] train', '[K5b levels] chunk');
   9. the training loop: writes a terrain cache of the scene-1024 world
      and 16 synthetic 320x320 PNG pairs under `smoke_out/`, and runs
      `scenedreamer_tpu_torch.cli.train.main` on
@@ -114,7 +120,8 @@ of the repository. Phases, each fatal on failure:
      launched and no K2/K3/K5 counter rose.
 
 Then one `kernels` JSON line covering K1-K5 (K4a also at the serving
-chunk, under `at_serving_chunk`), the card's name and
+chunk, under `at_serving_chunk`; K5b's whole launch there under
+`serving_chunk_ms`), the card's name and
 power limit (nvidia-smi), and last the line {"ok": true, "device": {...}}.
 Float32 everywhere: TF32 is switched off for matmuls and convolutions.
 """
@@ -496,11 +503,11 @@ def backward_check(torch, kernels, hg, cfg, batch, dims, dev, tag):
         p_feat = hg.encode_plain(p_baked, xyz, scales, off, 1.0, oob, variant)
         bake_err = float((baked - p_baked).abs().max())
         enc_err = float((k_feat - p_feat).abs().max())
-        log(f'[{tag}] shift bake max abs err {bake_err:.3g}; paired encode '
-            f'max abs err {enc_err:.3g} (tolerance 1e-5: the same float32 '
-            f'operations in the same order), out mean |x| '
+        log(f'[{tag}] shift bake max abs err {bake_err:.3g} (tolerance '
+            f'1e-5); paired encode max abs err {enc_err:.3g} (tolerance 0: '
+            f'the same float32 operations in the same order), out mean |x| '
             f'{float(k_feat.abs().mean()):.3f}')
-        assert bake_err <= 1e-5 and enc_err <= 1e-5, \
+        assert bake_err <= 1e-5 and enc_err == 0, \
             f'{tag} forward differs from plain'
         del p_baked, k_feat, p_feat
     k_grad, k_dxyz = k_bwd(g, xyz, scales, off, 1.0, oob, slots, baked)
@@ -534,13 +541,16 @@ def backward_check(torch, kernels, hg, cfg, batch, dims, dev, tag):
         f'plain path) + 1e-7, because float32 atomics add in a '
         f'run-dependent order: worst margin G {g_excess:.3g}, dT '
         f'{dt_excess:.3g} (<= 0 passes)')
+    dw_again = torch.equal(k_dw(table3, k_grad, masks32), k_dwv)
     log(f'[{tag}] dw max rel err {dw_rel:.3g}; tolerance 1e-5 (float64 sums '
-        f'on both sides, the kernel in a fixed block order)')
+        f'on both sides, the kernel in a fixed block order); bitwise equal '
+        f'across two launches: {dw_again}')
     log(f'[{tag}] dxyz max err / max|dxyz| {dx_rel:.3g}; tolerance 1e-4 '
         f'(float32 atomics over the 16 levels)')
     assert g_excess <= 0, f'{tag} G differs from plain'
     assert dt_excess <= 0, f'{tag} dT differs from plain'
     assert dw_rel <= 1e-5, f'{tag} dw differs from plain'
+    assert dw_again, f'{tag} dw differs between two launches'
     assert dx_rel <= 1e-4, f'{tag} dxyz differs from plain'
     del p_grad, p_dxyz, abs_grad, p_dt, abs_dt, k_dt, k_dxyz
 
@@ -593,6 +603,8 @@ def backward_check(torch, kernels, hg, cfg, batch, dims, dev, tag):
     out[names['bwd']] = (g_err, t_enc, t_enc_plain, *enc_bound)
     out[names['dt']] = (dt_err, t_dt, t_dt_plain, *fold_bound)
     out[names['dw']] = (dw_rel, t_dw, t_dw_plain, *fold_bound)
+    out['dw_shapes'] = dw_shapes(torch, 'K5d' if paired else 'K3c', k_dw,
+                                 table3, k_grad, masks32)
     return out
 
 
@@ -759,6 +771,89 @@ def k4a_levels(torch, kernels, hg, spec, pts, dev, case):
 
     return gather_split(torch, 'K4a', case, scales.tolist(), launch, rows,
                         pts, spec.level_dim * 4, dev)
+
+
+def k5b_levels(torch, kernels, hg, spec, table3, code, pts, dev, case):
+    """Phase 8, K5b: `gather_split` on points `pts` [N, 3] at the paired
+    `spec`, the table `table3` [L, S, C] baked by K5a for the scene code
+    `code` [2]; a one-level launch is the kernel on that level's baked
+    table and scale."""
+    shifts, weights, oob = hg.scene_fold_weights(spec, code)
+    baked = kernels.hash_shift_bake(table3,
+                                    shifts.to(torch.int32).contiguous(),
+                                    weights.contiguous())
+    scales, off = hg._scales(spec, dev), hg._offset(spec)
+    slots = baked.shape[1]
+    x01 = (pts + 1.0) / 2.0
+    x01 = x01[((x01 >= 0) & (x01 <= 1)).all(-1)]
+
+    def launch(x, lv):
+        if lv is None:
+            return kernels.hash_encode_paired(baked, x, scales, off, 1.0, oob)
+        return kernels.hash_encode_paired(baked[lv:lv + 1], x,
+                                          scales[lv:lv + 1], off, 1.0, oob)
+
+    def rows(lv):
+        return torch.cat(hg._corners(x01, scales[lv], off, slots,
+                                     'paired')[0])
+
+    return gather_split(torch, 'K5b', case, scales.tolist(), launch, rows,
+                        pts, baked.shape[2] * 4, dev)
+
+
+def paired_levels(torch, kernels, hg, cfg, batch, fields, dims, chunk, dev):
+    """Phase 8, '[K5b levels]': K5b split by level (`k5b_levels`) on the
+    training batch's points ('train') and on phase 3's serving chunk
+    ('chunk'), a seeded table uniform in [-1, 1] baked with the scene
+    code that the generator of `cfg` (seeded weights) gives the batch's
+    fields and the serving world's `fields`. Returns {case: split}."""
+    from scenedreamer_tpu_torch.models.generator import SceneDreamerGenerator
+    spec = cfg.hash_spec
+    model = SceneDreamerGenerator(cfg, seed=SEED).to(dev)
+    with torch.no_grad():
+        codes = dict(train=model.world_code(batch['height_field'],
+                                            batch['semantic_field'])[0],
+                     chunk=model.world_code(*fields)[0])
+    del model
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    table3 = (torch.rand((spec.table_size, spec.level_dim), generator=gen,
+                         device=dev) * 2 - 1).reshape(spec.num_levels, -1,
+                                                      spec.level_dim)
+    pts = dict(train=sample_points(batch, cfg, dims), chunk=chunk)
+    return {case: k5b_levels(torch, kernels, hg, spec, table3, codes[case],
+                             pts[case], dev, case)
+            for case in ('train', 'chunk')}
+
+
+def dw_shapes(torch, tag, launch, table3, grad, masks):
+    """'[K3c dw]' / '[K5d dw]' (phases 6 and 8): the weight half of a
+    bake's backward, `launch(table3, grad, masks)` on [L, S, C] tables
+    and int32 [L, A] xor masks or shifts. Median ms (L2 flushed) of the
+    whole launch; of each level alone, summed over the levels; of one
+    corner (mask 0) against the A; and with every mask 0, so the A
+    windows read the same rows. A whole launch costs its device-memory
+    traffic if it is near the sum of the levels and the all-zero masks
+    save little; the misses of several levels' windows in L2 if it is
+    well above the sum, or the zero masks save much. Bound: T and G read
+    once. Returns the numbers."""
+    lv, a = masks.shape
+    one = [(table3[i:i + 1], grad[i:i + 1], masks[i:i + 1].contiguous())
+           for i in range(lv)]
+    corner0 = torch.zeros((lv, 1), dtype=torch.int32, device=masks.device)
+    zeros = torch.zeros_like(masks)
+    out = dict(whole=median_ms(lambda: launch(table3, grad, masks)),
+               levels=[median_ms(lambda: launch(*args)) for args in one],
+               one_corner=median_ms(lambda: launch(table3, grad, corner0)),
+               masks_zero=median_ms(lambda: launch(table3, grad, zeros)))
+    out['bound'] = bound_ms(2 * table3.numel() * 4,
+                            2 * a * table3.numel())[0]
+    lvs = out['levels']
+    log(f'[{tag} dw] {tuple(table3.shape)}, {a} corners: whole '
+        f'{out["whole"]:.3f} ms; levels alone {min(lvs):.3f}-{max(lvs):.3f} '
+        f'ms, sum of the {lv} {sum(lvs):.3f}; one corner (mask 0) '
+        f'{out["one_corner"]:.3f}; every mask 0 {out["masks_zero"]:.3f}; '
+        f'bound {out["bound"]:.3f} ms (T and G once)')
+    return out
 
 
 def one_cell(torch, n, dims, scales, offset, seed, dev):
@@ -1494,10 +1589,12 @@ def split_extra(split):
                 coarse_levels=sum(r['coarse'] for r in split['levels']))
 
 
-def kernel_rows(serving, k3, k3_split, train, k5, k5_split, loop):
+def kernel_rows(serving, k3, k3_split, train, k5, k5_split, k5b, loop):
     """The `kernels` JSON rows: K1, K2a, K2b on the serving path, K3a-c
     on the training path and K5a-d on the training loop's paired run,
-    each read from the kernel's own counter. `launches` is the count of
+    each read from the kernel's own counter; K5b also at phase 3's
+    serving chunk (`k5b`, phase 8's split: the whole launch in ray order,
+    under `serving_chunk_ms`). `launches` is the count of
     the path the kernel was ported for: serving for K1/K2, the training
     step for K3 (K3b is K2a's kernel on G, counted as 'hash_bake_bwd'),
     the paired loop run for K5 (K5d's table half is K5a's kernel on G
@@ -1541,7 +1638,8 @@ def kernel_rows(serving, k3, k3_split, train, k5, k5_split, loop):
         row('hash_shift_bake', paired, f'{jax_hg}:664',
             *k5['hash_shift_bake'], lcounts),
         row('hash_encode_paired', paired, f'{jax_hg}:458',
-            *k5['hash_encode_paired'], lcounts, points=k5['points']),
+            *k5['hash_encode_paired'], lcounts, points=k5['points'],
+            serving_chunk_ms=k5b['chunk']['total']['ray']),
         row('hash_encode_paired_bwd', paired, f'{jax_hg}:427',
             *k5['hash_encode_paired_bwd'], lcounts, points=k5['points'],
             **split_extra(k5_split)),
@@ -1835,6 +1933,9 @@ def main():
     k5_split = k3_levels(torch, kernels, hg, pcfg.hash_spec,
                          sample_points(batch, pcfg, world.dims), dev)
     torch.cuda.empty_cache()
+    k5b = paired_levels(torch, kernels, hg, pcfg, batch, fields, world.dims,
+                        chunk, dev)
+    torch.cuda.empty_cache()
 
     # 9. the training loop -------------------------------------------------
     loop = loop_path(torch, kernels, world, dev)
@@ -1900,7 +2001,7 @@ def main():
     uloop = general_loop(torch, kernels)
 
     table_rows = kernel_rows(serving, k3, k3_split, train, k5, k5_split,
-                             loop) \
+                             k5b, loop) \
         + general_rows(k4, k4_split, (int(chunk_n), *k4c), urender, ustep,
                        uloop)
     log(json.dumps({'kernels': table_rows}))

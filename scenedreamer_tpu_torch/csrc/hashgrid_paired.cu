@@ -23,14 +23,15 @@
 //      B_l[j] = 0 + w_0*T_l[(j+m_0)&(S-1)] + w_1*... in ascending a. The
 //      adjoint dT_l[k] = sum_a w_a * G_l[(k - m_a) & (S-1)] is the same
 //      kernel with shifts (S - m_a) & (S-1); the caller passes those.
-//  (b) sd_hash_encode_paired: one thread per (point, level). For each of
-//      the 4 (y, z) corners k = y_bit + 2 z_bit, in ascending k, base_k =
-//      (x + y'*P1 + z'*P2) & (S-1) in uint32 and the rows base_k, then
-//      (base_k+1) & (S-1), are added with weights ((t_y t_z) * (1-f_x))
-//      and ((t_y t_z) * f_x): out = sum_k sum_j w_kj * B_l[(base_k+j)
-//      mod S], the order the plain PyTorch version sums in. When base_k
-//      != S-1 the two rows are 2*C*4 contiguous bytes (64 at C = 8).
-//      Out-of-bounds points, or an out-of-bounds scene code, give zeros.
+//  (b) sd_hash_encode_paired: C / 4 lanes per point (a lane pair at C =
+//      8), each lane 4 channels of every level; a thread walks the levels
+//      in order. For each of the 4 (y, z) corners k = y_bit + 2 z_bit, in
+//      ascending k, base_k = (x + y'*P1 + z'*P2) & (S-1) in uint32 and the
+//      rows base_k, then (base_k+1) & (S-1), are added with weights
+//      ((t_y t_z) * (1-f_x)) and ((t_y t_z) * f_x): out = sum_k sum_j
+//      w_kj * B_l[(base_k+j) mod S], the order the plain PyTorch version
+//      sums in, so the two are equal. Out-of-bounds points, or an
+//      out-of-bounds scene code, give zeros.
 //  (c) sd_hash_encode_paired_bwd: the table scatter G_l[(base_k+j) &
 //      (S-1)] += w_kj * g for the 8 rows of every in-bounds point and
 //      level, bases and weights recomputed as (b) does. Two paths, chosen
@@ -50,28 +51,48 @@
 //      With B both also add the gradient through frac to dxyz, the 8
 //      rows taken as corners (x_bit, y_bit, z_bit).
 //  (d) sd_hash_shift_bake_dw: dw_{l,a} = sum_{j,c} T_l[(j+m_a)&(S-1), c]
-//      * G_l[j, c]; float64 partial sums per block, reduced in shared
-//      memory, then summed per (l, a) in block order by a second kernel:
-//      a fixed order, so dw is deterministic.
+//      * G_l[j, c]; a persistent grid walks the levels in order, each
+//      block a contiguous span of G and the same span of T shifted by
+//      each m_a, float64 sums per warp, then summed in a fixed order by a
+//      second kernel, so dw is deterministic.
 //
-// What bounds them: (a) and (d) stream one table and read another
-// through 4 shifted windows of the same level (16 MB at 2^19 x 8 floats,
-// L2 resident), so device-memory bytes; (b) is a gather of 4 random
-// 64-byte pairs per point and level plus N*L*C*4 output bytes, so
-// transaction rate; (c) moves g's rows, xyz and G once (0.338 ms on an
-// H100 for the 1,647,456 points of a 262x262x24 training crop at 16 x
-// 2^19 x 8), but its direct path issues 2 float4 atomics per row, 26.4M
-// per level, and is bound by that count as K3a's direct path is: 2.96-
-// 5.26 ms on every level, 47.5 ms in all, on an NVIDIA H100 80GB HBM3 at
-// 700 W. The coarse path sums on chip first, so its global atomics drop
-// to the rows each block touched plus the inserts that overflow its
-// table: in ray order 17k (level 0) to 373k (level 15) flushed rows and
-// 0 to 3.0M overflowed inserts, 0.20-0.35 ms per level and 3.16 ms in
-// all on the same card; shuffled 9.0 ms against 38.6.
+// What bounds them, on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6;
+// the per-level split of `scripts/torch_encode_levels.py --only K5`). (a) and (d) stream one table and read another through 4 shifted
+// windows of the same level (16 MB at 2^19 x 8 floats); their bound is T
+// and G (or B) once from device memory, 0.160 ms. (d) took 0.42 ms as a
+// grid of 256 blocks per level: several levels were in flight, so a
+// window's rows were evicted from L2 before the next window read them
+// (0.29 ms with every shift 0), and its float64 sums sat in local
+// memory. With the levels walked in order and the sums in registers it
+// takes 0.27 ms, 0.21 with one window: what is left are the three
+// further windows' reads of T through L2 (a G load kept a step ahead,
+// an evict-last policy on T and 6 blocks per SM did not move it).
+// (b) reads 4 random 64-byte pairs per point and level, from 1,874,173
+// distinct rows (60 MB) at the 1,647,456 points of a 262x262x24 training
+// crop, and writes N*L*C*4 bytes (843 MB, 0.25 ms at the device
+// memory's rate); its bound, 0.276 ms, counts each distinct row once.
+// One thread per (point, level), the levels on blockIdx.y, took 1.54 ms
+// though its levels alone summed to 0.65 and a launch with every point
+// equal took 1.41: each pass over the points wrote 32 bytes of every
+// point's 512-byte output row, as K2b did before its redesign. Walking
+// the levels per thread writes a row within one block's lifetime: 0.51
+// ms (0.37 at a 1,306,800-point serving chunk), within 4% of the time
+// with every point equal, so instructions and the output write bound it,
+// not misses on the 60 MB of rows. (c) moves g's rows, xyz and G once
+// (0.338 ms for the training crop at 16 x 2^19 x 8), but its direct path
+// issues 2 float4 atomics per row, 26.4M per level, and is bound by that
+// count as K3a's direct path is: 2.96-5.26 ms on every level, 47.5 ms in
+// all. The coarse path sums on chip first, so its global atomics drop to
+// the rows each block touched plus the inserts that overflow its table:
+// in ray order 17k (level 0) to 373k (level 15) flushed rows and 0 to
+// 3.0M overflowed inserts, 0.20-0.35 ms per level and 3.16 ms in all on
+// the same card; shuffled 9.0 ms against 38.6.
 //
 // Numerics as in hashgrid_fwd.cu: the cell position is one __fmaf_rn,
-// every other product and sum an explicit round-to-nearest intrinsic in
-// the order above, and the file builds with -fmad=false.
+// every other float32 product and sum an explicit round-to-nearest
+// intrinsic in the order above, and the file builds with -fmad=false.
+// (d)'s float64 fused multiply-adds round as a product and a sum would:
+// the product of two floats is exact in float64.
 //
 // C ABI (ctypes): each entry point returns cudaGetLastError().
 #include <cstdint>
@@ -85,6 +106,7 @@ namespace sa = scatter_accum;
 
 constexpr int kMaxCorners = 8;
 constexpr int kDwThreads = 256;
+constexpr int kDwWarps = kDwThreads / 32;
 constexpr unsigned kP1 = 2654435761u;
 constexpr unsigned kP2 = 805459861u;
 
@@ -113,80 +135,94 @@ __global__ void shift_bake_kernel(const float4* __restrict__ table,
   baked[i] = acc;
 }
 
-// The cell of point n at one level: x01 -> the uint32 cell coordinates u
-// and the taps t0 = 1 - frac, t1 = frac. Returns false out of bounds.
-__device__ __forceinline__ bool paired_cell(const float* __restrict__ xyz,
-                                            long long n, float scale,
-                                            float bound, float two_bound,
-                                            float offset, unsigned (&u)[3],
-                                            float (&t0)[3], float (&t1)[3]) {
-  float x01[3];
-  bool oob = false;
+// The cell of a point at one level from its unit coordinates x01: the
+// uint32 cell coordinates u and the taps t0 = 1 - frac, t1 = frac.
+__device__ __forceinline__ void cell_taps(const float (&x01)[3], float scale,
+                                          float offset, unsigned (&u)[3],
+                                          float (&t0)[3], float (&t1)[3]) {
+#pragma unroll
   for (int d = 0; d < 3; ++d) {
-    x01[d] = __fdiv_rn(__fadd_rn(xyz[3 * n + d], bound), two_bound);
-    oob |= x01[d] < 0.f || x01[d] > 1.f;
-  }
-  if (oob) return false;
-  for (int d = 0; d < 3; ++d) {
-    float pos = __fmaf_rn(x01[d], scale, offset);
-    float cell = floorf(pos);
-    float frac = __fsub_rn(pos, cell);
+    const float pos = __fmaf_rn(x01[d], scale, offset);
+    const float cell = floorf(pos);
+    const float frac = __fsub_rn(pos, cell);
     u[d] = (unsigned)cell;
     t1[d] = frac;
     t0[d] = __fsub_rn(1.f, frac);
   }
-  return true;
 }
 
+// Point n's unit coordinates x01 = (xyz + bound) / (2 bound); false out
+// of bounds.
+__device__ __forceinline__ bool unit_coords(const float* __restrict__ xyz,
+                                            long long n, float bound,
+                                            float two_bound,
+                                            float (&x01)[3]) {
+  bool oob = false;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    x01[d] = __fdiv_rn(__fadd_rn(xyz[3 * n + d], bound), two_bound);
+    oob |= x01[d] < 0.f || x01[d] > 1.f;
+  }
+  return !oob;
+}
+
+// C / 4 lanes per point, lane q holding channels [4q, 4q + 4) of every
+// level (a lane pair at C = 8, as K2b's `encode_kernel`): a thread walks
+// the levels in order, so x01 is computed once per point and the block
+// writes each point's output row (levels * C floats) within a short
+// span, where one block per (points, level) wrote 32 bytes of each
+// 512-byte row a level apart. A level's 4 pairs, 8 rows, are loaded
+// before their sums, which run in the plain version's order: k = y_bit
+// + 2 z_bit ascending, then the row j of the pair. A row's offset from
+// the level's base is 32-bit (slots * C <= 2^32, checked by the
+// launcher).
 template <int C>
-__global__ void encode_paired_kernel(const float* __restrict__ xyz,
-                                     const float* __restrict__ baked,
-                                     const float* __restrict__ scales,
-                                     float* __restrict__ out,
-                                     long long n_pts, int levels,
-                                     long long slots, float bound,
-                                     float two_bound, float offset,
-                                     int scene_oob) {
-  long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(256) encode_paired_kernel(
+    const float* __restrict__ xyz, const float* __restrict__ baked,
+    const float* __restrict__ scales, float* __restrict__ out,
+    long long n_pts, int levels, long long slots, float bound,
+    float two_bound, float offset, int scene_oob) {
+  constexpr int kLanes = C / 4;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n = t / kLanes;
+  const int q = (int)(t % kLanes);
   if (n >= n_pts) return;
-  const int l = blockIdx.y;
-  float4* o = reinterpret_cast<float4*>(out + n * (long long)levels * C
-                                        + (long long)l * C);
-  unsigned u[3];
-  float t0[3], t1[3];
-  if (scene_oob != 0 || !paired_cell(xyz, n, scales[l], bound, two_bound,
-                                     offset, u, t0, t1)) {
-    for (int q = 0; q < C / 4; ++q) o[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* o = reinterpret_cast<float4*>(out + n * levels * C) + q;
+  float x01[3];
+  if (!unit_coords(xyz, n, bound, two_bound, x01) || scene_oob != 0) {
+    for (int l = 0; l < levels; ++l)
+      o[l * kLanes] = make_float4(0.f, 0.f, 0.f, 0.f);
     return;
   }
   const unsigned mask = (unsigned)(slots - 1);
-  const float4* tl = reinterpret_cast<const float4*>(
-      baked + (long long)l * slots * C);
-  float acc[C];
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  const float4* tl = reinterpret_cast<const float4*>(baked) + q;
+  for (int l = 0; l < levels; ++l, tl += slots * kLanes) {
+    unsigned u[3];
+    float t0[3], t1[3];
+    cell_taps(x01, scales[l], offset, u, t0, t1);
+    float4 v[8];
+    float w[8];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int by = k & 1, bz = k >> 1;
-    const unsigned base = (u[0] + (u[1] + by) * kP1 + (u[2] + bz) * kP2)
-                          & mask;
-    const float wr = __fmul_rn(by ? t1[1] : t0[1], bz ? t1[2] : t0[2]);
+    for (int k = 0; k < 4; ++k) {
+      const int by = k & 1, bz = k >> 1;
+      const unsigned base = u[0] + (u[1] + by) * kP1 + (u[2] + bz) * kP2;
+      const float wr = __fmul_rn(by ? t1[1] : t0[1], bz ? t1[2] : t0[2]);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float w = __fmul_rn(wr, j ? t1[0] : t0[0]);
-      const float4* row = tl + (long long)((base + j) & mask) * (C / 4);
-#pragma unroll
-      for (int q = 0; q < C / 4; ++q) {
-        float4 v = row[q];
-        acc[4 * q] = __fadd_rn(acc[4 * q], __fmul_rn(w, v.x));
-        acc[4 * q + 1] = __fadd_rn(acc[4 * q + 1], __fmul_rn(w, v.y));
-        acc[4 * q + 2] = __fadd_rn(acc[4 * q + 2], __fmul_rn(w, v.z));
-        acc[4 * q + 3] = __fadd_rn(acc[4 * q + 3], __fmul_rn(w, v.w));
+      for (int j = 0; j < 2; ++j) {
+        w[2 * k + j] = __fmul_rn(wr, j ? t1[0] : t0[0]);
+        v[2 * k + j] = tl[((base + j) & mask) * (unsigned)kLanes];
       }
     }
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc.x = __fadd_rn(acc.x, __fmul_rn(w[i], v[i].x));
+      acc.y = __fadd_rn(acc.y, __fmul_rn(w[i], v[i].y));
+      acc.z = __fadd_rn(acc.z, __fmul_rn(w[i], v[i].z));
+      acc.w = __fadd_rn(acc.w, __fmul_rn(w[i], v[i].w));
+    }
+    o[l * kLanes] = acc;
   }
-  for (int q = 0; q < C / 4; ++q)
-    o[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
-                       acc[4 * q + 3]);
 }
 
 // K5c's rows under the paired hash (`sa::launch_folded_bwd`'s policy):
@@ -201,7 +237,10 @@ struct PairedCorners {
                                         long long n, float scale,
                                         float bound, float two_bound,
                                         float offset) {
-    return paired_cell(xyz, n, scale, bound, two_bound, offset, u, t0, t1);
+    float x01[3];
+    if (!unit_coords(xyz, n, bound, two_bound, x01)) return false;
+    cell_taps(x01, scale, offset, u, t0, t1);
+    return true;
   }
 
   __device__ __forceinline__ unsigned row(int k, float& w) const {
@@ -212,58 +251,92 @@ struct PairedCorners {
   }
 };
 
-__global__ void shift_dw_partial_kernel(const float4* __restrict__ table,
-                                        const float4* __restrict__ grad,
-                                        const int* __restrict__ shifts,
-                                        double* __restrict__ partial,
-                                        long long slots, int c4, int corners,
-                                        int blocks) {
-  __shared__ double red[kDwThreads];
-  const int l = blockIdx.y;
-  const long long per_level = slots * c4;
-  const float4* tl = table + (long long)l * per_level;
-  const float4* gl = grad + (long long)l * per_level;
-  long long m[kMaxCorners];
-  double acc[kMaxCorners];
+// A persistent grid of `gridDim.x` blocks walks the levels in order; at
+// each level block b takes the contiguous float4s [b P / B, (b+1) P / B)
+// of G (P = slots * C / 4) and, for each corner a, the same span of T
+// shifted by m_a rows, cyclic. All blocks work on one level at a time,
+// so the level's T (16 MB at 2^19 x 8) stays in L2 while its A windows
+// pass over it; G streams past it (`__ldcs`, evict first). Device memory
+// then moves T and G once each. Each G value becomes a double once; a
+// product of two floats is exact in float64, so each is added with one
+// float64 fused multiply-add, rounded as a separate product and sum
+// would be. Each warp's sums go to its own partial[(l * A + a) * W + w]
+// (W the grid's warps), without a barrier, so no warp waits for the
+// others at a level's end. The caller's B = 4 blocks per SM of an H100
+// (the launch bounds keep a thread within 64 registers) are resident at
+// once; no block waits on another, so a grid that is not gives the same
+// dw, only later. Needs slots * C <= 2^32 (checked by the launcher), for
+// 32-bit offsets.
+__global__ void __launch_bounds__(kDwThreads, 4) shift_dw_partial_kernel(
+    const float4* __restrict__ table, const float4* __restrict__ grad,
+    const int* __restrict__ shifts, double* __restrict__ partial,
+    int levels, long long slots, int c4, int corners) {
+  const unsigned per_level = (unsigned)(slots * c4);
+  const unsigned lo = (unsigned)((unsigned long long)per_level * blockIdx.x
+                                 / gridDim.x);
+  const unsigned hi = (unsigned)((unsigned long long)per_level
+                                 * (blockIdx.x + 1) / gridDim.x);
+  const unsigned warps = gridDim.x * kDwWarps;
+  const unsigned warp = blockIdx.x * kDwWarps + threadIdx.x / 32;
+  for (int l = 0; l < levels; ++l) {
+    const float4* tl = table + (long long)l * per_level;
+    const float4* gl = grad + (long long)l * per_level;
+    unsigned off[kMaxCorners];
+    double acc[kMaxCorners];
 #pragma unroll
-  for (int a = 0; a < kMaxCorners; ++a) {
-    m[a] = a < corners ? (long long)shifts[l * corners + a] : 0;
-    acc[a] = 0.0;
-  }
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < per_level; i += (long long)blocks * blockDim.x) {
-    const long long j = i / c4;
-    const int q = (int)(i % c4);
-    const float4 gv = gl[i];
+    for (int a = 0; a < kMaxCorners; ++a) {
+      off[a] = a < corners
+                   ? (unsigned)((shifts[l * corners + a] & (slots - 1)) * c4)
+                   : 0u;
+      acc[a] = 0.0;
+    }
+    for (unsigned i = lo + threadIdx.x; i < hi; i += kDwThreads) {
+      const float4 gv = __ldcs(gl + i);
+      const double gx = gv.x, gy = gv.y, gz = gv.z, gw = gv.w;
+#pragma unroll
+      for (int a = 0; a < kMaxCorners; ++a) {
+        if (a >= corners) break;
+        unsigned src = i + off[a];
+        if (src >= per_level) src -= per_level;
+        const float4 tv = tl[src];
+        double s = __fma_rn((double)tv.x, gx, acc[a]);
+        s = __fma_rn((double)tv.y, gy, s);
+        s = __fma_rn((double)tv.z, gz, s);
+        acc[a] = __fma_rn((double)tv.w, gw, s);
+      }
+    }
+    // unrolled, so acc stays in registers (a loop to `corners` indexes it
+    // at run time and puts it in local memory)
 #pragma unroll
     for (int a = 0; a < kMaxCorners; ++a) {
       if (a >= corners) break;
-      const float4 tv = tl[((j + m[a]) & (slots - 1)) * c4 + q];
-      acc[a] += (double)tv.x * (double)gv.x + (double)tv.y * (double)gv.y
-              + (double)tv.z * (double)gv.z + (double)tv.w * (double)gv.w;
+      double v = acc[a];
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
+      if (threadIdx.x % 32 == 0)
+        partial[((long long)l * corners + a) * warps + warp] = v;
     }
-  }
-  for (int a = 0; a < corners; ++a) {
-    red[threadIdx.x] = acc[a];
-    __syncthreads();
-    for (int stride = blockDim.x / 2; stride > 0; stride >>= 1) {
-      if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
-      __syncthreads();
-    }
-    if (threadIdx.x == 0)
-      partial[((long long)l * corners + a) * blocks + blockIdx.x] = red[0];
-    __syncthreads();
   }
 }
 
-__global__ void shift_dw_finish_kernel(const double* __restrict__ partial,
-                                       float* __restrict__ dw, int rows,
-                                       int blocks) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
+// One block per (level, corner) sums its `per_row` partials in a fixed
+// order: thread t the partials t, t + 256, ... in turn, then the threads
+// pairwise in shared memory, halving the stride. dw is the same on every
+// launch.
+__global__ void __launch_bounds__(kDwThreads) shift_dw_finish_kernel(
+    const double* __restrict__ partial, float* __restrict__ dw,
+    int per_row) {
+  __shared__ double red[kDwThreads];
+  const double* p = partial + (long long)blockIdx.x * per_row;
   double s = 0.0;
-  for (int b = 0; b < blocks; ++b) s += partial[(long long)i * blocks + b];
-  dw[i] = (float)s;
+  for (int i = threadIdx.x; i < per_row; i += kDwThreads) s += p[i];
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int stride = kDwThreads / 2; stride > 0; stride >>= 1) {
+    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) dw[blockIdx.x] = (float)red[0];
 }
 
 }  // namespace
@@ -288,26 +361,27 @@ int sd_hash_shift_bake(const float* table, const int* shifts,
 }
 
 // xyz [n, 3] f32; baked [levels, slots, channels] f32 (slots a power of
-// two, channels 4 or 8); scales [levels] f32; out [n, levels*channels].
+// two, channels 4 or 8, slots * channels <= 2^32); scales [levels] f32;
+// out [n, levels*channels].
 int sd_hash_encode_paired(const float* xyz, const float* baked,
                           const float* scales, float* out, long long n_pts,
                           int levels, long long slots, int channels,
                           float bound, float two_bound, float offset,
                           int scene_oob, void* stream) {
   const int threads = 256;
-  dim3 grid((unsigned)((n_pts + threads - 1) / threads), (unsigned)levels);
+  if ((channels != 4 && channels != 8) || slots * channels > (1ll << 32))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (channels == 8) {
+  const long long lanes = n_pts * (channels / 4);
+  const unsigned grid = (unsigned)((lanes + threads - 1) / threads);
+  if (channels == 8)
     encode_paired_kernel<8><<<grid, threads, 0, s>>>(
         xyz, baked, scales, out, n_pts, levels, slots, bound, two_bound,
         offset, scene_oob);
-  } else if (channels == 4) {
+  else
     encode_paired_kernel<4><<<grid, threads, 0, s>>>(
         xyz, baked, scales, out, n_pts, levels, slots, bound, two_bound,
         offset, scene_oob);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
   return (int)cudaGetLastError();
 }
 
@@ -333,26 +407,27 @@ int sd_hash_encode_paired_bwd(const float* g, const float* xyz,
       (cudaStream_t)stream);
 }
 
-// table, grad: [levels, slots, channels] f32, channels % 4 == 0;
-// shifts [levels, corners] i32, corners <= 8; partial: scratch of
-// levels*corners*blocks f64; dw [levels, corners] f32.
+// table, grad: [levels, slots, channels] f32, channels 4 or 8, slots a
+// power of two, slots * channels <= 2^32; shifts [levels, corners] i32,
+// corners <= 8; blocks: the grid, all resident at once; partial: scratch
+// of levels*corners*blocks*8 f64 (one per warp); dw [levels, corners]
+// f32.
 int sd_hash_shift_bake_dw(const float* table, const float* grad,
                           const int* shifts, double* partial, float* dw,
                           int levels, long long slots, int channels,
                           int corners, int blocks, void* stream) {
-  if (corners < 1 || corners > kMaxCorners || channels % 4 || blocks < 1)
+  if (corners < 1 || corners > kMaxCorners || (channels != 4 && channels != 8)
+      || blocks < 1 || slots * channels > (1ll << 32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((unsigned)blocks, (unsigned)levels);
-  shift_dw_partial_kernel<<<grid, kDwThreads, 0, s>>>(
+  shift_dw_partial_kernel<<<(unsigned)blocks, kDwThreads, 0, s>>>(
       reinterpret_cast<const float4*>(table),
-      reinterpret_cast<const float4*>(grad), shifts, partial, slots,
-      channels / 4, corners, blocks);
+      reinterpret_cast<const float4*>(grad), shifts, partial, levels, slots,
+      channels / 4, corners);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int rows = levels * corners;
-  shift_dw_finish_kernel<<<(rows + 127) / 128, 128, 0, s>>>(partial, dw, rows,
-                                                            blocks);
+  shift_dw_finish_kernel<<<levels * corners, kDwThreads, 0, s>>>(
+      partial, dw, blocks * kDwWarps);
   return (int)cudaGetLastError();
 }
 

@@ -78,6 +78,11 @@ for _xor, _paired in (('sd_hash_bake', 'sd_hash_shift_bake'),
                       ('sd_hash_bake_dw', 'sd_hash_shift_bake_dw')):
     _SIGNATURES[_paired] = _SIGNATURES[_xor]
 DW_BLOCKS = 256     # blocks per level of the dw reduction (K3 (c))
+# blocks of K5 (d)'s dw reduction, a persistent grid that walks the
+# levels in order, all of it resident at once on an H100 (4 blocks of
+# 256 threads on each of its 132 SMs); each of a block's 8 warps writes
+# its own partial sums
+SHIFT_DW_BLOCKS, SHIFT_DW_WARPS = 528, 8
 # The table scatters K3 (a), K4 (b) and K5 (c) take their coarse path
 # (`csrc/scatter_accum.cuh`: warp sums, a shared-memory table per block,
 # one global add per row and block) on the levels whose scale (the
@@ -319,14 +324,19 @@ def hash_encode_paired(baked, xyz, scales, offset, bound, scene_oob):
 
 def _encode(source, fn, counter, baked, xyz, scales, offset, bound,
             scene_oob):
-    _require(baked, torch.float32, 'baked', 3)
-    _require(xyz, torch.float32, 'xyz', 2)
-    _require(scales, torch.float32, 'scales', 1)
+    if baked.dim() != 3 or xyz.dim() != 2 or scales.dim() != 1:
+        raise ValueError('encode needs a [L, S, C] table, [N, 3] points and '
+                         '[L] scales')
     lv, s, c = baked.shape
     if c not in (4, 8) or s & (s - 1) or xyz.shape[1] != 3 \
             or scales.shape[0] != lv:
         raise ValueError('encode needs C in (4, 8), a power-of-two S, '
                          '[N, 3] points and [L] scales')
+    if s * c > 1 << 32:
+        raise ValueError('encode needs S * C <= 2^32 (32-bit row offsets)')
+    _require(baked, torch.float32, 'baked')
+    _require(xyz, torch.float32, 'xyz')
+    _require(scales, torch.float32, 'scales')
     n = xyz.shape[0]
     out = torch.empty((n, lv * c), dtype=torch.float32, device=xyz.device)
     if n:
@@ -431,34 +441,41 @@ def hash_bake_dw(table3, grad, masks):
     dw [L, A] float32, dw[l, a] = sum_{j,c} table3[l, j ^ m[l,a], c] *
     grad[l, j, c] (float64 partial sums in a fixed order)."""
     return _bake_dw('hashgrid_bwd', 'sd_hash_bake_dw', 'hash_bake_dw',
-                    table3, grad, masks)
+                    table3, grad, masks, DW_BLOCKS)
 
 
 def hash_shift_bake_dw(table3, grad, shifts):
     """K5 (d), the weight half. As `hash_bake_dw` with cyclic shifts:
     dw[l, a] = sum_{j,c} table3[l, (j + shifts[l,a]) mod S, c] *
-    grad[l, j, c]."""
+    grad[l, j, c] (float64 sums in a fixed order)."""
     return _bake_dw('hashgrid_paired', 'sd_hash_shift_bake_dw',
-                    'hash_shift_bake_dw', table3, grad, shifts)
+                    'hash_shift_bake_dw', table3, grad, shifts,
+                    SHIFT_DW_BLOCKS, SHIFT_DW_WARPS)
 
 
-def _bake_dw(source, fn, counter, table3, grad, masks):
-    _require(table3, torch.float32, 'table', 3)
-    _require(grad, torch.float32, 'grad', 3)
-    _require(masks, torch.int32, 'masks', 2)
+def _bake_dw(source, fn, counter, table3, grad, masks, blocks, per_block=1):
+    """`blocks` of the kernel's grid, each writing `per_block` partial
+    sums per (level, corner)."""
+    if table3.dim() != 3 or masks.dim() != 2:
+        raise ValueError('bake dw needs [L, S, C] tables and [L, A] masks')
     lv, s, c = table3.shape
     a = masks.shape[1]
-    if grad.shape != table3.shape or masks.shape[0] != lv or c % 4 \
-            or s & (s - 1) or not 1 <= a <= 8:
-        raise ValueError('bake dw needs equal [L, S, C] tables, C % 4 == 0, '
+    if grad.shape != table3.shape or masks.shape[0] != lv \
+            or c not in (4, 8) or s & (s - 1) or not 1 <= a <= 8:
+        raise ValueError('bake dw needs equal [L, S, C] tables, C in (4, 8), '
                          'a power-of-two S and [L, A<=8] masks')
+    if s * c > 1 << 32:
+        raise ValueError('bake dw needs S * C <= 2^32 (32-bit offsets)')
+    _require(table3, torch.float32, 'table')
+    _require(grad, torch.float32, 'grad')
+    _require(masks, torch.int32, 'masks')
     dev = table3.device
-    partial = torch.empty(lv * a * DW_BLOCKS, dtype=torch.float64,
+    partial = torch.empty(lv * a * blocks * per_block, dtype=torch.float64,
                           device=dev)
     dw = torch.empty((lv, a), dtype=torch.float32, device=dev)
     _launch(source, fn, counter, dev,
             table3.data_ptr(), grad.data_ptr(), masks.data_ptr(),
-            partial.data_ptr(), dw.data_ptr(), lv, s, c, a, DW_BLOCKS)
+            partial.data_ptr(), dw.data_ptr(), lv, s, c, a, blocks)
     return dw
 
 

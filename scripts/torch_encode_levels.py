@@ -1,7 +1,9 @@
-"""The per-level split of the two forward hash gathers on the GPU.
+"""The per-level split of the forward hash gathers on the GPU, and the
+shapes of the bake's dw reductions.
 
     python scripts/torch_encode_levels.py [--scene_size 1024] [--seed 8888]
-                                          [--only K2|K4a] [--pkg_root DIR]
+                                          [--only K2|K4a|K5|K3c]
+                                          [--pkg_root DIR]
 
 Builds a world (seed 8888), the first frame of `chip_smoke.py`'s camera
 and its middle serving chunk (33 image rows x 990 rays x 41 samples:
@@ -13,8 +15,15 @@ code) and `k4a_levels` (K4a at `hash_log2_size=21`, on the training
 points and on the serving chunk, each with the scene code of the log2-21
 generator's world encoder): per level, the distinct rows and the rows
 issued, the time in ray order, shuffled and with every point equal, and
-the issued sectors per ms; then the whole launch. The same lines as
-phases 5 and 10 of `chip_smoke.py` (`[K2 levels]`, `[K4a levels]`),
+the issued sectors per ms; then the whole launch. `K5`: `paired_levels`
+(K5b the same way at the flagship spec with `hash_variant='paired'`, on
+the training points and on the serving chunk, the table baked with the
+paired generator's scene code of each), then `dw_shapes` of K5d's dw
+(the whole launch, each level alone, one corner, every shift 0) on a
+table uniform in [-1, 1] and a seeded normal G, at phase 8's scene code;
+`K3c`: `dw_shapes` of K3c's dw on the same tables under the xor masks.
+The same lines as phases 5, 6, 8 and 10 of `chip_smoke.py` (`[K2
+levels]`, `[K3c dw]`, `[K5d dw]`, `[K5b levels]`, `[K4a levels]`),
 without the rest of it. `--pkg_root` imports the port from another
 checkout (an unpacked older commit, say), so two versions of the kernels
 can be timed the same way in one session. Float32; needs CUDA.
@@ -32,7 +41,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument('--scene_size', type=int, default=1024)
     p.add_argument('--seed', type=int, default=8888)
-    p.add_argument('--only', choices=['K2', 'K4a'], default=None)
+    p.add_argument('--only', choices=['K2', 'K4a', 'K5', 'K3c'],
+                   default=None)
     p.add_argument('--pkg_root', default=REPO,
                    help='directory that holds the scenedreamer_tpu_torch '
                         'package to time (default: this checkout)')
@@ -96,14 +106,39 @@ def main(argv=None):
                      hg._scales(spec, dev), hg._offset(spec), oob, dev)
         del table3, baked
         torch.cuda.empty_cache()
+    # the training batch of `chip_smoke.py` phase 6
+    tcfg = GeneratorConfig()
+    hw = cs.TRAIN_CROP + tcfg.pad
+    batch = make_batch(world, batch_size=1, height=hw, width=hw,
+                       max_samples=tcfg.num_blocks_early_stop, pad=tcfg.pad,
+                       seed=a.seed, device=dev, voxel=voxel)
+    if a.only in (None, 'K5'):
+        cs.paired_levels(torch, kernels, hg,
+                         GeneratorConfig(hash_variant='paired'), batch,
+                         fields, world.dims, chunk, dev)
+        torch.cuda.empty_cache()
+    if a.only in (None, 'K5', 'K3c'):
+        gen = torch.Generator(device=dev).manual_seed(a.seed)
+        spec = tcfg.hash_spec
+        table3 = (torch.rand((spec.table_size, spec.level_dim), generator=gen,
+                             device=dev) * 2 - 1).reshape(spec.num_levels,
+                                                          -1, spec.level_dim)
+        grad = torch.randn(table3.shape, generator=gen, device=dev)
+        scene = torch.tensor([0.31, -0.47], device=dev)
+        for only, tag, variant, launch in (
+                ('K5', 'K5d', 'paired', kernels.hash_shift_bake_dw),
+                ('K3c', 'K3c', 'xor', kernels.hash_bake_dw)):
+            if a.only in (None, only):
+                masks = hg.scene_fold_weights(
+                    GeneratorConfig(hash_variant=variant).hash_spec,
+                    scene)[0]
+                cs.dw_shapes(torch, tag, launch, table3, grad,
+                             masks.to(torch.int32).contiguous())
+        del table3, grad
+        torch.cuda.empty_cache()
     if a.only in (None, 'K4a'):
         ucfg = GeneratorConfig(hash_log2_size=cs.LOG2_UNFOLDED)
         umodel = SceneDreamerGenerator(ucfg, seed=a.seed).to(dev).eval()
-        hw = 256 + ucfg.pad
-        batch = make_batch(world, batch_size=1, height=hw, width=hw,
-                           max_samples=ucfg.num_blocks_early_stop,
-                           pad=ucfg.pad, seed=a.seed, device=dev,
-                           voxel=voxel)
         with torch.no_grad():
             tcode = umodel.world_code(batch['height_field'],
                                       batch['semantic_field'])[0]

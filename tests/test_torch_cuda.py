@@ -209,24 +209,33 @@ def test_hash_backward_kernels_match_plain(cuda, levels, channels):
     assert torch.isfinite(ds).all() and (ds != 0).any()
 
 
-@pytest.mark.parametrize('levels,channels,log2', [(4, 4, 14), (16, 8, 14),
-                                                  (4, 8, 8)])
+@pytest.mark.parametrize('levels,channels,log2', [
+    (4, 4, 14), (16, 8, 14), (4, 8, 8), (1, 4, 8), (1, 8, 14), (16, 4, 8)])
 def test_paired_hash_kernels_match_plain(cuda, levels, channels, log2):
     """K5 (a)-(d) against the plain versions, tolerances as K2 / K3: bake
-    and encode 1e-6 (same float32 operations in the same order), G and dT
-    per slot 1e-5 of the sum of absolute contributions + 1e-7 (atomics),
-    dw rtol 1e-5 (float64 sums), dxyz 1e-4 of its largest magnitude. The
-    2^8-row table makes pairs that wrap at the last row common."""
+    1e-6; the encode K5b equal (error 0: the same float32 operations in
+    the same order), zeros at points outside the bounds, which lie among
+    in-bounds points of the same warp, and everywhere under an
+    out-of-bounds scene code; G and dT per slot 1e-5 of the sum of
+    absolute contributions + 1e-7 (atomics), dw rtol 1e-5 (float64 sums),
+    dxyz 1e-4 of its largest magnitude. The point count is no multiple of
+    a block; the 2^8-row tables make pairs that wrap at the last row
+    common."""
+    # one level: the finest level of the others
+    res = dict(desired_resolution=2048) if levels > 1 \
+        else dict(base_resolution=2048)
     spec = hg.HashGridSpec.create(input_dim=5, num_levels=levels,
                                   level_dim=channels,
                                   log2_hashmap_size=log2,
-                                  desired_resolution=2048,
-                                  hash_variant='paired')
+                                  hash_variant='paired', **res)
     gen = torch.Generator(device=cuda).manual_seed(2)
+    n = 50003
     table = torch.rand((spec.table_size, channels), generator=gen,
                        device=cuda) * 2 - 1
-    xyz = torch.rand((50000, 3), generator=gen, device=cuda) * 2.2 - 1.1
-    g = torch.randn((50000, levels * channels), generator=gen, device=cuda)
+    xyz = torch.rand((n, 3), generator=gen, device=cuda) * 2.2 - 1.1
+    xyz[:4] = torch.tensor([-1.0, 1.0, 0.0, 1.0], device=cuda)[:, None]
+    xyz[4], xyz[5] = 0.25, 1.5
+    g = torch.randn((n, levels * channels), generator=gen, device=cuda)
     scene = torch.tensor([0.3, -0.6], device=cuda)
     shifts, weights, oob = hg.scene_fold_weights(spec, scene)
     shifts32 = shifts.to(torch.int32)
@@ -239,8 +248,17 @@ def test_paired_hash_kernels_match_plain(cuda, levels, channels, log2):
         atol=1e-6)
     got = kernels.hash_encode_paired(baked, xyz, scales, off, 1.0, oob)
     want = hg.paired_encode_plain(baked, xyz, scales, off, 1.0, oob)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert torch.equal(got, want)
     assert want.abs().max() > 0.1
+    outside = (xyz.abs() > 1.0).any(-1)
+    assert outside[5] and not outside[:5].any() and (got[outside] == 0).all()
+    assert (kernels.hash_encode_paired(baked, xyz, scales, off, 1.0, True)
+            == 0).all()
+    if log2 == 8:       # pairs whose base is the last row wrap to row 0
+        x01 = ((xyz + 1.0) / 2.0)[~outside]
+        assert any(int((hg._corners(x01, scales[lv], off, slots,
+                                    'paired')[0][0] == slots - 1).sum())
+                   for lv in range(levels))
 
     k_grad, k_dxyz = kernels.hash_encode_paired_bwd(
         g, xyz, scales, off, 1.0, oob, slots, baked)
@@ -276,6 +294,30 @@ def test_paired_hash_kernels_match_plain(cuda, levels, channels, log2):
     assert ((dt.reshape(table3.shape) - p_dt).abs()
             <= 1e-5 * abs_dt + 1e-7).all()
     assert torch.isfinite(ds).all() and (ds != 0).any()
+
+
+@pytest.mark.parametrize('levels,slots,channels,corners', [
+    (16, 1 << 14, 8, 4), (3, 16, 4, 1), (2, 1 << 10, 8, 8), (5, 1 << 12, 4, 3),
+    (4, 1 << 9, 8, 2)])
+def test_shift_bake_dw_matches_plain_and_repeats(cuda, levels, slots,
+                                                 channels, corners):
+    """K5 (d)'s dw against its plain version, rtol 1e-5 (float64 sums on
+    both sides, in another order), and bitwise equal across two launches
+    (a fixed reduction order). 1 to 8 corners, shifts of 0 and S - 1, a
+    level smaller than one block's span (16 rows) and the test's widest
+    shape, 16 x 2^14 x 8."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    table3 = torch.rand((levels, slots, channels), generator=gen,
+                        device=cuda) * 2 - 1
+    grad = torch.randn((levels, slots, channels), generator=gen, device=cuda)
+    shifts = torch.randint(0, slots, (levels, corners), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    shifts[::2, 0] = 0
+    shifts[1::2, -1] = slots - 1
+    got = kernels.hash_shift_bake_dw(table3, grad, shifts)
+    want = hg.shift_bake_dw_plain(table3, grad, shifts.long())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    assert torch.equal(kernels.hash_shift_bake_dw(table3, grad, shifts), got)
 
 
 @pytest.mark.parametrize('kw', [

@@ -309,6 +309,46 @@ def test_paired_scatter_split_checks_its_arguments():
                                              16)
 
 
+def test_paired_encode_and_dw_check_their_arguments(monkeypatch):
+    """K5b's and K5d's wrappers refuse what their kernels do not take
+    before they build or launch anything, on the CPU too: C not in
+    {4, 8}, S not a power of two, S * C above 2^32 (the kernels' 32-bit
+    row offsets), more than 8 corners and mismatched shapes; tensors of
+    the right shapes off the card are refused next."""
+    from scenedreamer_tpu_torch import kernels
+
+    def no_build():
+        raise AssertionError('a wrapper built the kernels')
+    monkeypatch.setattr(kernels, 'build', no_build)
+    xyz, scales = torch.zeros((4, 3)), torch.ones(2)
+    for baked, x, s, match in (
+            (torch.zeros((2, 16, 6)), xyz, scales, 'C in'),
+            (torch.zeros((2, 12, 8)), xyz, scales, 'power-of-two S'),
+            (torch.zeros((2, 16, 8)), torch.zeros((4, 2)), scales, r'\[N, 3\]'),
+            (torch.zeros((2, 16, 8)), xyz, torch.ones(3), r'\[L\] scales'),
+            (torch.zeros((16, 8)), xyz, scales, r'\[L, S, C\]'),
+            (torch.zeros((1, 1, 8)).expand(1, 1 << 30, 8), xyz, scales[:1],
+             r'2\^32'),
+            (torch.zeros((2, 16, 8)), xyz, scales, 'CUDA tensor')):
+        with pytest.raises(ValueError, match=match):
+            kernels.hash_encode_paired(baked, x, s, 0.5, 1.0, False)
+    table = torch.zeros((2, 16, 8))
+    shifts = torch.zeros((2, 4), dtype=torch.int32)
+    for t, g, m, match in (
+            (torch.zeros((2, 16, 6)), torch.zeros((2, 16, 6)), shifts,
+             'C in'),
+            (torch.zeros((2, 12, 8)), torch.zeros((2, 12, 8)), shifts,
+             'power-of-two S'),
+            (table, table, torch.zeros((2, 9), dtype=torch.int32),
+             'A<=8'),
+            (table, torch.zeros((2, 8, 8)), shifts, 'equal'),
+            (table, table, torch.zeros((3, 4), dtype=torch.int32), 'equal'),
+            (table, table, torch.zeros(4, dtype=torch.int32), r'\[L, A\]'),
+            (table, table, shifts, 'CUDA tensor')):
+        with pytest.raises(ValueError, match=match):
+            kernels.hash_shift_bake_dw(t, g, m)
+
+
 def test_kernel_builds_hash_the_headers_they_include():
     """Every header a kernel source includes is hashed into that source's
     library name (`kernels.HEADERS`), so a changed `scatter_accum.cuh`
