@@ -24,9 +24,15 @@ of the repository. Phases, each fatal on failure:
      (float32 sums; the bake is expected exact);
   4. the main path: `render_trajectory` renders 2 frames at the
      flagship width and the inference defaults (540x960, 40 samples,
-     M=6, pad 30; MLP 256, CNN 256, feature 64) with random seeded
-     weights; every frame must be finite and in [-1, 1], and every
-     kernel's launch count must rise during the render;
+     M=6, pad 30; MLP 256, CNN 256, feature 64; the sky skip and exact
+     sky-ray compaction on) with random seeded weights; every frame must
+     be finite and in [-1, 1], and every kernel's launch count must rise
+     during the render; then 2 timed frames of the same path, each with
+     its rays, rays with a hit, field chunks by path (sky only /
+     compacted / full) and field points, and one timed frame with the
+     sky skip and compaction off, held against the compacted frame:
+     image within 1e-3, depth within 1e-3 where finite and inf on the
+     same rays;
   5. timing (CUDA events, median of 5, L2 flushed before each run) of
      each kernel and its plain version at the main path's shapes, with
      the bound the card could reach; and K2b split by level on phase
@@ -62,6 +68,10 @@ of the repository. Phases, each fatal on failure:
      gradient norms must be finite, the hash table, the world encoder
      and a D conv must move, and every kernel's launch count must rise;
      s/iteration, rays/s (forward + backward) and peak memory printed;
+     then one `train_step_shared` with `compact_k` against the same step
+     without it on twin trainers from one seed ('[train compact]': the
+     batch's top quarter of rows forced to sky; losses within 1e-5
+     relative, gradient norms 1e-4, parameters 1e-5);
   8. K5 (the paired hash variant: shift bake, paired encode, paired
      scatter, dT shift bake, dw reduction) against its plain versions at
      the flagship spec with `hash_variant='paired'` on the sample points
@@ -108,9 +118,10 @@ of the repository. Phases, each fatal on failure:
  11. the paths through K4: the flagship generator at `hash_log2_size=21`
      with seeded weights renders 1 frame through `render_trajectory`
      (540x960, 40 samples, pad 30; finite, in [-1, 1], K4 (a) launched
-     once per field chunk, no K4 (b) and no K2/K3/K5 launch) and one more
-     timed frame; 1 warm-up and 2 timed `train_step_shared` at that
-     width (K4 (a) and (b) once each per step); then
+     once per field chunk that is not pure sky, no K4 (b) and no
+     K2/K3/K5 launch) and one more timed frame; 1 warm-up and 2 timed
+     `train_step_shared` at that width (K4 (a) and (b) once each per
+     step); then
      `scenedreamer_tpu_torch.cli.train.main` on
      configs/scenedreamer_train.yaml with `gen.hash_log2_size: 21` (xor;
      phase 9's terrain cache and PNG pairs; batch 1) for 4 iterations
@@ -216,6 +227,29 @@ def sample_points(batch, cfg, dims):
              batch['cam_ori'][0])
     dims_t = torch.tensor(dims, dtype=torch.float32, device=wc.device)
     return (wc / dims_t * 2.0 - 1.0).reshape(-1, 3).contiguous()
+
+
+def timed_frame(torch, renderer, pose, z):
+    """One synchronised `renderer.frame` on the host clock: (seconds,
+    image, aux)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img, aux = renderer.frame(pose, z, return_aux=True)
+    torch.cuda.synchronize()
+    return time.time() - t0, img, aux
+
+
+def log_frame_stats(tag, stats, secs):
+    """Phase 4's line per frame: rays, rays with a hit, the field chunks
+    by path (sky only / compacted / full) and the field's rays and
+    points."""
+    log(f'[main] frame, compaction {tag}: {secs:.3f} s, {stats["rays"]} '
+        f'rays, {stats["hit_rays"]} with a hit; chunks '
+        f'sky only {stats["chunks_sky_only"]}, compacted '
+        f'{stats["chunks_compacted"]}, full {stats["chunks_full"]}; field '
+        f'rays {stats["field_rays"]} '
+        f'({stats["field_rays"] / stats["rays"]:.3f}), field points '
+        f'{stats["field_points"]}')
 
 
 def frame_rays(torch, world, dev):
@@ -1128,6 +1162,66 @@ def train_path(torch, kernels, cfg, world, voxel, dev):
                 peak_gb=peak_gb, rays=hw * hw)
 
 
+def train_compact(torch, cfg, world, voxel, dev):
+    """Phase 7, compaction: twin trainers from one seed take one
+    `train_step_shared` on one batch with the same draws, one with
+    `compact_k`, one without. The batch's top quarter of image rows is
+    forced to hit nothing (as the CPU tests force a sky block), and K is
+    the rays whose first slot hits, rounded up as the renderer rounds.
+    Losses within 1e-5 relative, gradient norms 1e-4, parameters within
+    1e-5 except where a gradient is below 1e-5 (Adam with beta1 = 0 moves
+    those by up to their learning rate whichever way the rounding tips
+    it)."""
+    from scenedreamer_tpu_torch.data.synthetic import make_batch
+    from scenedreamer_tpu_torch.render.pipeline import COMPACT_GRANULE
+    hw = TRAIN_CROP + cfg.pad
+    batch = make_batch(world, batch_size=1, height=hw, width=hw,
+                       max_samples=cfg.num_blocks_early_stop, pad=cfg.pad,
+                       seed=SEED, device=dev, voxel=voxel)
+    natural = float(batch['hit_mask'][..., 0].float().mean())
+    batch['hit_mask'] = batch['hit_mask'].clone()
+    batch['hit_mask'][:, :hw // 4] = False
+    n_hit = int(batch['hit_mask'][..., 0].sum())
+    k = -(-n_hit // COMPACT_GRANULE) * COMPACT_GRANULE
+    assert k < hw * hw, 'no ray to drop'
+    runs = []
+    for ck in (None, k):
+        trainer = make_trainer(cfg, world.dims, dev)
+        draws = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = trainer.train_step_shared(batch, draws, compact_k=ck)
+        torch.cuda.synchronize()
+        runs.append((trainer, m, time.time() - t0))
+    (ta, ma, sa), (tb, mb, sb) = runs
+    rel = {n: abs(mb[n] - ma[n]) / max(abs(ma[n]), 1e-30) for n in ma}
+    loss_rel = max(v for n, v in rel.items() if not n.endswith('grad_norm'))
+    norm_rel = max(v for n, v in rel.items() if n.endswith('grad_norm'))
+    lr_of = {id(p): g['lr'] for o in (ta.g_opt, ta.d_opt)
+             for g in o.opt.param_groups for p in g['params']}
+    worst, loose, total, max_err = -math.inf, 0, 0, 0.0
+    with torch.no_grad():
+        for mod_a, mod_b in ((ta.gen, tb.gen), (ta.dis, tb.dis)):
+            for pa, pb in zip(mod_a.parameters(), mod_b.parameters()):
+                err = (pa - pb).abs()
+                flat = pa.grad.abs() < 1e-5
+                limit = torch.where(flat, 2 * lr_of[id(pa)] + 1e-5, 1e-5)
+                worst = max(worst, float((err - limit).max()))
+                loose += int((flat & (err > 1e-5)).sum())
+                total += err.numel()
+                max_err = max(max_err, float(err.max()))
+    log(f'[train compact] {hw}x{hw} rays, {natural:.3f} hit before the top '
+        f'{hw // 4} rows were cleared, {n_hit} after; compact_k {k}: one '
+        f'train_step_shared {sb:.3f} s against {sa:.3f} s without; losses '
+        f'max rel diff {loss_rel:.3g} (tolerance 1e-5), gradient norms '
+        f'{norm_rel:.3g} (1e-4); parameters max abs diff {max_err:.3g}, '
+        f'worst margin {worst:.3g} (<= 0 passes: 1e-5, or 2 lr + 1e-5 '
+        f'where |grad| < 1e-5, {loose} of {total} such)')
+    assert loss_rel <= 1e-5, 'the compacted step\'s losses differ'
+    assert norm_rel <= 1e-4, 'the compacted step\'s gradient norms differ'
+    assert worst <= 0, 'the compacted step\'s update differs'
+
+
 class _Tee:
     """Writes to the real stdout and keeps a copy."""
 
@@ -1453,24 +1547,24 @@ def general_render(torch, kernels, model, world, style, dev):
     assert np.isfinite(img).all(), 'non-finite frame'
     assert np.abs(img).max() <= 1.0, 'frame outside [-1, 1]'
     assert counts['dda'] > 0, 'K1 never launched'
-    assert counts['hash_encode_general'] == chunks, \
-        f'K4 (a) launched {counts["hash_encode_general"]} times, not once ' \
-        f'per field chunk ({chunks})'
     for name in ('hash_encode_general_bwd',) + XOR + PAIRED:
         assert counts[name] == 0, f'the unfolded serving path launched {name}'
     renderer = TiledRenderer(model, world, num_samples=SAMPLES,
                              num_blocks_early_stop=M, pad=PAD,
                              resolution_hw=RES, device=dev)
     z = renderer.style_z(style.numpy())
+    # the pose of the frame above
     pose = EvalCameraController(world, maxstep=1, pattern=4, cam_ang=72,
                                 smooth_decay_multiplier=150.0)[0]
-    torch.cuda.synchronize()
-    t0 = time.time()
-    renderer.frame(pose, z)
-    torch.cuda.synchronize()
-    spf = time.time() - t0
+    spf, _, _ = timed_frame(torch, renderer, pose, z)
+    log_frame_stats('on, unfolded', renderer.last_stats, spf)
+    field_chunks = chunks - renderer.last_stats['chunks_sky_only']
+    assert counts['hash_encode_general'] == field_chunks, \
+        f'K4 (a) launched {counts["hash_encode_general"]} times, not once ' \
+        f'per chunk that runs the field ({field_chunks} of {chunks})'
     log(f'[unfolded] steady state: {spf:.3f} s/frame at {h}x{w} rays, '
-        f'{SAMPLES} samples ({chunks} field chunks)')
+        f'{SAMPLES} samples ({chunks} chunks, {field_chunks} through the '
+        f'field)')
     return dict(counts=counts, n_frames=1, chunks=chunks, s_per_frame=spf,
                 peak_gb=peak_gb)
 
@@ -1834,17 +1928,47 @@ def main():
                              num_blocks_early_stop=M, pad=PAD,
                              resolution_hw=RES, device=dev)
     z = renderer.style_z(style.numpy())
-    frame_s = []
+    # steady state, the sky skip and compaction on (the defaults), then
+    # one frame with both off: every chunk through the field
+    frame_s, shots = [], []
     for pose in ctl:
-        torch.cuda.synchronize()
-        t0 = time.time()
-        renderer.frame(pose, z)
-        torch.cuda.synchronize()
-        frame_s.append(time.time() - t0)
+        secs, img, aux = timed_frame(torch, renderer, pose, z)
+        frame_s.append(secs)
+        shots.append((img, aux, dict(renderer.last_stats)))
+        log_frame_stats('on', renderer.last_stats, secs)
     spf = statistics.mean(frame_s)
+    os.environ['SCENEDREAMER_FIELD_COMPACT'] = '0'
+    try:
+        full = TiledRenderer(model, world, num_samples=SAMPLES,
+                             num_blocks_early_stop=M, pad=PAD,
+                             resolution_hw=RES, device=dev, sky_fast=False)
+    finally:
+        del os.environ['SCENEDREAMER_FIELD_COMPACT']
+    off_s, img_off, aux_off = timed_frame(torch, full, ctl[0], z)
+    log_frame_stats('off', full.last_stats, off_s)
+    stats_off = dict(full.last_stats)
+    del full
+    img_on, aux_on, stats_on = shots[0]
+    frame_err = float(np.abs(img_on - img_off).max())
+    d_on, d_off = aux_on['depth'], aux_off['depth']
+    fin = np.isfinite(d_off)
+    same_sky = bool((np.isfinite(d_on) == fin).all())
+    depth_err = float(np.abs(d_on[fin] - d_off[fin]).max()) if fin.any() \
+        else 0.0
+    log(f'[main] compaction on against off, frame 0: image max abs diff '
+        f'{frame_err:.3g} (tolerance 1e-3, the frames\' limit: the field\'s '
+        f'GEMMs run on fewer rows and may round otherwise), depth max abs '
+        f'diff where finite {depth_err:.3g} (tolerance 1e-3), inf on the '
+        f'same rays: {same_sky}')
+    assert frame_err <= 1e-3, 'the compacted frame differs from the full one'
+    assert same_sky, 'compaction changed which rays see only sky'
+    assert depth_err <= 1e-3, 'the compacted depth differs from the full one'
+    assert stats_on['field_rays'] < stats_off['field_rays'], \
+        'compaction evaluated every ray'
     log(f'[main] steady state: {spf:.3f} s/frame ({frame_s}), '
         f'{h * w / spf:.0f} rays/s at {h}x{w} rays, {RES[0]}x{RES[1]} '
-        f'output, {SAMPLES} samples')
+        f'output, {SAMPLES} samples; compaction and sky skip off '
+        f'{off_s:.3f} s/frame')
 
     # 5. kernel timings ----------------------------------------------------
     n_frames = len(frames)
@@ -1923,6 +2047,8 @@ def main():
 
     # 7. the training path -------------------------------------------------
     train = train_path(torch, kernels, tcfg, world, voxel, dev)
+    torch.cuda.empty_cache()
+    train_compact(torch, tcfg, world, voxel, dev)
     torch.cuda.empty_cache()
 
     # 8. K5 vs plain -------------------------------------------------------

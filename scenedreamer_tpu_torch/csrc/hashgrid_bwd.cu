@@ -1,6 +1,6 @@
 // Scene-folded hash-grid encode, backward (K3), for Hopper: the table
-// scatter on two paths, the dw reduction, plus the forward's bake kernel
-// reused.
+// scatter on two paths and the dw reduction, each on a skeleton shared
+// with K5, plus the forward's bake kernel reused.
 //
 // Replaces the backward of the JAX package's
 // `scenedreamer_tpu/ops/hashgrid.py:hashgrid_encode_folded`:
@@ -39,12 +39,11 @@
 //      wrapper counts that launch as 'hash_bake_bwd').
 //  (c) sd_hash_bake_dw: dw_{l,a} = sum_{j,c} T_l[j ^ m_a, c] * G_l[j, c],
 //      the gradient of the scene-fold weights (how the world encoder's
-//      scene code trains). Blocks of one level stride over its S*C/4
-//      float4s and keep one float64 partial sum per corner; a block
-//      reduces them in shared memory into a [L, A, blocks] scratch, and a
-//      second kernel sums each (l, a) row in block order. The sum order is
-//      fixed, so dw is deterministic; float64 products and sums make it
-//      exact to float32 rounding of the result.
+//      scene code trains): `bake_dw.cuh`'s persistent grid, which walks
+//      the levels in order with float64 sums per warp and a fixed-order
+//      finish, so dw is deterministic; this file gives the xor window
+//      (`XorWindow`: float4 i reads T's float4 i ^ (m_a C/4)), K5d the
+//      shift one.
 //
 // What bounds it: (a) moves g's in-bounds rows, xyz and G once (0.338
 // ms on an H100 for the 1,647,456 points of a 262x262x24 training crop
@@ -61,21 +60,23 @@
 // camera's 388,200 coincident samples (rays that hit nothing) pile onto
 // single rows, which it sums on chip before one global add. (c) streams
 // G once and reads T through 4 xor permutations of 32-byte rows that
-// stay within one level's 16 MB (L2 resident), so device-memory bytes
-// bound it.
+// stay within one level's 16 MB (L2 resident while the grid walks that
+// level), so device-memory bytes bound it: 0.160 ms for T and G once.
+// On `bake_dw.cuh` it takes 0.26 ms, 0.20 with one corner, on an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md); a grid of 256 blocks per level,
+// with several levels in flight, its sums in local memory and a 64-bit
+// division per float4, took 0.35.
 //
 // C ABI (ctypes): each entry point returns cudaGetLastError().
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bake_dw.cuh"
 #include "scatter_accum.cuh"
 
 namespace {
 
 namespace sa = scatter_accum;
-
-constexpr int kMaxCorners = 8;
-constexpr int kDwThreads = 256;
 
 // K3a's corners under the xor hash (`sa::launch_folded_bwd`'s policy):
 // the cell, taps and per-dimension corner hashes of point n at one level,
@@ -122,59 +123,14 @@ struct XorCorners {
   }
 };
 
-__global__ void bake_dw_partial_kernel(const float4* __restrict__ table,
-                                       const float4* __restrict__ grad,
-                                       const int* __restrict__ masks,
-                                       double* __restrict__ partial,
-                                       long long slots, int c4, int corners,
-                                       int blocks) {
-  __shared__ double red[kDwThreads];
-  const int l = blockIdx.y;
-  const long long per_level = slots * c4;
-  const float4* tl = table + (long long)l * per_level;
-  const float4* gl = grad + (long long)l * per_level;
-  long long m[kMaxCorners];
-  double acc[kMaxCorners];
-#pragma unroll
-  for (int a = 0; a < kMaxCorners; ++a) {
-    m[a] = a < corners ? (long long)masks[l * corners + a] : 0;
-    acc[a] = 0.0;
+// K3c's window (`bake_dw::launch_dw`'s policy): float4 i of a level's G
+// meets float4 i ^ off of its T, off = (m_a & (S-1)) * C/4.
+struct XorWindow {
+  __device__ __forceinline__ static unsigned src(unsigned i, unsigned off,
+                                                 unsigned) {
+    return i ^ off;
   }
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < per_level; i += (long long)blocks * blockDim.x) {
-    const long long j = i / c4;
-    const int q = (int)(i % c4);
-    const float4 gv = gl[i];
-#pragma unroll
-    for (int a = 0; a < kMaxCorners; ++a) {
-      if (a >= corners) break;
-      const float4 tv = tl[(j ^ m[a]) * c4 + q];
-      acc[a] += (double)tv.x * (double)gv.x + (double)tv.y * (double)gv.y
-              + (double)tv.z * (double)gv.z + (double)tv.w * (double)gv.w;
-    }
-  }
-  for (int a = 0; a < corners; ++a) {
-    red[threadIdx.x] = acc[a];
-    __syncthreads();
-    for (int stride = blockDim.x / 2; stride > 0; stride >>= 1) {
-      if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
-      __syncthreads();
-    }
-    if (threadIdx.x == 0)
-      partial[((long long)l * corners + a) * blocks + blockIdx.x] = red[0];
-    __syncthreads();
-  }
-}
-
-__global__ void bake_dw_finish_kernel(const double* __restrict__ partial,
-                                      float* __restrict__ dw, int rows,
-                                      int blocks) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  double s = 0.0;
-  for (int b = 0; b < blocks; ++b) s += partial[(long long)i * blocks + b];
-  dw[i] = (float)s;
-}
+};
 
 }  // namespace
 
@@ -201,26 +157,17 @@ int sd_hash_encode_bwd(const float* g, const float* xyz, const float* scales,
       (cudaStream_t)stream);
 }
 
-// table, grad: [levels, slots, channels] f32, channels % 4 == 0;
-// masks [levels, corners] i32, corners <= 8; partial: scratch of
-// levels*corners*blocks f64; dw [levels, corners] f32.
+// table, grad: [levels, slots, channels] f32, channels 4 or 8, slots a
+// power of two, slots * channels <= 2^32; masks [levels, corners] i32,
+// corners <= 8; blocks: the grid, all resident at once; partial: scratch
+// of levels*corners*blocks*8 f64 (one per warp); dw [levels, corners]
+// f32.
 int sd_hash_bake_dw(const float* table, const float* grad, const int* masks,
                     double* partial, float* dw, int levels, long long slots,
                     int channels, int corners, int blocks, void* stream) {
-  if (corners < 1 || corners > kMaxCorners || channels % 4 || blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((unsigned)blocks, (unsigned)levels);
-  bake_dw_partial_kernel<<<grid, kDwThreads, 0, s>>>(
-      reinterpret_cast<const float4*>(table),
-      reinterpret_cast<const float4*>(grad), masks, partial, slots,
-      channels / 4, corners, blocks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int rows = levels * corners;
-  bake_dw_finish_kernel<<<(rows + 127) / 128, 128, 0, s>>>(partial, dw, rows,
-                                                           blocks);
-  return (int)cudaGetLastError();
+  return bake_dw::launch_dw<XorWindow>(table, grad, masks, partial, dw,
+                                       levels, slots, channels, corners,
+                                       blocks, (cudaStream_t)stream);
 }
 
 const char* sd_error_string(int err) {

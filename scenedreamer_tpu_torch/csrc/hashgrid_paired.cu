@@ -51,10 +51,11 @@
 //      With B both also add the gradient through frac to dxyz, the 8
 //      rows taken as corners (x_bit, y_bit, z_bit).
 //  (d) sd_hash_shift_bake_dw: dw_{l,a} = sum_{j,c} T_l[(j+m_a)&(S-1), c]
-//      * G_l[j, c]; a persistent grid walks the levels in order, each
-//      block a contiguous span of G and the same span of T shifted by
-//      each m_a, float64 sums per warp, then summed in a fixed order by a
-//      second kernel, so dw is deterministic.
+//      * G_l[j, c]: `bake_dw.cuh`'s persistent grid, shared with K3c,
+//      which walks the levels in order, each block a contiguous span of G
+//      and the same span of T through each corner's window, float64 sums
+//      per warp, then summed in a fixed order by a second kernel, so dw
+//      is deterministic; this file gives the shift window (`ShiftWindow`).
 //
 // What bounds them, on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6;
 // the per-level split of `scripts/torch_encode_levels.py --only K5`). (a) and (d) stream one table and read another through 4 shifted
@@ -98,15 +99,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bake_dw.cuh"
 #include "scatter_accum.cuh"
 
 namespace {
 
 namespace sa = scatter_accum;
 
-constexpr int kMaxCorners = 8;
-constexpr int kDwThreads = 256;
-constexpr int kDwWarps = kDwThreads / 32;
 constexpr unsigned kP1 = 2654435761u;
 constexpr unsigned kP2 = 805459861u;
 
@@ -251,93 +250,18 @@ struct PairedCorners {
   }
 };
 
-// A persistent grid of `gridDim.x` blocks walks the levels in order; at
-// each level block b takes the contiguous float4s [b P / B, (b+1) P / B)
-// of G (P = slots * C / 4) and, for each corner a, the same span of T
-// shifted by m_a rows, cyclic. All blocks work on one level at a time,
-// so the level's T (16 MB at 2^19 x 8) stays in L2 while its A windows
-// pass over it; G streams past it (`__ldcs`, evict first). Device memory
-// then moves T and G once each. Each G value becomes a double once; a
-// product of two floats is exact in float64, so each is added with one
-// float64 fused multiply-add, rounded as a separate product and sum
-// would be. Each warp's sums go to its own partial[(l * A + a) * W + w]
-// (W the grid's warps), without a barrier, so no warp waits for the
-// others at a level's end. The caller's B = 4 blocks per SM of an H100
-// (the launch bounds keep a thread within 64 registers) are resident at
-// once; no block waits on another, so a grid that is not gives the same
-// dw, only later. Needs slots * C <= 2^32 (checked by the launcher), for
-// 32-bit offsets.
-__global__ void __launch_bounds__(kDwThreads, 4) shift_dw_partial_kernel(
-    const float4* __restrict__ table, const float4* __restrict__ grad,
-    const int* __restrict__ shifts, double* __restrict__ partial,
-    int levels, long long slots, int c4, int corners) {
-  const unsigned per_level = (unsigned)(slots * c4);
-  const unsigned lo = (unsigned)((unsigned long long)per_level * blockIdx.x
-                                 / gridDim.x);
-  const unsigned hi = (unsigned)((unsigned long long)per_level
-                                 * (blockIdx.x + 1) / gridDim.x);
-  const unsigned warps = gridDim.x * kDwWarps;
-  const unsigned warp = blockIdx.x * kDwWarps + threadIdx.x / 32;
-  for (int l = 0; l < levels; ++l) {
-    const float4* tl = table + (long long)l * per_level;
-    const float4* gl = grad + (long long)l * per_level;
-    unsigned off[kMaxCorners];
-    double acc[kMaxCorners];
-#pragma unroll
-    for (int a = 0; a < kMaxCorners; ++a) {
-      off[a] = a < corners
-                   ? (unsigned)((shifts[l * corners + a] & (slots - 1)) * c4)
-                   : 0u;
-      acc[a] = 0.0;
-    }
-    for (unsigned i = lo + threadIdx.x; i < hi; i += kDwThreads) {
-      const float4 gv = __ldcs(gl + i);
-      const double gx = gv.x, gy = gv.y, gz = gv.z, gw = gv.w;
-#pragma unroll
-      for (int a = 0; a < kMaxCorners; ++a) {
-        if (a >= corners) break;
-        unsigned src = i + off[a];
-        if (src >= per_level) src -= per_level;
-        const float4 tv = tl[src];
-        double s = __fma_rn((double)tv.x, gx, acc[a]);
-        s = __fma_rn((double)tv.y, gy, s);
-        s = __fma_rn((double)tv.z, gz, s);
-        acc[a] = __fma_rn((double)tv.w, gw, s);
-      }
-    }
-    // unrolled, so acc stays in registers (a loop to `corners` indexes it
-    // at run time and puts it in local memory)
-#pragma unroll
-    for (int a = 0; a < kMaxCorners; ++a) {
-      if (a >= corners) break;
-      double v = acc[a];
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
-      if (threadIdx.x % 32 == 0)
-        partial[((long long)l * corners + a) * warps + warp] = v;
-    }
+// K5d's window (`bake_dw::launch_dw`'s policy): float4 i of a level's G
+// meets float4 (i + off) mod P of its T, P = S * C/4 the level's float4s
+// and off = (m_a & (S-1)) * C/4 < P, so one conditional subtract reduces
+// it.
+struct ShiftWindow {
+  __device__ __forceinline__ static unsigned src(unsigned i, unsigned off,
+                                                 unsigned per_level) {
+    unsigned src = i + off;
+    if (src >= per_level) src -= per_level;
+    return src;
   }
-}
-
-// One block per (level, corner) sums its `per_row` partials in a fixed
-// order: thread t the partials t, t + 256, ... in turn, then the threads
-// pairwise in shared memory, halving the stride. dw is the same on every
-// launch.
-__global__ void __launch_bounds__(kDwThreads) shift_dw_finish_kernel(
-    const double* __restrict__ partial, float* __restrict__ dw,
-    int per_row) {
-  __shared__ double red[kDwThreads];
-  const double* p = partial + (long long)blockIdx.x * per_row;
-  double s = 0.0;
-  for (int i = threadIdx.x; i < per_row; i += kDwThreads) s += p[i];
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int stride = kDwThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) dw[blockIdx.x] = (float)red[0];
-}
+};
 
 }  // namespace
 
@@ -416,19 +340,9 @@ int sd_hash_shift_bake_dw(const float* table, const float* grad,
                           const int* shifts, double* partial, float* dw,
                           int levels, long long slots, int channels,
                           int corners, int blocks, void* stream) {
-  if (corners < 1 || corners > kMaxCorners || (channels != 4 && channels != 8)
-      || blocks < 1 || slots * channels > (1ll << 32))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  shift_dw_partial_kernel<<<(unsigned)blocks, kDwThreads, 0, s>>>(
-      reinterpret_cast<const float4*>(table),
-      reinterpret_cast<const float4*>(grad), shifts, partial, levels, slots,
-      channels / 4, corners);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  shift_dw_finish_kernel<<<levels * corners, kDwThreads, 0, s>>>(
-      partial, dw, blocks * kDwWarps);
-  return (int)cudaGetLastError();
+  return bake_dw::launch_dw<ShiftWindow>(table, grad, shifts, partial, dw,
+                                         levels, slots, channels, corners,
+                                         blocks, (cudaStream_t)stream);
 }
 
 const char* sd_error_string(int err) {

@@ -36,7 +36,9 @@ SOURCES = {'dda': 'dda.cu', 'hashgrid_fwd': 'hashgrid_fwd.cu',
            'hashgrid_bwd': 'hashgrid_bwd.cu',
            'hashgrid_paired': 'hashgrid_paired.cu',
            'hashgrid_general': 'hashgrid_general.cu'}
-HEADERS = ('scatter_accum.cuh',)    # included by the three table scatters
+# included by the three table scatters (`scatter_accum.cuh`) and by the
+# two dw reductions (`bake_dw.cuh`)
+HEADERS = ('scatter_accum.cuh', 'bake_dw.cuh')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-Xptxas=-v', '-shared', '-Xcompiler',
               '-fPIC']
@@ -77,12 +79,11 @@ for _xor, _paired in (('sd_hash_bake', 'sd_hash_shift_bake'),
                       ('sd_hash_encode_bwd', 'sd_hash_encode_paired_bwd'),
                       ('sd_hash_bake_dw', 'sd_hash_shift_bake_dw')):
     _SIGNATURES[_paired] = _SIGNATURES[_xor]
-DW_BLOCKS = 256     # blocks per level of the dw reduction (K3 (c))
-# blocks of K5 (d)'s dw reduction, a persistent grid that walks the
-# levels in order, all of it resident at once on an H100 (4 blocks of
-# 256 threads on each of its 132 SMs); each of a block's 8 warps writes
-# its own partial sums
-SHIFT_DW_BLOCKS, SHIFT_DW_WARPS = 528, 8
+# blocks of the dw reductions K3 (c) and K5 (d) (`csrc/bake_dw.cuh`), a
+# persistent grid that walks the levels in order, all of it resident at
+# once on an H100 (4 blocks of 256 threads on each of its 132 SMs); each
+# of a block's 8 warps writes its own partial sums
+DW_BLOCKS, DW_WARPS = 528, 8
 # The table scatters K3 (a), K4 (b) and K5 (c) take their coarse path
 # (`csrc/scatter_accum.cuh`: warp sums, a shared-memory table per block,
 # one global add per row and block) on the levels whose scale (the
@@ -439,9 +440,9 @@ def _encode_bwd(source, fn, counter, g, xyz, scales, offset, bound,
 def hash_bake_dw(table3, grad, masks):
     """K3 (c). table3, grad [L, S, C] float32; masks [L, A] int32 ->
     dw [L, A] float32, dw[l, a] = sum_{j,c} table3[l, j ^ m[l,a], c] *
-    grad[l, j, c] (float64 partial sums in a fixed order)."""
+    grad[l, j, c] (float64 sums in a fixed order)."""
     return _bake_dw('hashgrid_bwd', 'sd_hash_bake_dw', 'hash_bake_dw',
-                    table3, grad, masks, DW_BLOCKS)
+                    table3, grad, masks)
 
 
 def hash_shift_bake_dw(table3, grad, shifts):
@@ -449,13 +450,12 @@ def hash_shift_bake_dw(table3, grad, shifts):
     dw[l, a] = sum_{j,c} table3[l, (j + shifts[l,a]) mod S, c] *
     grad[l, j, c] (float64 sums in a fixed order)."""
     return _bake_dw('hashgrid_paired', 'sd_hash_shift_bake_dw',
-                    'hash_shift_bake_dw', table3, grad, shifts,
-                    SHIFT_DW_BLOCKS, SHIFT_DW_WARPS)
+                    'hash_shift_bake_dw', table3, grad, shifts)
 
 
-def _bake_dw(source, fn, counter, table3, grad, masks, blocks, per_block=1):
-    """`blocks` of the kernel's grid, each writing `per_block` partial
-    sums per (level, corner)."""
+def _bake_dw(source, fn, counter, table3, grad, masks):
+    """A dw reduction on `csrc/bake_dw.cuh`'s grid of DW_BLOCKS blocks,
+    each warp writing one partial sum per (level, corner)."""
     if table3.dim() != 3 or masks.dim() != 2:
         raise ValueError('bake dw needs [L, S, C] tables and [L, A] masks')
     lv, s, c = table3.shape
@@ -470,12 +470,12 @@ def _bake_dw(source, fn, counter, table3, grad, masks, blocks, per_block=1):
     _require(grad, torch.float32, 'grad')
     _require(masks, torch.int32, 'masks')
     dev = table3.device
-    partial = torch.empty(lv * a * blocks * per_block, dtype=torch.float64,
-                          device=dev)
+    partial = torch.empty(lv * a * DW_BLOCKS * DW_WARPS,
+                          dtype=torch.float64, device=dev)
     dw = torch.empty((lv, a), dtype=torch.float32, device=dev)
     _launch(source, fn, counter, dev,
             table3.data_ptr(), grad.data_ptr(), masks.data_ptr(),
-            partial.data_ptr(), dw.data_ptr(), lv, s, c, a, blocks)
+            partial.data_ptr(), dw.data_ptr(), lv, s, c, a, DW_BLOCKS)
     return dw
 
 

@@ -20,8 +20,10 @@ the port against another implementation. The hash encode is
 differentiable on both devices (`ops/hashgrid.py`: K2 forward, K3
 backward on CUDA; K5 for `hash_variant='paired'`; the general encode K4,
 forward and backward, when the spec is not foldable, e.g.
-`hash_log2_size=21`). `compact_k` sky-ray compaction waits for a later
-slice.
+`hash_log2_size=21`). `render_pixels(compact_k=K)` (and `forward`) runs
+the field on only the first K rays after a stable hits-first sort and
+scatters the per-ray results back: exact sky-ray compaction, the JAX
+package's `compact_k`.
 """
 import dataclasses
 
@@ -232,8 +234,20 @@ class SceneDreamerGenerator(nn.Module):
                       global_enc, voxel_dims, num_samples=None,
                       sample_depth_clip=None, deterministic=None,
                       sky_avg=None, sky_only=False, baked=None,
-                      generator=None):
+                      generator=None, compact_k=None):
         """Per-pixel rendering pass (`scenedreamer.py:313-430`).
+
+        `compact_k`: evaluate the hash field and the RenderMLP on only the
+        first `compact_k` rays of each batch item after a stable
+        hits-first sort, and scatter the per-ray results (weights, sigma,
+        total weight, terrain sum) back, zero on the dropped rays. Rays
+        that hit nothing have zero sample distances and are masked by
+        `sky_only_mask`, so their weights, terrain sums and field
+        gradients are exactly zero in the full path too: dropping them is
+        exact PROVIDED `compact_k` >= the number of rays whose first
+        slot hits. Sampling, the sky MLP and the sky average still run on
+        every ray, so a `generator` draws the same depths either way.
+        None, or a value >= H*W, runs the field on every ray.
 
         Args:
             voxel_id [B, H, W, M] int; depth [B, H, W, M, 2];
@@ -242,6 +256,7 @@ class SceneDreamerGenerator(nn.Module):
             voxel_dims (Y, X, Z); sky_avg optional [B, 1, 1, 1, C]
             frame-global sky average (tiled inference shares one);
             sky_only skips the field (exact for rays with no hit);
+            compact_k: see above;
             baked: `bake_hash(global_enc)`, reused across calls (None
             for a spec that is not foldable);
             generator: `torch.Generator` of the stratified draws when
@@ -274,8 +289,6 @@ class SceneDreamerGenerator(nn.Module):
 
             vid_reduced = mc2reduced(voxel_id, ign2dirt=True)  # [B,H,W,M]
             mc_masks = torch.gather(vid_reduced, -1, new_idx)
-            mc_onehot = F.one_hot(mc_masks, c.num_reduced_labels).to(
-                torch.float32)
 
         # one rounding, as the JAX op's compiled render_pixels does
         worldcoord = fma(raydirs[:, :, :, None, :], rand_depth,
@@ -286,22 +299,30 @@ class SceneDreamerGenerator(nn.Module):
         sky_mask = ~hit_mask[..., -1:]                        # [B,H,W,1]
         sky_only_mask = ~hit_mask[..., :1]
 
-        if sky_only:
-            sigma = torch.zeros((b, h, w, s, 1), device=raydirs.device)
-            feat_c = torch.zeros((b, h, w, s, c.final_feat_dim),
-                                 device=raydirs.device)
+        r_all = h * w
+        if not sky_only and compact_k is not None and compact_k < r_all:
+            weights, sigma, total_w, terrain_sum = self._compact_field(
+                int(compact_k), worldcoord, mc_masks, new_dists,
+                hit_mask, voxel_dims, global_enc, z, baked)
         else:
-            sigma, feat_c = self.field_features(
-                worldcoord, voxel_dims, global_enc, z, mc_onehot,
-                baked=baked)
-        weights = volume_rendering_relu(sigma, new_dists * c.dists_scale,
-                                        dim=-2)
-        weights = weights * (~sky_only_mask).to(weights.dtype).reshape(
-            b, h, w, 1, 1)
-        total_w = weights.sum(dim=-2, keepdim=True)           # [B,H,W,1,1]
-        # clip-mode compositing (reference scenedreamer.py:373-427)
-        terrain_sum = (weights * (torch.clamp(feat_c, -1, 1) + 1)).sum(
-            dim=-2, keepdim=True)                             # [B,H,W,1,C]
+            if sky_only:
+                sigma = torch.zeros((b, h, w, s, 1), device=raydirs.device)
+                feat_c = torch.zeros((b, h, w, s, c.final_feat_dim),
+                                     device=raydirs.device)
+            else:
+                mc_onehot = F.one_hot(mc_masks, c.num_reduced_labels).to(
+                    torch.float32)
+                sigma, feat_c = self.field_features(
+                    worldcoord, voxel_dims, global_enc, z, mc_onehot,
+                    baked=baked)
+            weights = volume_rendering_relu(
+                sigma, new_dists * c.dists_scale, dim=-2)
+            weights = weights * (~sky_only_mask).to(weights.dtype).reshape(
+                b, h, w, 1, 1)
+            total_w = weights.sum(dim=-2, keepdim=True)       # [B,H,W,1,1]
+            # clip-mode compositing (reference scenedreamer.py:373-427)
+            terrain_sum = (weights * (torch.clamp(feat_c, -1, 1) + 1)).sum(
+                dim=-2, keepdim=True)                         # [B,H,W,1,C]
 
         sky_c = self.sky_color(raydirs, z)                    # [B,H,W,1,C]
         is_gnd = (worldcoord[..., 0] <= 1.0).any(dim=-1, keepdim=True)
@@ -326,6 +347,48 @@ class SceneDreamerGenerator(nn.Module):
             'sky_only_mask': sky_only_mask,
         }
 
+    def _compact_field(self, k, worldcoord, mc_masks, new_dists, hit_mask,
+                       voxel_dims, global_enc, z, baked):
+        """`render_pixels`' field on the first `k` rays of each batch item
+        after a stable hits-first sort (the JAX package's compact_k
+        branch): the field, the compositing weights, the total weight and
+        the terrain sum on those rays, scattered back to [B, H, W, ...]
+        with zeros on the others. Returns (weights, sigma, total_w,
+        terrain_sum)."""
+        c = self.cfg
+        b, h, w, s = worldcoord.shape[:4]
+        r_all = h * w
+        miss = ~hit_mask[..., 0].reshape(b, r_all)
+        # stable sort: hitting rays first, each group in its own order
+        sel = torch.sort(miss.to(torch.uint8), dim=1,
+                         stable=True).indices[:, :k]          # [B, K]
+
+        def take(x):                          # [B, R, ...] -> [B, K, ...]
+            idx = sel.reshape((b, k) + (1,) * (x.dim() - 2))
+            return torch.gather(x, 1, idx.expand((b, k) + x.shape[2:]))
+
+        def put(x):                           # [B, K, ...] -> [B, H, W, ...]
+            idx = sel.reshape((b, k) + (1,) * (x.dim() - 2))
+            full = x.new_zeros((b, r_all) + x.shape[2:])
+            full = full.scatter(1, idx.expand(x.shape), x)
+            return full.reshape((b, h, w) + x.shape[2:])
+
+        with torch.no_grad():
+            mc_c = F.one_hot(take(mc_masks.reshape(b, r_all, s)),
+                             c.num_reduced_labels).to(torch.float32)
+            dists_c = take(new_dists.reshape(b, r_all, s, 1))
+            keep_c = take(~miss.reshape(b, r_all, 1, 1))
+        sigma_c, feat_c = self.field_features(
+            take(worldcoord.reshape(b, r_all, s, 3)), voxel_dims,
+            global_enc, z, mc_c, baked=baked)
+        w_c = volume_rendering_relu(sigma_c, dists_c * c.dists_scale,
+                                    dim=-2)
+        w_c = w_c * keep_c.to(w_c.dtype)
+        total_c = w_c.sum(dim=-2, keepdim=True)               # [B,K,1,1]
+        terrain_c = (w_c * (torch.clamp(feat_c, -1, 1) + 1)).sum(
+            dim=-2, keepdim=True)                             # [B,K,1,C]
+        return put(w_c), put(sigma_c), put(total_c), put(terrain_c)
+
     def refine(self, net_out, z):
         """RenderCNN + tanh (`gancraft_base.py:588-603`).
         net_out [B, H, W, C] -> (image [B, H, W, 3] in [-1, 1], raw)."""
@@ -333,7 +396,7 @@ class SceneDreamerGenerator(nn.Module):
         return torch.tanh(raw), raw
 
     def forward(self, data, voxel_dims, random_style=False, pad=None,
-                generator=None, style_eps=None):
+                generator=None, style_eps=None, compact_k=None):
         """The training forward (`scenedreamer.py:432-476`).
 
         data (NHWC): voxel_id [B,H,W,M] int; depth [B,H,W,M,2];
@@ -343,6 +406,7 @@ class SceneDreamerGenerator(nn.Module):
         generator: `torch.Generator` of the draws (style z or the
         reparameterisation eps first, then the stratified depths);
         style_eps [B, style_dims] replaces the style draws.
+        compact_k: `render_pixels`' exact sky-ray compaction.
 
         Returns dict with fake_images [B, H-pad, W-pad, 3] in [-1, 1],
         fake_images_raw, mu, logvar (None with a random style) and the
@@ -366,7 +430,7 @@ class SceneDreamerGenerator(nn.Module):
         out = self.render_pixels(
             data['voxel_id'], data['depth'], data['hit_mask'],
             data['raydirs'], data['cam_ori'], z, global_enc, voxel_dims,
-            generator=generator)
+            generator=generator, compact_k=compact_k)
         fake, fake_raw = self.refine(out['net_out'], z)
         if pad:
             fake = fake[:, pad // 2:-(pad // 2), pad // 2:-(pad // 2), :]

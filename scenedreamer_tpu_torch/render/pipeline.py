@@ -11,14 +11,18 @@ inference_givenstyle). Per frame:
   4. the pointwise field (depth samples -> hash encode (K2 (b) or K4) ->
      RenderMLP -> compositing) over chunks of image rows, sized to keep
      activations a few GB; the field is pointwise, so the values do not
-     depend on the chunking;
+     depend on the chunking. One fetch per frame brings the count of
+     rays with any hit in each chunk (`pipeline.py:431-448`): a chunk
+     with none skips the field (`render_pixels(sky_only=True)`, the
+     `sky_fast` path), any other runs it on only its first K rays after
+     a hits-first sort (`render_pixels(compact_k=K)`, switched by
+     SCENEDREAMER_FIELD_COMPACT, default '1'), both exact;
   5. one full-frame RenderCNN, then the pad crop;
   6. expected depth sum(w t) / sum(w), inf for sky (`pipeline.py:211-216`).
 
-Not in this slice: the sky-tile fast path and `compact_k` compaction,
-CNN row strips above 1.4 MPx, the padded-tile and mesh paths,
-tiles-per-dispatch batching, `export_tile`, style interpolation, depth
-colormaps and the mp4 writer.
+Not in this slice: CNN row strips above 1.4 MPx, the padded-tile and
+mesh paths, tiles-per-dispatch batching, `export_tile`, style
+interpolation, depth colormaps and the mp4 writer.
 """
 import os
 
@@ -42,6 +46,13 @@ BIOME_COLORS = np.array(
 # rays per field chunk: at 40 samples and 256 hidden channels one MLP
 # activation is 32768 * 41 * 256 * 4 B = 1.4 GB
 CHUNK_RAYS = 32768
+# a compacted chunk's K is its count of rays with a hit rounded up to a
+# multiple of this. PyTorch compiles nothing per shape, so any K would
+# do; whole warps of rays keep the field's rows (K x samples) a multiple
+# of 32 for the GEMMs and bound the distinct activation sizes the
+# caching allocator sees, for at most 31 extra rays a chunk (0.1% of a
+# 32,670-ray serving chunk)
+COMPACT_GRANULE = 32
 
 
 def to_uint8(img):
@@ -55,12 +66,16 @@ class TiledRenderer:
 
     `model` is a `SceneDreamerGenerator` (moved to `device`); `device`
     defaults to CUDA and raises without it unless 'cpu' is passed.
+    `sky_fast`: chunks where no ray hits skip the field. The environment's
+    SCENEDREAMER_FIELD_COMPACT ('1' unless set) compacts the others to
+    their rays with a hit. `last_stats` holds the last frame's rays,
+    rays with a hit, chunks by path and the field's rays and points.
     """
 
     def __init__(self, model, world, num_samples=40,
                  num_blocks_early_stop=6, sample_depth=3.0, pad=30,
                  resolution_hw=(540, 960), chunk_rays=CHUNK_RAYS,
-                 device=None):
+                 device=None, sky_fast=True):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.world = world
@@ -71,6 +86,10 @@ class TiledRenderer:
         self.res = tuple(resolution_hw)
         self.cam_res = (self.res[0] + pad, self.res[1] + pad)
         self.chunk_rays = chunk_rays
+        self.sky_fast = sky_fast
+        self.field_compact = os.environ.get(
+            'SCENEDREAMER_FIELD_COMPACT', '1') == '1'
+        self.last_stats = None
         self.voxel = torch.from_numpy(world.voxel).to(self.device)
         self.occupancy = build_occupancy_bits(self.voxel)
         with torch.no_grad():
@@ -113,15 +132,31 @@ class TiledRenderer:
         baked = model.bake_hash(self.global_enc)
 
         rows = max(1, self.chunk_rays // w)
+        starts = range(0, h, rows)
+        # rays with any hit, per chunk: one fetch per frame
+        per_row = hit[0].any(dim=-1).sum(dim=-1)                # [H]
+        padded = per_row.new_zeros(len(starts) * rows)
+        padded[:h] = per_row
+        counts = padded.reshape(len(starts), rows).sum(dim=1).tolist()
+        stats = dict(rays=h * w, hit_rays=sum(counts), chunks_sky_only=0,
+                     chunks_compacted=0, chunks_full=0, field_rays=0,
+                     field_points=0)
         feats, depths = [], []
-        for y0 in range(0, h, rows):
+        for y0, count in zip(starts, counts):
             sl = slice(y0, min(h, y0 + rows))
+            n_rays = (sl.stop - y0) * w
+            sky_only = self.sky_fast and count == 0
+            compact_k = None
+            if self.field_compact and not sky_only:
+                k = -(-count // COMPACT_GRANULE) * COMPACT_GRANULE
+                compact_k = k if k < n_rays else None
             out = model.render_pixels(
                 vid[:, sl], dep[:, sl], hit[:, sl], raydirs[:, sl], cam_ori,
                 z, self.global_enc, self.world.dims,
                 num_samples=self.num_samples,
                 sample_depth_clip=self.sample_depth, deterministic=True,
-                sky_avg=sky_avg, baked=baked)
+                sky_avg=sky_avg, baked=baked, sky_only=sky_only,
+                compact_k=compact_k)
             wts = out['weights'][..., 0]                    # [1,r,W,S]
             t = out['rand_depth'][..., 0]
             tw = wts.sum(dim=-1)
@@ -129,6 +164,13 @@ class TiledRenderer:
                 tw > 1e-6, (wts * t).sum(dim=-1) / torch.clamp(tw, min=1e-6),
                 torch.full_like(tw, float('inf'))))
             feats.append(out['net_out'])
+            path = 'sky_only' if sky_only else \
+                'compacted' if compact_k else 'full'
+            stats[f'chunks_{path}'] += 1
+            field_rays = 0 if sky_only else (compact_k or n_rays)
+            stats['field_rays'] += field_rays
+            stats['field_points'] += field_rays * t.shape[-1]
+        self.last_stats = stats
         img, _ = model.refine(torch.cat(feats, dim=1), z)
         p0 = self.pad // 2
         crop = (slice(p0, p0 + self.res[0]), slice(p0, p0 + self.res[1]))

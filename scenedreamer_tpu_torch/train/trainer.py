@@ -98,7 +98,10 @@ class GANTrainer:
 
     The render's draws come from `generator` (a `torch.Generator` on the
     models' device); `style_eps` gives the reparameterisation eps
-    instead.
+    instead. `compact_k` runs every render of a step with the generator's
+    exact sky-ray compaction (`render_pixels(compact_k=...)`); the
+    losses are the same, the gradients equal up to the order of the
+    matmuls' sums.
     """
 
     def __init__(self, generator, discriminator, voxel_dims,
@@ -125,9 +128,10 @@ class GANTrainer:
             if cfg.ema_beta > 0 else None
 
     # ------------------------------------------------------------------
-    def _render(self, batch, generator, style_eps):
+    def _render(self, batch, generator, style_eps, compact_k=None):
         return self.gen(batch, self.voxel_dims, random_style=False,
-                        generator=generator, style_eps=style_eps)
+                        generator=generator, style_eps=style_eps,
+                        compact_k=compact_k)
 
     def _dis_loss(self, batch, fake):
         """D loss (`gancraft.py:206-251`) on a detached fake."""
@@ -215,31 +219,36 @@ class GANTrainer:
         return _floats(m)
 
     # ------------------------------------------------------------------
-    def dis_step(self, batch, generator=None, style_eps=None):
+    def dis_step(self, batch, generator=None, style_eps=None,
+                 compact_k=None):
         """D update on a fresh render (`gancraft.py:206-251`)."""
         with torch.no_grad():
-            fake = self._render(batch, generator, style_eps)['fake_images']
+            fake = self._render(batch, generator, style_eps,
+                                compact_k)['fake_images']
         return self._dis_update(batch, fake)
 
-    def gen_step(self, batch, generator=None, style_eps=None):
+    def gen_step(self, batch, generator=None, style_eps=None,
+                 compact_k=None):
         """G update on a fresh render (`gancraft.py:158-204`)."""
         self.g_opt.zero_grad()
-        g_out = self._render(batch, generator, style_eps)
+        g_out = self._render(batch, generator, style_eps, compact_k)
         return self._gen_update(*self._gen_loss(g_out, batch))
 
-    def train_step(self, batch, generator=None, style_eps=(None, None)):
+    def train_step(self, batch, generator=None, style_eps=(None, None),
+                   compact_k=None):
         """One iteration with two renders: `dis_step`, then `gen_step`
         (style draws given per phase as a (D, G) pair)."""
-        dm = self.dis_step(batch, generator, style_eps[0])
-        gm = self.gen_step(batch, generator, style_eps[1])
+        dm = self.dis_step(batch, generator, style_eps[0], compact_k)
+        gm = self.gen_step(batch, generator, style_eps[1], compact_k)
         return {**dm, **gm}
 
-    def train_step_shared(self, batch, generator=None, style_eps=None):
+    def train_step_shared(self, batch, generator=None, style_eps=None,
+                          compact_k=None):
         """One iteration with ONE render: keep its graph, update D on the
         detached fake, take the G loss through the updated D and run the
         G backward through the kept graph."""
         self.g_opt.zero_grad()
-        g_out = self._render(batch, generator, style_eps)
+        g_out = self._render(batch, generator, style_eps, compact_k)
         dm = self._dis_update(batch, g_out['fake_images'])
         gm = self._gen_update(*self._gen_loss(g_out, batch))
         return {**dm, **gm}

@@ -320,6 +320,29 @@ def test_shift_bake_dw_matches_plain_and_repeats(cuda, levels, slots,
     assert torch.equal(kernels.hash_shift_bake_dw(table3, grad, shifts), got)
 
 
+@pytest.mark.parametrize('levels,slots,channels,corners', [
+    (16, 1 << 14, 8, 4), (3, 16, 4, 1), (2, 1 << 10, 8, 8), (5, 1 << 12, 4, 3),
+    (4, 1 << 9, 8, 2)])
+def test_hash_bake_dw_matches_plain_and_repeats(cuda, levels, slots,
+                                                channels, corners):
+    """K3 (c)'s dw on the shared skeleton (`csrc/bake_dw.cuh`, the xor
+    window) against its plain version, rtol 1e-5, and bitwise equal
+    across two launches; the cases of K5 (d)'s test above, with xor
+    masks 0 and S - 1."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    table3 = torch.rand((levels, slots, channels), generator=gen,
+                        device=cuda) * 2 - 1
+    grad = torch.randn((levels, slots, channels), generator=gen, device=cuda)
+    masks = torch.randint(0, slots, (levels, corners), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    masks[::2, 0] = 0
+    masks[1::2, -1] = slots - 1
+    got = kernels.hash_bake_dw(table3, grad, masks)
+    want = hg.bake_dw_plain(table3, grad, masks.long())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    assert torch.equal(kernels.hash_bake_dw(table3, grad, masks), got)
+
+
 @pytest.mark.parametrize('kw', [
     # level 0 tiled at 5^5 -> 3128 rows (not a power of two), the rest
     # hashed at 2^12; C = 8, float4 rows

@@ -372,3 +372,68 @@ def test_kernel_builds_hash_the_headers_they_include():
         with open(deps[0], 'a') as f:
             f.write('// changed\n')
         assert library_path(src, ['nvcc'], 'hashgrid_paired', deps) != before
+
+
+def _dw_grid(table3, grad, masks, variant):
+    """`csrc/bake_dw.cuh` emulated in float64 on the CPU: the persistent
+    grid's spans (block b takes float4s [b P / B, (b+1) P / B) of each
+    level, B = DW_BLOCKS, thread t of the block every 256th float4 from
+    the span's start t, a warp's 32 threads summed into its own partial)
+    and the two windows on float4 indices (xor: i ^ off; shift: i + off,
+    less P once), off = (m & (S-1)) * C/4; then the partials summed.
+    Checks on the way that the spans tile each level once and that each
+    window reads row src(j, m) of T, 4 channels q at a time."""
+    from scenedreamer_tpu_torch import kernels
+    lv, s, c = table3.shape
+    c4 = c // 4
+    per = s * c4
+    blocks, warps = kernels.DW_BLOCKS, kernels.DW_WARPS
+    lo = torch.tensor([per * b // blocks for b in range(blocks + 1)])
+    assert lo[0] == 0 and lo[-1] == per and (lo[1:] >= lo[:-1]).all()
+    i = torch.arange(per)
+    blk = torch.searchsorted(lo[:-1], i, right=True) - 1
+    assert ((lo[blk] <= i) & (i < lo[blk + 1])).all()
+    warp = blk * warps + (i - lo[blk]) % 256 // 32
+    t4 = table3.double().reshape(lv, per, 4)
+    g4 = grad.double().reshape(lv, per, 4)
+    dw = torch.zeros(masks.shape, dtype=torch.float64)
+    for l in range(lv):
+        for a in range(masks.shape[1]):
+            m = int(masks[l, a]) & (s - 1)
+            off = m * c4
+            if variant == 'xor':
+                src = i ^ off
+                row = (i // c4) ^ m
+            else:
+                src = i + off
+                src = torch.where(src >= per, src - per, src)
+                row = (i // c4 + m) % s
+            assert torch.equal(src, row * c4 + i % c4)
+            partial = torch.zeros(blocks * warps, dtype=torch.float64)
+            partial.index_add_(0, warp, (t4[l, src] * g4[l]).sum(-1))
+            dw[l, a] = partial.sum()
+    return dw.float()
+
+
+@pytest.mark.parametrize('variant', ['xor', 'paired'])
+@pytest.mark.parametrize('levels,slots,channels,corners', [
+    (3, 16, 4, 4), (3, 16, 8, 4), (2, 1 << 12, 4, 8), (2, 1 << 11, 8, 3)])
+def test_dw_grid_windows_match_plain(variant, levels, slots, channels,
+                                     corners):
+    """The dw reductions' shared skeleton, K3c's xor window and K5d's
+    shift window, emulated in float64 (`_dw_grid`), against
+    `bake_dw_plain` (rtol 1e-6: float64 sums in another order, rounded
+    to float32): C = 4 and 8, 1 to 8 corners, a 16-row level (fewer
+    float4s than blocks, so most blocks take none), masks 0, S - 1 and
+    one past S (the kernel reduces it & (S-1), as the plain version
+    does)."""
+    gen = torch.Generator().manual_seed(11)
+    table3 = torch.rand((levels, slots, channels), generator=gen) * 2 - 1
+    grad = torch.randn((levels, slots, channels), generator=gen)
+    masks = torch.randint(0, slots, (levels, corners), generator=gen)
+    masks[0, 0] = 0
+    masks[-1, -1] = slots - 1
+    masks[0, -1] = slots + 3
+    got = _dw_grid(table3, grad, masks, variant)
+    want = thg.bake_dw_plain(table3, grad, masks, variant)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
