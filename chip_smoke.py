@@ -25,9 +25,10 @@ of the repository. Phases, each fatal on failure:
   4. the main path: `render_trajectory` renders 2 frames at the
      flagship width and the inference defaults (540x960, 40 samples,
      M=6, pad 30; MLP 256, CNN 256, feature 64; the sky skip and exact
-     sky-ray compaction on) with random seeded weights; every frame must
-     be finite and in [-1, 1], and every kernel's launch count must rise
-     during the render; then 2 timed frames of the same path, each with
+     sky-ray compaction on) with random seeded weights; every kernel's
+     launch count must rise during the render; then 2 timed frames of
+     the same path through `TiledRenderer.frame`, each finite, in
+     [-1, 1] and giving the trajectory's uint8 frame, each with
      its rays, rays with a hit, field chunks by path (sky only /
      compacted / full) and field points, and one timed frame with the
      sky skip and compaction off, held against the compacted frame:
@@ -117,7 +118,8 @@ of the repository. Phases, each fatal on failure:
      '[K4a levels] chunk');
  11. the paths through K4: the flagship generator at `hash_log2_size=21`
      with seeded weights renders 1 frame through `render_trajectory`
-     (540x960, 40 samples, pad 30; finite, in [-1, 1], K4 (a) launched
+     (540x960, 40 samples, pad 30; the timed frame finite and in
+     [-1, 1], K4 (a) launched
      once per field chunk that is not pure sky, no K4 (b) and no
      K2/K3/K5 launch) and one more timed frame; 1 warm-up and 2 timed
      `train_step_shared` at that width (K4 (a) and (b) once each per
@@ -130,9 +132,29 @@ of the repository. Phases, each fatal on failure:
      world encoder moved between the checkpoints, K1 and K4 (a)/(b)
      launched and no K2/K3/K5 counter rose.
 
+ 12. the rest of serving, at the flagship width on phase 4's world, style
+     and seeded weights ('[serve ...]' lines): one 540x960x40 frame of
+     phase 4's first pose through the padded-tile route (tile 128, pad
+     30: 40 tiles of 158x158) at 1 and 4 tiles per batch, each within
+     1e-3 of phase 4's split-refine frame, with K1 and K2a launched once
+     and K2b once per tile that runs the field; one 1080x1920 frame
+     (1110x1950 rays, above the 1.4 MPx threshold) with CNN strips and
+     with the whole CNN, within 1e-3 of each other; the 540x960 frame
+     in bf16, finite, in [-1, 1] and within its limit of the float32
+     frame (`BF16_REL_LIMIT`, from the CPU test); each with s/frame and
+     peak GB; `cli.inference.main` (scene 1024, 3 frames, `--save_depth
+     --style2 seed:9`, phase 9's xor checkpoint directory): 3 RGB, depth
+     and voxel PNGs, style.npy [3, 128], an mp4 read back as 3 frames of
+     540x960, its frames within one uint8 step of the same frames through
+     `frame`, the trajectory's wall time per frame beside the frames'
+     `frame` time and the host's write time; then `--no_split_refine`
+     for 2 frames; and `cli.demo.main` headless for 2 frames (the BEV
+     PNGs and the mp4).
+
 Then one `kernels` JSON line covering K1-K5 (K4a also at the serving
 chunk, under `at_serving_chunk`; K5b's whole launch there under
-`serving_chunk_ms`), the card's name and
+`serving_chunk_ms`; every row with its launches per padded-tile frame
+at 1 and 4 tiles per batch), the card's name and
 power limit (nvidia-smi), and last the line {"ok": true, "device": {...}}.
 Float32 everywhere: TF32 is switched off for matmuls and convolutions.
 """
@@ -1370,7 +1392,7 @@ def loop_path(torch, kernels, world, dev):
         assert f.read().strip() == 'step_00000008.pt'
 
     # xor: 3 iterations ----------------------------------------------------
-    text, counts, _, series, secs, xpeak = _run_cli(
+    text, counts, xlogdir, series, secs, xpeak = _run_cli(
         torch, kernels, argv('xor', 'logs_xor', '--max-iter', '3'))
     _check_counts(counts, XOR, PAIRED, 'xor, 3 iterations')
     finite(series, 'xor')
@@ -1403,8 +1425,17 @@ def loop_path(torch, kernels, world, dev):
         + f'; host-side batch share (world_sample + batch_build) '
         f'{(total - phases["train_step"]) / total:.3f} of {total:.1f} ms')
     loop.update(phases_ms=phases)
-    for logs in ('logs_paired', 'logs_xor', 'logs_speed'):
-        shutil.rmtree(os.path.join(root, logs))     # ~6 GB of checkpoints
+    for logs in ('logs_paired', 'logs_speed'):
+        shutil.rmtree(os.path.join(root, logs))     # ~4 GB of checkpoints
+    # phase 12's inference CLI loads the xor run's checkpoint directory
+    # (the CLI's generator is the xor spec, as JAX's): keep its latest
+    ckpts = os.path.join(xlogdir, 'checkpoints')
+    with open(os.path.join(ckpts, 'latest_checkpoint.txt')) as f:
+        latest = f.read().strip()
+    for name in os.listdir(ckpts):
+        if name.endswith('.pt') and name != latest:
+            os.remove(os.path.join(ckpts, name))
+    loop.update(xor_checkpoints=ckpts)
     return loop
 
 
@@ -1542,10 +1573,8 @@ def general_render(torch, kernels, model, world, style, dev):
     log(f'[unfolded] render_trajectory: {len(frames)} frame in {wall:.2f} s '
         f'(with warm-up), peak memory {peak_gb:.1f} GB, launches {counts}')
     assert len(frames) == 1
-    img = frames[0]
-    assert img.shape == RES + (3,), img.shape
-    assert np.isfinite(img).all(), 'non-finite frame'
-    assert np.abs(img).max() <= 1.0, 'frame outside [-1, 1]'
+    assert frames[0].shape == RES + (3,) and frames[0].dtype == np.uint8, \
+        (frames[0].shape, frames[0].dtype)
     assert counts['dda'] > 0, 'K1 never launched'
     for name in ('hash_encode_general_bwd',) + XOR + PAIRED:
         assert counts[name] == 0, f'the unfolded serving path launched {name}'
@@ -1556,7 +1585,9 @@ def general_render(torch, kernels, model, world, style, dev):
     # the pose of the frame above
     pose = EvalCameraController(world, maxstep=1, pattern=4, cam_ang=72,
                                 smooth_decay_multiplier=150.0)[0]
-    spf, _, _ = timed_frame(torch, renderer, pose, z)
+    spf, img, _ = timed_frame(torch, renderer, pose, z)
+    assert np.isfinite(img).all(), 'non-finite frame'
+    assert np.abs(img).max() <= 1.0, 'frame outside [-1, 1]'
     log_frame_stats('on, unfolded', renderer.last_stats, spf)
     field_chunks = chunks - renderer.last_stats['chunks_sky_only']
     assert counts['hash_encode_general'] == field_chunks, \
@@ -1675,6 +1706,244 @@ def general_loop(torch, kernels):
                 step_share=share, peak_gb=peak)
 
 
+# bf16 limits of phase 12, on the largest and the mean difference from the
+# float32 frame: multiples of JAX's own bf16-to-float32 distance, which
+# tests/test_torch_inference.py::test_bf16_frame_within_jax_bf16_distance
+# measures on the CPU (TINY frame: max 1.703e-4, mean 3.025e-5; at the
+# flagship layer widths max 1.62e-4, mean 2.97e-5). The card's frame has
+# the full hash width and 200x the pixels of that 32x48 frame, so its
+# largest difference lies further out: on the CPU the port's own
+# distance at the flagship width on 40x64 frames (2 seeds x 3 poses) was
+# max 2.05-2.28e-4, mean 3.6-4.7e-5. Both limits stay under the frames'
+# 1e-3.
+BF16_JAX_MAX, BF16_JAX_MEAN = 1.703e-4, 3.025e-5
+BF16_LIMIT_MAX, BF16_LIMIT_MEAN = 4 * BF16_JAX_MAX, 2 * BF16_JAX_MEAN
+TILE = 128                  # the inference CLI's --tile_size
+TILES = 40                  # 540x960 on the 128 grid: 5 x 8
+STRIP_RES = (1080, 1920)    # 1110x1950 rays with the pad: 2.16 MPx
+
+
+def _warm_timed(torch, kernels, renderer, pose, z):
+    """A warm-up frame, then one timed frame with the launch counts set
+    to 0 just before it and read just after: (seconds, image, launch
+    counts, peak GB)."""
+    renderer.frame(pose, z)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    secs, img, _ = timed_frame(torch, renderer, pose, z)
+    counts = kernels.launch_counts()
+    return secs, img, counts, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _run_inference(torch, module, argv):
+    """`module.main(argv)` with its printed output kept: (its return
+    value, the output)."""
+    import contextlib
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        ret = module.main(argv)
+    torch.cuda.synchronize()
+    return ret, tee.text()
+
+
+def _mp4_frames(path):
+    import cv2
+    cap = cv2.VideoCapture(path)
+    shapes = []
+    while True:
+        ok, img = cap.read()
+        if not ok:
+            break
+        shapes.append(img.shape)
+    cap.release()
+    return shapes
+
+
+def serve_rest(torch, kernels, world, style, pose, split_img, ckpts, dev):
+    """Phase 12, the rest of serving, at the flagship width on phase 4's
+    world, style and seeded weights: the padded-tile frame at 1 and 4
+    tiles per batch, the 1080p frame with and without CNN strips, the
+    bf16 frame, the inference CLI (phase 9's xor checkpoint directory,
+    depth, style interpolation, mp4; then padded tiles) and the headless
+    demo. Returns the padded-tile frames' launch counts by tiles per
+    batch."""
+    import dataclasses
+    import re
+    import numpy as np
+    from scenedreamer_tpu_torch.cli import demo, inference
+    from scenedreamer_tpu_torch.models.generator import (
+        GeneratorConfig, SceneDreamerGenerator)
+    from scenedreamer_tpu_torch.render.pipeline import (TiledRenderer,
+                                                        to_uint8)
+    from scenedreamer_tpu_torch.scene.camera import EvalCameraController
+    cfg = GeneratorConfig(num_samples=SAMPLES, num_blocks_early_stop=M)
+    model = SceneDreamerGenerator(cfg, seed=SEED).to(dev).eval()
+    kw = dict(num_samples=SAMPLES, num_blocks_early_stop=M, pad=PAD,
+              device=dev)
+    z_np = style.numpy()
+    idle = XOR[2:] + PAIRED + GENERAL
+    t_phase = time.time()
+
+    # padded tiles -----------------------------------------------------
+    tiles = {}
+    for tb in (1, 4):
+        r = TiledRenderer(model, world, resolution_hw=RES, tile_size=TILE,
+                          split_refine=False, tiles_per_batch=tb, **kw)
+        secs, img, counts, peak = _warm_timed(torch, kernels, r, pose,
+                                              r.style_z(z_np))
+        st = r.last_stats
+        err = float(np.abs(img - split_img).max())
+        field_tiles = (st['batches'] - st['tiles_sky_only']) * tb
+        log(f'[serve tile] tiles_per_batch {tb}: {secs:.3f} s/frame, peak '
+            f'{peak:.1f} GB, {st["tiles"]} tiles of {TILE + PAD}x'
+            f'{TILE + PAD} ({st["tiles_sky_only"]} sky only, {field_tiles} '
+            f'through the field with the repeats of a short last group), '
+            f'field rays {st["field_rays"]}, launches per frame {counts}; '
+            f'image max abs diff from phase 4\'s split-refine frame {err:.3g}'
+            f' (tolerance 1e-3)')
+        assert st['tiles'] == TILES, st
+        assert np.isfinite(img).all() and np.abs(img).max() <= 1.0
+        assert err <= 1e-3, 'the padded-tile frame differs from the split one'
+        assert counts['dda'] == 1, 'K1 not launched once per frame'
+        assert counts['hash_bake'] == 1, \
+            'K2a not launched once per frame (once per tile or batch item?)'
+        assert counts['hash_encode'] == field_tiles, \
+            'K2b not launched once per tile that runs the field'
+        for name in idle:
+            assert counts[name] == 0, f'the padded-tile frame launched {name}'
+        tiles[tb] = counts
+        del r
+        torch.cuda.empty_cache()
+
+    # 1080p: CNN strips and the whole CNN -----------------------------------
+    strips = TiledRenderer(model, world, resolution_hw=STRIP_RES, **kw)
+    os.environ['SCENEDREAMER_REFINE_FULL_PX'] = str(10 ** 9)
+    try:
+        whole = TiledRenderer(model, world, resolution_hw=STRIP_RES, **kw)
+    finally:
+        del os.environ['SCENEDREAMER_REFINE_FULL_PX']
+    assert not strips.refine_full and whole.refine_full
+    z = strips.style_z(z_np)
+    whole.frame(pose, z)                      # warm-up at this shape
+    got = {}
+    for name, r in (('strips', strips), ('whole', whole)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs, img, _ = timed_frame(torch, r, pose, z)
+        got[name] = (secs, img, torch.cuda.max_memory_allocated() / 1e9)
+    err = float(np.abs(got['strips'][1] - got['whole'][1]).max())
+    h, w = strips.cam_res
+    log(f'[serve strips] {STRIP_RES[0]}x{STRIP_RES[1]} ({h}x{w} rays, '
+        f'{h * w / 1e6:.2f} MPx): strips of {strips.strip_rows} rows '
+        f'{got["strips"][0]:.3f} s/frame, peak {got["strips"][2]:.1f} GB; '
+        f'whole CNN {got["whole"][0]:.3f} s/frame, peak '
+        f'{got["whole"][2]:.1f} GB; image max abs diff {err:.3g} (tolerance '
+        f'1e-3)')
+    for _, img, _ in got.values():
+        assert np.isfinite(img).all() and np.abs(img).max() <= 1.0
+    assert err <= 1e-3, 'the CNN strips differ from the whole CNN'
+    del strips, whole, got
+    torch.cuda.empty_cache()
+
+    # bf16 -----------------------------------------------------------------
+    bmodel = SceneDreamerGenerator(dataclasses.replace(
+        cfg, dtype=torch.bfloat16), seed=SEED).to(dev).eval()
+    r = TiledRenderer(bmodel, world, resolution_hw=RES, **kw)
+    secs, img, counts, peak = _warm_timed(torch, kernels, r, pose,
+                                          r.style_z(z_np))
+    diff = np.abs(img - split_img)
+    log(f'[serve bf16] {RES[0]}x{RES[1]}: {secs:.3f} s/frame, peak '
+        f'{peak:.1f} GB; difference from phase 4\'s float32 frame max '
+        f'{diff.max():.4g} (limit {BF16_LIMIT_MAX:.4g}), mean '
+        f'{diff.mean():.4g} (limit {BF16_LIMIT_MEAN:.4g}); the limits are 4x '
+        f'and 2x JAX\'s own bf16-to-float32 distance on the CPU (max '
+        f'{BF16_JAX_MAX}, mean {BF16_JAX_MEAN}, '
+        f'tests/test_torch_inference.py); the float32 frame\'s largest '
+        f'magnitude {np.abs(split_img).max():.4g}; launches {counts}')
+    assert np.isfinite(img).all() and np.abs(img).max() <= 1.0
+    assert diff.max() <= BF16_LIMIT_MAX and diff.mean() <= BF16_LIMIT_MEAN, \
+        'the bf16 frame is outside its limit'
+    del r, bmodel
+    torch.cuda.empty_cache()
+
+    # the inference CLI ------------------------------------------------------
+    out_dir = os.path.join(REPO, 'smoke_out', 'serve_cli')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ['--output_dir', out_dir, '--scene_size', str(SCENE), '--seed',
+            str(SEED), '--checkpoint', ckpts]
+    frames, text = _run_inference(torch, inference, argv + [
+        '--cam_maxstep', '3', '--save_depth', '--style2', 'seed:9'])
+    line = re.search(r'trajectory: (\d+) frames in ([\d.]+) s, ([\d.]+) '
+                     r's/frame wall; the frame loop ([\d.]+) s/frame after '
+                     r'([\d.]+) s of set-up; host writes ([\d.]+) s/frame, '
+                     r'waits ([\d.]+) s/frame', text)
+    assert line, 'the CLI printed no trajectory line'
+    wall, loop_s, setup, writes, waits = (float(line.group(i))
+                                          for i in (3, 4, 5, 6, 7))
+    rgb = os.path.join(out_dir, 'rgb_render')
+    for i in range(3):
+        for suffix in ('', '_depth', '_voxel'):
+            assert os.path.exists(os.path.join(rgb, f'{i:05d}{suffix}.png'))
+    assert np.load(os.path.join(rgb, 'style.npy')).shape == (3, 128)
+    shapes = _mp4_frames(rgb + '.mp4')
+    assert shapes == [RES + (3,)] * 3, shapes
+    # the same frames through `frame`, one by one, on the same weights
+    loaded = inference.load_generator(ckpts, cfg, dev, seed=SEED)
+    with open(os.path.join(ckpts, 'latest_checkpoint.txt')) as f:
+        table = torch.load(os.path.join(ckpts, f.read().strip()),
+                           map_location='cpu', weights_only=True)[
+            'generator']['hash_encoder.embeddings']
+    assert torch.equal(loaded.hash_encoder.embeddings.cpu(), table), \
+        'the CLI did not load the checkpoint'
+    r = TiledRenderer(loaded, world, resolution_hw=RES, **kw)
+    styles = np.load(os.path.join(rgb, 'style.npy'))
+    poses = EvalCameraController(world, maxstep=3, pattern=4, cam_ang=72,
+                                 smooth_decay_multiplier=150.0 / 3)
+    frame_s = []
+    for i, p in enumerate(poses):
+        secs, img, _ = timed_frame(torch, r, p, r.style_z(styles[i:i + 1]))
+        frame_s.append(secs)
+        assert np.abs(to_uint8(img).astype(int) - frames[i]).max() <= 1, \
+            'the CLI frame differs from the same frame through `frame`'
+    del r, loaded
+    torch.cuda.empty_cache()
+    log(f'[serve cli] 3 frames at {RES[0]}x{RES[1]} from {ckpts} (save_depth,'
+        f' style2 seed:9): {wall:.3f} s/frame wall, the depth-1 frame loop '
+        f'{loop_s:.3f} s/frame after {setup:.3f} s of renderer set-up; the '
+        f'same frames through `frame` {statistics.mean(frame_s):.3f} s/frame '
+        f'({[round(s, 3) for s in frame_s]}); host writes {writes:.3f} '
+        f's/frame (PNG, depth, voxel, mp4), waits {waits:.3f} s/frame; mp4 '
+        f'read back as {len(shapes)} frames of {shapes[0][:2]}')
+    shutil.rmtree(out_dir + '_tiles', ignore_errors=True)
+    frames, text = _run_inference(torch, inference, [
+        '--output_dir', out_dir + '_tiles', '--scene_size', str(SCENE),
+        '--seed', str(SEED), '--checkpoint', ckpts, '--no_split_refine',
+        '--cam_maxstep', '2'])
+    line = re.search(r'([\d.]+) s/frame wall', text)
+    assert len(frames) == 2 and _mp4_frames(
+        os.path.join(out_dir + '_tiles', 'rgb_render.mp4')) == [
+        RES + (3,)] * 2
+    log(f'[serve cli] --no_split_refine, 2 frames: {float(line.group(1)):.3f}'
+        f' s/frame wall (set-up and the first frame included)')
+
+    # the headless demo -----------------------------------------------------
+    demo_dir = os.path.join(REPO, 'smoke_out', 'serve_demo')
+    shutil.rmtree(demo_dir, ignore_errors=True)
+    t0 = time.time()
+    path, _ = _run_inference(torch, demo, [
+        '--output_dir', demo_dir, '--seed', str(SEED), '--cam_maxstep', '2'])
+    for name in ('bev_height.png', 'bev_semantic.png'):
+        assert os.path.exists(os.path.join(demo_dir, name)), name
+    shapes = _mp4_frames(path)
+    assert shapes == [RES + (3,)] * 2, shapes
+    log(f'[serve demo] headless, 2 frames: BEV PNGs and {path} '
+        f'({len(shapes)} frames) in {time.time() - t0:.1f} s with terrain')
+    log(f'[serve] phase 12 in {time.time() - t_phase:.1f} s')
+    shutil.rmtree(os.path.dirname(os.path.dirname(ckpts)))
+    return tiles
+
+
 def split_extra(split):
     """The `kernels` row fields of a scatter's per-level split: the whole
     launch with every level direct (before the coarse path) in ray order,
@@ -1789,7 +2058,8 @@ def main():
     from scenedreamer_tpu_torch.ops.ray_voxel import (build_occupancy_bits,
                                                       dda_plain)
     from scenedreamer_tpu_torch.render.pipeline import (TiledRenderer,
-                                                        render_trajectory)
+                                                        render_trajectory,
+                                                        to_uint8)
     from scenedreamer_tpu_torch.scene.terrain import generate_terrain
     from scenedreamer_tpu_torch.scene.voxel_world import build_voxel_world
 
@@ -1915,10 +2185,9 @@ def main():
         f'(first frame includes warm-up), peak memory {peak_gb:.1f} GB, '
         f'launches {counts}')
     assert len(frames) == 2
-    for img in frames:
-        assert img.shape == RES + (3,), img.shape
-        assert np.isfinite(img).all(), 'non-finite frame'
-        assert np.abs(img).max() <= 1.0, 'frame outside [-1, 1]'
+    for img in frames:      # the uint8 frames written, as JAX returns
+        assert img.shape == RES + (3,) and img.dtype == np.uint8, \
+            (img.shape, img.dtype)
     for name in ('dda', 'hash_bake', 'hash_encode'):
         assert counts[name] > 0, f'kernel {name} never launched on the main path'
     for name in ('hash_encode_bwd', 'hash_bake_bwd', 'hash_bake_dw'):
@@ -1931,8 +2200,12 @@ def main():
     # steady state, the sky skip and compaction on (the defaults), then
     # one frame with both off: every chunk through the field
     frame_s, shots = [], []
-    for pose in ctl:
+    for i, pose in enumerate(ctl):
         secs, img, aux = timed_frame(torch, renderer, pose, z)
+        assert np.isfinite(img).all(), 'non-finite frame'
+        assert np.abs(img).max() <= 1.0, 'frame outside [-1, 1]'
+        assert np.abs(to_uint8(img).astype(int) - frames[i]).max() <= 1, \
+            'the float frame does not give the trajectory\'s uint8 frame'
         frame_s.append(secs)
         shots.append((img, aux, dict(renderer.last_stats)))
         log_frame_stats('on', renderer.last_stats, secs)
@@ -2126,10 +2399,18 @@ def main():
     torch.cuda.empty_cache()
     uloop = general_loop(torch, kernels)
 
+    # 12. the rest of serving ------------------------------------------------
+    padded = serve_rest(torch, kernels, world, style, ctl[0], img_on,
+                        loop['xor_checkpoints'], dev)
+
     table_rows = kernel_rows(serving, k3, k3_split, train, k5, k5_split,
                              k5b, loop) \
         + general_rows(k4, k4_split, (int(chunk_n), *k4c), urender, ustep,
                        uloop)
+    for row in table_rows:
+        row['launches_per_padded_tile_frame'] = {
+            f'tiles_per_batch_{tb}': counts[row['name']]
+            for tb, counts in padded.items()}
     log(json.dumps({'kernels': table_rows}))
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',

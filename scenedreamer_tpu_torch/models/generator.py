@@ -23,7 +23,11 @@ forward and backward, when the spec is not foldable, e.g.
 `hash_log2_size=21`). `render_pixels(compact_k=K)` (and `forward`) runs
 the field on only the first K rays after a stable hits-first sort and
 scatters the per-ray results back: exact sky-ray compaction, the JAX
-package's `compact_k`.
+package's `compact_k`. `GeneratorConfig.dtype=torch.bfloat16` computes
+the layers in bf16 with float32 parameters (the JAX package's `dtype`,
+serving only): the hash kernels stay float32, the bf16 scene code is
+rounded where JAX rounds it before the bake, sky-only zeros come in the
+compute dtype, and `refine` returns float32.
 """
 import dataclasses
 
@@ -125,7 +129,8 @@ class HashEncoder(nn.Module):
 
 # config values the JAX package's shipped configs use and the port
 # implements; other values of these fields raise
-_FIXED = dict(dtype=torch.float32, raw_noise_std=0.0, clip_feat_map=True,
+_DTYPES = (torch.float32, torch.bfloat16)
+_FIXED = dict(raw_noise_std=0.0, clip_feat_map=True,
               keep_sky_out=True, keep_sky_out_avgpool=True,
               sky_global_avgpool=True, pe_lvl_raydir=0,
               pe_incl_orig_raydir=False, use_seg=True)
@@ -143,22 +148,29 @@ class SceneDreamerGenerator(nn.Module):
                 raise NotImplementedError(
                     f'GeneratorConfig.{name}={getattr(cfg, name)!r} is not '
                     f'ported (only {value!r})')
+        if cfg.dtype not in _DTYPES:
+            raise NotImplementedError(
+                f'GeneratorConfig.dtype={cfg.dtype!r} is not ported (only '
+                f'{_DTYPES})')
         self.cfg = c = cfg
+        dt = c.dtype
         spec = c.hash_spec
         self.hash_encoder = HashEncoder(spec)
         self.render_net = RenderMLP(
             spec.output_dim, style_dim=c.interm_style_dims,
             mask_dim=c.num_reduced_labels, out_channels_c=c.final_feat_dim,
-            hidden_channels=c.mlp_hidden)
-        self.world_encoder = ConditionalHashGrid()
+            hidden_channels=c.mlp_hidden, dtype=dt)
+        self.world_encoder = ConditionalHashGrid(dtype=dt)
         self.sky_net = SKYMLP(c.sky_in_dim, style_dim=c.interm_style_dims,
-                              out_channels_c=c.final_feat_dim)
-        self.style_net = StyleMLP(c.style_dims, out_dim=c.interm_style_dims)
+                              out_channels_c=c.final_feat_dim, dtype=dt)
+        self.style_net = StyleMLP(c.style_dims, out_dim=c.interm_style_dims,
+                                  dtype=dt)
         self.denoiser = RenderCNN(c.final_feat_dim, c.interm_style_dims,
-                                  hidden_channels=256, out_channels=3)
+                                  hidden_channels=256, out_channels=3,
+                                  dtype=dt)
         self.style_encoder = StyleEncoder(
             c.style_dims, num_filters=c.style_enc_num_filters,
-            kernel_size=c.style_enc_kernel_size)
+            kernel_size=c.style_enc_kernel_size, dtype=dt)
         gen = torch.Generator().manual_seed(seed)
         for mod in self.modules():
             if mod is not self and hasattr(mod, 'reset_parameters'):
@@ -219,7 +231,10 @@ class SceneDreamerGenerator(nn.Module):
                                 for i in range(b)])
         else:
             lead = (b,) + (1,) * (normalized.dim() - 2)
-            genc = global_enc.reshape(lead + (global_enc.shape[-1],)).expand(
+            # a bf16 scene code joins the float32 points exactly, as
+            # JAX's concatenate promotes it
+            genc = global_enc.to(normalized.dtype).reshape(
+                lead + (global_enc.shape[-1],)).expand(
                 normalized.shape[:-1] + (global_enc.shape[-1],))
             pts = torch.cat([normalized, genc], dim=-1)
             feat = hashgrid_encode(spec, self.hash_encoder.embeddings, pts)
@@ -306,9 +321,12 @@ class SceneDreamerGenerator(nn.Module):
                 hit_mask, voxel_dims, global_enc, z, baked)
         else:
             if sky_only:
-                sigma = torch.zeros((b, h, w, s, 1), device=raydirs.device)
+                # zeros in the compute dtype, so the compositing promotes
+                # as on the full path (bit-exact under bf16 too)
+                sigma = torch.zeros((b, h, w, s, 1), dtype=c.dtype,
+                                    device=raydirs.device)
                 feat_c = torch.zeros((b, h, w, s, c.final_feat_dim),
-                                     device=raydirs.device)
+                                     dtype=c.dtype, device=raydirs.device)
             else:
                 mc_onehot = F.one_hot(mc_masks, c.num_reduced_labels).to(
                     torch.float32)
@@ -391,8 +409,9 @@ class SceneDreamerGenerator(nn.Module):
 
     def refine(self, net_out, z):
         """RenderCNN + tanh (`gancraft_base.py:588-603`).
-        net_out [B, H, W, C] -> (image [B, H, W, 3] in [-1, 1], raw)."""
-        raw = self.denoiser(net_out, z)
+        net_out [B, H, W, C] -> (image [B, H, W, 3] in [-1, 1], raw),
+        float32 whatever the compute dtype."""
+        raw = self.denoiser(net_out, z).float()
         return torch.tanh(raw), raw
 
     def forward(self, data, voxel_dims, random_style=False, pad=None,

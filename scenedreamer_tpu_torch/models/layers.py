@@ -11,7 +11,11 @@ module and parameter names, so a reference state dict loads as is:
     logvar clamp
 
 Tensors are channels-last at every public call (NHWC images, [B, ..., C]
-features); the convolutions permute to NCHW inside. Each module has
+features); the convolutions permute to NCHW inside. `dtype` is the
+compute dtype, the JAX package's `GeneratorConfig.dtype`: parameters stay
+float32, and each layer casts its input, weight and bias to it (bfloat16
+for serving; the modulation coefficients alpha / beta are computed in
+float32 and cast, as JAX's `ModLinear` and `AffineMod` do). Each module has
 `reset_parameters(generator)` with the JAX package's init scheme:
 kaiming(leaky 0.2) x 0.5 for weights, zero biases, randn/sqrt(fan) for
 modulation weights (`generators/scenedreamer.py:66-78`).
@@ -26,7 +30,11 @@ from scenedreamer_tpu_torch.ops.resize import resize_bilinear
 
 
 def leaky_relu(x):
-    return F.leaky_relu(x, 0.2)
+    """Slope 0.2 in x's dtype: JAX multiplies a bf16 x by 0.2 rounded to
+    bf16 (0.2001953125), not by the float32 0.2."""
+    slope = 0.2 if x.dtype == torch.float32 else \
+        float(torch.tensor(0.2, dtype=x.dtype))
+    return F.leaky_relu(x, slope)
 
 
 def _kaiming_half_(w, generator, scale=0.5, a=0.2):
@@ -43,22 +51,46 @@ def _mod_weight_(w, generator):
         w.normal_(0.0, 1.0 / math.sqrt(w.shape[-1]), generator=generator)
 
 
+def _cast(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
 class Dense(nn.Linear):
-    """Linear layer, weight [out, in], with the reference init."""
+    """Linear layer, weight [out, in], with the reference init; computes
+    in `dtype`."""
+
+    def __init__(self, in_features, out_features, bias=True,
+                 dtype=torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
 
     def reset_parameters(self, generator=None):
         _kaiming_half_(self.weight, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
 class Conv(nn.Conv2d):
-    """NCHW conv with the reference init (kaiming x 0.5, zero bias)."""
+    """NCHW conv with the reference init (kaiming x 0.5, zero bias);
+    computes in `dtype`."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
 
     def reset_parameters(self, generator=None):
         _kaiming_half_(self.weight, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  _cast(self.bias, dt))
 
 
 class ModLinear(nn.Module):
@@ -68,8 +100,10 @@ class ModLinear(nn.Module):
     ([B, N, I] @ [B, I, O]), plus beta_b. alpha(z) = z @ weight_alpha.T
     + bias_alpha, beta(z) = z @ weight_beta.T + bias_beta."""
 
-    def __init__(self, in_features, out_features, style_dim):
+    def __init__(self, in_features, out_features, style_dim,
+                 dtype=torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.weight_alpha = nn.Parameter(torch.empty(in_features, style_dim))
         self.bias_alpha = nn.Parameter(torch.empty(in_features))
@@ -85,12 +119,14 @@ class ModLinear(nn.Module):
         nn.init.zeros_(self.bias_beta)
 
     def forward(self, x, z):
+        dt = self.compute_dtype
         prefix = x.shape[:-1]
-        xb = x.reshape(x.shape[0], -1, x.shape[-1])
+        xb = x.reshape(x.shape[0], -1, x.shape[-1]).to(dt)
+        z = z.float()
         alpha = F.linear(z, self.weight_alpha, self.bias_alpha)   # [B, I]
         beta = F.linear(z, self.weight_beta, self.bias_beta)      # [B, O]
-        w_mod = self.weight[None] * alpha[:, None, :]             # [B, O, I]
-        y = torch.bmm(xb, w_mod.transpose(1, 2)) + beta[:, None]
+        w_mod = (self.weight[None] * alpha[:, None, :]).to(dt)    # [B, O, I]
+        y = torch.bmm(xb, w_mod.transpose(1, 2)) + beta[:, None].to(dt)
         return y.reshape(*prefix, y.shape[-1])
 
 
@@ -101,18 +137,18 @@ class RenderMLP(nn.Module):
     direction input)."""
 
     def __init__(self, in_channels, style_dim, mask_dim, out_channels_c,
-                 hidden_channels=256):
+                 hidden_channels=256, dtype=torch.float32):
         super().__init__()
         hc = hidden_channels
-        self.fc_1 = Dense(in_channels, hc)
-        self.fc_m_a = Dense(mask_dim, hc, bias=False)
-        self.fc_2 = ModLinear(hc, hc, style_dim)
-        self.fc_3 = ModLinear(hc, hc, style_dim)
-        self.fc_4 = ModLinear(hc, hc, style_dim)
-        self.fc_sigma = Dense(hc, 1)
-        self.fc_5 = ModLinear(hc, hc, style_dim)
-        self.fc_6 = ModLinear(hc, hc, style_dim)
-        self.fc_out_c = Dense(hc, out_channels_c)
+        self.fc_1 = Dense(in_channels, hc, dtype=dtype)
+        self.fc_m_a = Dense(mask_dim, hc, bias=False, dtype=dtype)
+        self.fc_2 = ModLinear(hc, hc, style_dim, dtype)
+        self.fc_3 = ModLinear(hc, hc, style_dim, dtype)
+        self.fc_4 = ModLinear(hc, hc, style_dim, dtype)
+        self.fc_sigma = Dense(hc, 1, dtype=dtype)
+        self.fc_5 = ModLinear(hc, hc, style_dim, dtype)
+        self.fc_6 = ModLinear(hc, hc, style_dim, dtype)
+        self.fc_out_c = Dense(hc, out_channels_c, dtype=dtype)
 
     def forward(self, x, z, m):
         """x [B, N, C_in]; z [B, S]; m [B, N, mask_dim]."""
@@ -130,12 +166,13 @@ class StyleMLP(nn.Module):
     """Style code -> intermediate style (reference gancraft_base.py:91-126)."""
 
     def __init__(self, style_dim, out_dim, hidden_channels=256,
-                 num_layers=5):
+                 num_layers=5, dtype=torch.float32):
         super().__init__()
         dims = [style_dim] + [hidden_channels] * num_layers
         self.fc_layers = nn.ModuleList(
-            [Dense(dims[i], dims[i + 1]) for i in range(num_layers)])
-        self.fc_out = Dense(hidden_channels, out_dim)
+            [Dense(dims[i], dims[i + 1], dtype=dtype)
+             for i in range(num_layers)])
+        self.fc_out = Dense(hidden_channels, out_dim, dtype=dtype)
 
     def forward(self, z):
         z = z / torch.clamp(torch.linalg.norm(z, dim=-1, keepdim=True),
@@ -150,16 +187,16 @@ class SKYMLP(nn.Module):
     (reference gancraft_base.py:129-169)."""
 
     def __init__(self, in_channels, style_dim, out_channels_c=3,
-                 hidden_channels=256):
+                 hidden_channels=256, dtype=torch.float32):
         super().__init__()
         hc = hidden_channels
-        self.fc_z_a = Dense(style_dim, hc, bias=False)
-        self.fc1 = Dense(in_channels, hc)
-        self.fc2 = Dense(hc, hc)
-        self.fc3 = Dense(hc, hc)
-        self.fc4 = Dense(hc, hc)
-        self.fc5 = Dense(hc, hc)
-        self.fc_out_c = Dense(hc, out_channels_c)
+        self.fc_z_a = Dense(style_dim, hc, bias=False, dtype=dtype)
+        self.fc1 = Dense(in_channels, hc, dtype=dtype)
+        self.fc2 = Dense(hc, hc, dtype=dtype)
+        self.fc3 = Dense(hc, hc, dtype=dtype)
+        self.fc4 = Dense(hc, hc, dtype=dtype)
+        self.fc5 = Dense(hc, hc, dtype=dtype)
+        self.fc_out_c = Dense(hc, out_channels_c, dtype=dtype)
 
     def forward(self, x, z):
         """x [B, ..., C_pe]; z [B, S]."""
@@ -176,12 +213,14 @@ class SRTConvBlock(nn.Module):
     """conv(s1)-relu-conv(s2)-relu (reference model_utils/layers.py:6-23);
     NCHW inside the world encoder."""
 
-    def __init__(self, in_channels, hdim, odim):
+    def __init__(self, in_channels, hdim, odim, dtype=torch.float32):
         super().__init__()
         self.layers = nn.Sequential(
-            Conv(in_channels, hdim, 3, stride=1, padding=1, bias=False),
+            Conv(in_channels, hdim, 3, stride=1, padding=1, bias=False,
+                 dtype=dtype),
             nn.ReLU(),
-            Conv(hdim, odim, 3, stride=2, padding=1, bias=False),
+            Conv(hdim, odim, 3, stride=2, padding=1, bias=False,
+                 dtype=dtype),
             nn.ReLU())
 
     def forward(self, x):
@@ -193,18 +232,18 @@ class ConditionalHashGrid(nn.Module):
     (reference model_utils/layers.py:25-55). Inputs NHWC: height
     [B, S, S, 1], semantic [B, S, S, 11]."""
 
-    def __init__(self, num_conv_blocks=6):
+    def __init__(self, num_conv_blocks=6, dtype=torch.float32):
         super().__init__()
-        self.hconv_head = Conv(1, 8, 3, stride=2, padding=1)
-        self.sconv_head = Conv(11, 8, 3, stride=2, padding=1)
+        self.hconv_head = Conv(1, 8, 3, stride=2, padding=1, dtype=dtype)
+        self.sconv_head = Conv(11, 8, 3, stride=2, padding=1, dtype=dtype)
         cur = 16
         blocks = []
         for _ in range(1, num_conv_blocks):
-            blocks.append(SRTConvBlock(cur, cur, 2 * cur))
+            blocks.append(SRTConvBlock(cur, cur, 2 * cur, dtype))
             cur *= 2
         self.conv_blocks = nn.ModuleList(blocks)
-        self.fc1 = Dense(cur, 16)
-        self.fc2 = Dense(16, 2)
+        self.fc1 = Dense(cur, 16, dtype=dtype)
+        self.fc2 = Dense(16, 2, dtype=dtype)
 
     def forward(self, height, semantic):
         h = leaky_relu(self.hconv_head(height.permute(0, 3, 1, 2)))
@@ -221,18 +260,18 @@ class RenderCNN(nn.Module):
     (reference gancraft_base.py:172-225). Input NHWC [B, H, W, C]."""
 
     def __init__(self, in_channels, style_dim, hidden_channels=256,
-                 out_channels=3):
+                 out_channels=3, dtype=torch.float32):
         super().__init__()
         hc = hidden_channels
-        self.fc_z_cond = Dense(style_dim, 4 * hc)
-        self.conv1 = Conv(in_channels, hc, 1)
-        self.conv2a = Conv(hc, hc, 3, padding=1)
-        self.conv2b = Conv(hc, hc, 3, padding=1, bias=False)
-        self.conv3a = Conv(hc, hc, 3, padding=1)
-        self.conv3b = Conv(hc, hc, 3, padding=1, bias=False)
-        self.conv4a = Conv(hc, hc, 1)
-        self.conv4b = Conv(hc, hc, 1)
-        self.conv4 = Conv(hc, out_channels, 1)
+        self.fc_z_cond = Dense(style_dim, 4 * hc, dtype=dtype)
+        self.conv1 = Conv(in_channels, hc, 1, dtype=dtype)
+        self.conv2a = Conv(hc, hc, 3, padding=1, dtype=dtype)
+        self.conv2b = Conv(hc, hc, 3, padding=1, bias=False, dtype=dtype)
+        self.conv3a = Conv(hc, hc, 3, padding=1, dtype=dtype)
+        self.conv3b = Conv(hc, hc, 3, padding=1, bias=False, dtype=dtype)
+        self.conv4a = Conv(hc, hc, 1, dtype=dtype)
+        self.conv4b = Conv(hc, hc, 1, dtype=dtype)
+        self.conv4 = Conv(hc, out_channels, 1, dtype=dtype)
 
     def forward(self, x, z):
         a0, b0, a1, b1 = self.fc_z_cond(z)[:, :, None, None].chunk(4, dim=1)
@@ -253,17 +292,18 @@ class StyleEncoder(nn.Module):
     on the NCHW flatten (the reference's order; the JAX package flattens
     NHWC and its converter permutes the rows). logvar is clamped to
     [-10, logvar_clamp] (the JAX package's guard against an e^logvar
-    overflow; 0 disables it)."""
+    overflow; 0 disables it). The convs compute in `dtype`, `fc_mu` and
+    `fc_var` in float32, as in JAX."""
 
     def __init__(self, style_dims=128, num_filters=64, kernel_size=3,
-                 logvar_clamp=4.0):
+                 logvar_clamp=4.0, dtype=torch.float32):
         super().__init__()
         nf = num_filters
         chans = [3, nf, 2 * nf, 4 * nf, 8 * nf, 8 * nf, 8 * nf]
         for i in range(6):
             setattr(self, f'layer{i + 1}',
                     Conv(chans[i], chans[i + 1], kernel_size, stride=2,
-                         padding=kernel_size // 2))
+                         padding=kernel_size // 2, dtype=dtype))
         self.fc_mu = Dense(8 * nf * 4 * 4, style_dims)
         self.fc_var = Dense(8 * nf * 4 * 4, style_dims)
         self.logvar_clamp = logvar_clamp

@@ -205,7 +205,9 @@ def scene_fold_weights(spec, scene, bound=1.0):
     if not foldable(spec, ds):
         raise ValueError('spec not foldable')
     size = spec.table_size // spec.num_levels
-    s01 = (scene.to(torch.float32) + bound) / (2.0 * bound)
+    # in the scene code's dtype (a bf16 code rounds here, as JAX's does),
+    # float32 from the cell position on
+    s01 = ((scene + bound) / (2.0 * bound)).to(torch.float32)
     scene_oob = bool(((s01 < 0.0) | (s01 > 1.0)).any())
     spos = fma(s01[None, :], _scales(spec, scene.device)[:, None],
                _offset(spec))                                # [L, Ds]

@@ -20,6 +20,13 @@ and VGG19 feature extractor onto `models/discriminator.py` and
 `models/vgg.py`; `spade_state_dict_from_flax` maps the frozen SPADE
 oracle's params and stored batch-norm statistics onto `models/spade.py`
 (the inverse of `convert_spade`, `convert.py:232-322` there).
+
+`load_reference_generator_state_dict` reads the reference's own
+generator state dict (`scenedreamer_released.pt`'s `net_G`, or a bare
+dict) into the port's names: wrappers stripped and spectral norm folded
+as `strip_prefixes` / `fold_spectral_norm` do in the JAX package
+(`convert.py:39-80`, copied here), then each name variant that its
+`convert_scenedreamer_generator` accepts mapped onto the port's module.
 """
 import re
 
@@ -27,6 +34,11 @@ import numpy as np
 import torch
 
 STYLE_ENC_SPATIAL = 4       # the style encoder's last map: 256 / 2^6
+
+# the generator's top-level modules; a reference key outside them is not
+# a generator weight and is dropped, as the JAX converter ignores it
+GENERATOR_MODULES = ('hash_encoder', 'render_net', 'world_encoder', 'sky_net',
+                     'style_net', 'style_encoder', 'denoiser')
 
 
 def _rename(path):
@@ -75,6 +87,96 @@ def generator_state_dict_from_flax(params):
                 .transpose(0, 3, 1, 2).reshape(arr.shape[0], -1)
         sd['.'.join(_rename(path))] = _tensor(arr)
     return sd
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def strip_prefixes(sd):
+    """Remove DDP/EMA wrappers: 'module.', 'averaged_model.', 'model.'."""
+    out = {}
+    for k, v in sd.items():
+        for pre in ('module.', 'averaged_model.', 'model.'):
+            while k.startswith(pre):
+                k = k[len(pre):]
+        out[k] = v
+    return out
+
+
+def fold_spectral_norm(sd):
+    """Replace `w_orig`/`w_u`/`w_v` triplets with w_orig / sigma, in
+    float64: torch's eval-mode value sigma = u . (W v) with the STORED u
+    and v (`torch.nn.utils.spectral_norm`, no power iteration); without
+    v, one power half-iteration from u recovers it."""
+    out = dict(sd)
+    for k in list(sd.keys()):
+        if k.endswith('weight_orig'):
+            base = k[:-len('_orig')]
+            w = _np(sd[k]).astype(np.float64)
+            u = _np(sd[base + '_u']) if base + '_u' in sd else None
+            v = _np(sd[base + '_v']) if base + '_v' in sd else None
+            mat = w.reshape(w.shape[0], -1)
+            if u is None:
+                u = np.random.default_rng(0).normal(size=mat.shape[0])
+                u /= np.linalg.norm(u)
+            if v is None:
+                v = mat.T @ u
+                v /= max(np.linalg.norm(v), 1e-12)
+            sigma = float(u @ (mat @ v))
+            # torch divides by sigma signed and unclamped; a barely-
+            # iterated u/v pair can give a tiny or negative estimate
+            if abs(sigma) < 1e-12:
+                sigma = 1e-12 if sigma >= 0 else -1e-12
+            out[base] = (w / sigma).astype(np.float32)
+            out.pop(k, None)
+            out.pop(base + '_u', None)
+            out.pop(base + '_v', None)
+    return out
+
+
+def _reference_name(key):
+    """A reference generator key -> the port's name (None: not a
+    generator weight). The style encoder's convs may sit under
+    `.layers.conv`, its `fc_mu` / `fc_var` under `.fc` or
+    `.layers.linear` (`convert.py:175-200` there); every other module
+    already has the reference's names."""
+    parts = key.split('.')
+    if parts[0] not in GENERATOR_MODULES:
+        return None
+    if parts[0] == 'style_encoder':
+        m = re.fullmatch(r'style_encoder\.(layer\d|fc_mu|fc_var)'
+                         r'(?:\.layers\.conv|\.layers\.linear|\.fc)?'
+                         r'\.(weight|bias)', key)
+        if m:
+            return f'style_encoder.{m.group(1)}.{m.group(2)}'
+    return key
+
+
+def load_reference_generator_state_dict(sd_or_ckpt):
+    """The reference's generator weights, `{'net_G': state_dict}` or the
+    bare state dict, -> a state dict that `SceneDreamerGenerator` loads
+    with `strict=True`: prefixes stripped, spectral norm folded, name
+    variants mapped (`_reference_name`). The style encoder's `fc_mu` /
+    `fc_var` weights are not permuted: the port flattens NCHW, as the
+    reference does. A state dict with `render_net.fc_viewdir` needs the
+    ray-direction input (`pe_lvl_raydir` > 0), which the port does not
+    implement, and is refused."""
+    sd = sd_or_ckpt.get('net_G', sd_or_ckpt)
+    sd = fold_spectral_norm(strip_prefixes(sd))
+    if any(k.startswith('render_net.fc_viewdir') for k in sd):
+        raise NotImplementedError(
+            'this generator takes the ray direction (render_net.fc_viewdir,'
+            ' pe_lvl_raydir > 0); the port implements pe_lvl_raydir=0 only')
+    out = {}
+    for k, v in sd.items():
+        name = _reference_name(k)
+        if name is not None:
+            out[name] = torch.from_numpy(
+                np.array(_np(v), dtype=np.float32, order='C'))
+    return out
 
 
 def _torch_layout(path, leaf):

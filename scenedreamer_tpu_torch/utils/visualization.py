@@ -1,8 +1,10 @@
-"""Visualization helpers for the trainer's snapshots: colorized
-segmentation maps, [-1, 1] images to uint8, image grids.
+"""Visualization helpers: colorized segmentation maps, [-1, 1] images
+to uint8, image grids (the trainer's snapshots) and the depth colormap
+(the renderer's `save_depth` frames).
 
 Counterpart of `scenedreamer_tpu/utils/visualization.py` (reference
-`imaginaire/utils/visualization/common.py`, `trainers/gancraft.py:253-286`).
+`imaginaire/utils/visualization/common.py`, `trainers/gancraft.py:253-286`,
+`mc_utils.py:296-300`).
 Host side, numpy; arrays are HWC; tensors are moved to the host first.
 """
 import colorsys
@@ -43,6 +45,23 @@ def tensor2label(label, n_labels=None, palette=None):
 def tensor2im(img):
     """[-1, 1] float image -> uint8 (reference tensor2im)."""
     return np.clip((_host(img) * 0.5 + 0.5) * 255.0, 0, 255).astype(np.uint8)
+
+
+def colormap(x, cmap='viridis'):
+    """NaN-safe normalized colormap (reference `mc_utils.py:296-300`) for
+    depth frames: float RGB in [0, 1]. matplotlib's map where matplotlib
+    is installed, else a blue-to-yellow ramp (the JAX package's two
+    branches)."""
+    x = np.asarray(_host(x), np.float64)
+    x = x - np.nanmin(x)
+    denom = np.nanmax(x)
+    x = x / denom if denom > 0 else x
+    x = np.nan_to_num(x)
+    try:
+        import matplotlib.pyplot as plt
+        return plt.get_cmap(cmap)(x)[..., :3]
+    except ImportError:
+        return np.stack([x, x ** 2, 1.0 - x], axis=-1)
 
 
 def image_grid(images, cols=None):

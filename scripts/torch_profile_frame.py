@@ -1,6 +1,7 @@
 """Time and profile the PyTorch port's frame render on the GPU.
 
     python scripts/torch_profile_frame.py [--scene_size 2048] [--frames 3]
+        [--amp]
 
 Builds the CLI's default world (seed 8888) and the flagship generator
 from seeded random weights, renders the first frames of camera pattern 4
@@ -8,7 +9,8 @@ at the inference defaults (540x960, 40 samples, M=6, pad 30), and
 prints: seconds per frame (host clock around synchronised frames, after
 one warm-up frame), the device time by kernel name over one profiled
 frame (torch.profiler), the device busy share of that frame, and peak
-device memory. Float32 throughout (TF32 off). Needs CUDA.
+device memory. Float32 throughout (TF32 off), or with `--amp` the
+layers in bf16 (the inference CLI's `--amp`). Needs CUDA.
 """
 import argparse
 import os
@@ -26,6 +28,8 @@ def main(argv=None):
     p.add_argument('--seed', type=int, default=8888)
     p.add_argument('--frames', type=int, default=3)
     p.add_argument('--top', type=int, default=25)
+    p.add_argument('--amp', action='store_true',
+                   help='bf16 layer compute with float32 parameters')
     a = p.parse_args(argv)
 
     import torch
@@ -50,7 +54,8 @@ def main(argv=None):
     world = build_voxel_world(maps.height_map, maps.semantic_map,
                               maps.tree_map, fill_depth=16, seed=a.seed)
     print(f'world {world.dims} in {time.time() - t0:.1f} s', flush=True)
-    cfg = GeneratorConfig(num_samples=40, num_blocks_early_stop=6)
+    cfg = GeneratorConfig(num_samples=40, num_blocks_early_stop=6,
+                          dtype=torch.bfloat16 if a.amp else torch.float32)
     model = SceneDreamerGenerator(cfg, seed=a.seed)
     renderer = TiledRenderer(model, world, num_samples=40,
                              num_blocks_early_stop=6, pad=30,

@@ -654,3 +654,41 @@ def test_general_hash_kernel_rejects_bad_input(cuda):
         kernels.hash_encode_general(torch.zeros((10, 2), device=cuda),
                                     torch.zeros((4, 3), device=cuda), meta,
                                     scales, 0.5, 1.0, True)
+
+
+def test_padded_tile_frame_matches_cpu(cuda):
+    """A padded-tile frame (`split_refine=False`; the DDA, bake and
+    encode kernels, 3 tiles per batch with a short last group) on the card
+    against the same frame on the CPU through the plain versions: image
+    within 1e-3 as the golden frames, depth within 1e-3 where finite as
+    `chip_smoke.py` phase 4 holds it (float32 GEMM order moves depths of
+    ~50 by up to ~7e-4)."""
+    from scenedreamer_tpu_torch.data.synthetic import make_world
+    from scenedreamer_tpu_torch.models.generator import (
+        GeneratorConfig, SceneDreamerGenerator)
+    from scenedreamer_tpu_torch.render.pipeline import TiledRenderer
+    from scenedreamer_tpu_torch.scene.camera import EvalCameraController
+    world = make_world(size=64, seed=7, n_voronoi=20, boundary_detect=4)
+    cfg = GeneratorConfig(style_dims=16, interm_style_dims=32,
+                          final_feat_dim=8, num_blocks_early_stop=4,
+                          num_samples=6, hash_num_levels=4, hash_level_dim=4,
+                          hash_log2_size=10, hash_desired_resolution=128,
+                          mlp_hidden=32, style_enc_num_filters=8)
+    pose = EvalCameraController(world, maxstep=4, pattern=0)[0]
+    style = np.random.default_rng(5).standard_normal((1, 16)).astype(
+        np.float32)
+    out = {}
+    for dev in ('cpu', cuda):
+        model = SceneDreamerGenerator(cfg, seed=3)
+        r = TiledRenderer(model, world, num_samples=6, num_blocks_early_stop=4,
+                          pad=6, tile_size=16, resolution_hw=(32, 48),
+                          split_refine=False, tiles_per_batch=4, device=dev)
+        out[str(dev)] = r.frame(pose, r.style_z(style), return_aux=True)
+    (img_c, aux_c), (img_g, aux_g) = out['cpu'], out['cuda']
+    np.testing.assert_allclose(img_g, img_c, atol=1e-3, rtol=0)
+    fin = np.isfinite(aux_c['depth'])
+    assert (np.isfinite(aux_g['depth']) == fin).all()
+    np.testing.assert_allclose(aux_g['depth'][fin], aux_c['depth'][fin],
+                               atol=1e-3, rtol=0)
+    np.testing.assert_array_equal(aux_g['first_voxel_id'],
+                                  aux_c['first_voxel_id'])

@@ -64,7 +64,7 @@ def test_no_jax_or_jax_package_imports(path):
 def test_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip('CUDA present: the default device is usable')
-    from scenedreamer_tpu_torch.cli import inference
+    from scenedreamer_tpu_torch.cli import demo, inference
     from scenedreamer_tpu_torch.device import resolve_device
     from scenedreamer_tpu_torch.models.generator import (
         GeneratorConfig, SceneDreamerGenerator)
@@ -86,6 +86,38 @@ def test_entry_points_default_to_cuda(tmp_path):
         render_trajectory(model, world, torch.zeros(1, 128), str(tmp_path))
     with pytest.raises(RuntimeError, match='CUDA'):
         inference.main(['--output_dir', str(tmp_path)])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        TiledRenderer(model, world, split_refine=False)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        demo.main(['--output_dir', str(tmp_path)])
+
+
+@pytest.mark.parametrize('flags,raises', [
+    (['--platform', 'gpu'], RuntimeError),
+    (['--platform', 'cuda'], RuntimeError),
+    (['--platform', 'cuda', '--amp', '--no_split_refine', '--save_depth',
+      '--style2', 'seed:1', '--tiles_per_batch', '2', '--tile_size', '64',
+      '--fps', '5'], RuntimeError),
+    (['--platform', 'tpu'], ValueError),
+    (['--mesh_tiles', '--device', 'cpu'], NotImplementedError)])
+def test_inference_flags_follow_the_device_rule(tmp_path, flags, raises):
+    """The inference CLI's flags go through the device rule before any
+    work: `--platform gpu` / `cuda` means CUDA (absent here), another
+    platform is refused, and `--mesh_tiles` (multi-GPU) is not ported."""
+    if torch.cuda.is_available():
+        pytest.skip('CUDA present: the default device is usable')
+    from scenedreamer_tpu_torch.cli import inference
+    with pytest.raises(raises):
+        inference.main(['--output_dir', str(tmp_path)] + flags)
+
+
+@pytest.mark.parametrize('module', ['cli.demo', 'cli.inference',
+                                    'render.pipeline',
+                                    'utils.visualization', 'utils.convert'])
+def test_serving_modules_are_in_the_walk(module):
+    """Each module of the serving slice exists in the package, so the
+    walks above cover it."""
+    assert os.path.join(PKG, *module.split('.')) + '.py' in _port_files()
 
 
 @pytest.mark.parametrize('module', [

@@ -68,6 +68,10 @@ def test_frame_matches_golden(frames, pose):
 
 
 def test_render_trajectory_writes_frames(frames, tmp_path):
+    """`render_trajectory` returns the uint8 frames it wrote, as JAX's
+    does; the float image of the same pose comes from
+    `TiledRenderer.frame` and converts to the same bytes."""
+    from scenedreamer_tpu_torch.scene.camera import EvalCameraController
     world, tmodel, style = frames[1]
     kw = {k: v for k, v in KW.items() if k != 'fov'}
     out = render_trajectory(tmodel, world, style, str(tmp_path),
@@ -75,13 +79,19 @@ def test_render_trajectory_writes_frames(frames, tmp_path):
     assert len(out) == 2
     for img in out:
         assert img.shape == KW['resolution_hw'] + (3,)
-        assert np.isfinite(img).all() and np.abs(img).max() <= 1.0
+        assert img.dtype == np.uint8
+    tr = TiledRenderer(tmodel, world, device='cpu', **kw)
+    pose = EvalCameraController(world, maxstep=2, pattern=4, cam_ang=72,
+                                smooth_decay_multiplier=75.0)[0]
+    img = tr.frame(pose, tr.style_z(style))
+    assert np.isfinite(img).all() and np.abs(img).max() <= 1.0
+    np.testing.assert_array_equal(to_uint8(img), out[0])
     files = sorted(p.name for p in (tmp_path / 'rgb_render').iterdir())
     assert files == ['00000.png', '00001.png', 'height_map.png',
                      'semantic_map.png', 'style.npy']
+    assert (tmp_path / 'rgb_render.mp4').stat().st_size > 0
     png = (tmp_path / 'rgb_render' / '00000.png').read_bytes()
     assert png[:8] == b'\x89PNG\r\n\x1a\n'
-    assert to_uint8(out[0]).dtype == np.uint8
 
 
 def test_inference_cli_on_cpu(tmp_path):
@@ -94,8 +104,7 @@ def test_inference_cli_on_cpu(tmp_path):
         '--num_samples', '6', '--pad', '6', '--cam_maxstep', '2'])
     assert len(frames) == 2
     for img in frames:
-        assert img.shape == (24, 32, 3)
-        assert np.isfinite(img).all() and np.abs(img).max() <= 1.0
+        assert img.shape == (24, 32, 3) and img.dtype == np.uint8
     assert (tmp_path / 'rgb_render' / '00001.png').exists()
 
 
