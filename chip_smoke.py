@@ -151,12 +151,34 @@ of the repository. Phases, each fatal on failure:
      for 2 frames; and `cli.demo.main` headless for 2 frames (the BEV
      PNGs and the mp4).
 
-Then one `kernels` JSON line covering K1-K5 (K4a also at the serving
-chunk, under `at_serving_chunk`; K5b's whole launch there under
-`serving_chunk_ms`; every row with its launches per padded-tile frame
-at 1 and 4 tiles per batch), the card's name and
+ 13. the rest of training ('[train ...]' lines), at the flagship training
+     width on phase 6's batch: '[train amp]', 1 warm-up then 3 timed
+     AMP (bf16 G, D and VGG) and 3 float32 `train_step_shared` in turns
+     from the same seeded weights and draws, the warm-up's losses and
+     gradient norms each within `BF16_STEP_LIMIT_*` of float32's (4x
+     JAX's own bf16 distance, tests/test_torch_train_amp.py), K2/K3
+     launches per step equal, every AMP gradient float32 and finite, then
+     one paired AMP step (K5 launched); '[train aug]', a step with
+     DiffAugment ('color,translation,cutout') and the nearest label
+     resize, then `train_step_fused` against `train_step` on twin
+     trainers (phase 7's tolerances); '[train options]', for two
+     generator configurations that set every option the shipped configs
+     leave at its default, one step (K2/K3 launched as the default step)
+     and one 540x960 frame with compaction on, within 1e-3 of the frame
+     with it off (not with `raw_noise_std`); '[train cli amp]',
+     `cli.train.main` with AMP, DiffAugment, the paired spec and
+     `--profile` on phase 9's cache and pairs for 24 iterations (a
+     checkpoint at 12; the Chrome trace must name K5's kernels), a resume
+     from 12 to 16, the same 24 in float32, the median and spread of
+     s/iteration over iterations 5-24 of each.
+
+Then the total time, one `kernels` JSON line covering K1-K5 (K4a also
+at the serving chunk, under `at_serving_chunk`; K5b's whole launch there
+under `serving_chunk_ms`; every row with its launches per padded-tile
+frame at 1 and 4 tiles per batch and per AMP step), the card's name and
 power limit (nvidia-smi), and last the line {"ok": true, "device": {...}}.
-Float32 everywhere: TF32 is switched off for matmuls and convolutions.
+Float32 everywhere but phase 12's bf16 frame and phase 13's AMP: TF32
+is switched off for matmuls and convolutions.
 """
 import json
 import math
@@ -447,21 +469,26 @@ def chunk_points(torch, rays, ori_t, depth, hit, dims):
     return (wc / dims_t * 2.0 - 1.0).reshape(-1, 3).contiguous(), rows
 
 
-def make_trainer(cfg, dims, dev, seed=SEED):
+def make_trainer(cfg, dims, dev, seed=SEED, aug_policy='',
+                 smooth_resample=True):
     """The flagship training models of configs/scenedreamer_train.yaml
     from seeded random weights: generator `cfg`, D with 128 filters and
-    `cfg`'s labels, VGG19 perceptual loss; the yaml's loss weights and
-    optimizers (the `GANTrainer` defaults)."""
+    `cfg`'s labels, VGG19 perceptual loss, D and VGG in `cfg.dtype` (bf16:
+    AMP); the yaml's loss weights and optimizers (the `GANTrainer`
+    defaults), DiffAugment `aug_policy`."""
     from scenedreamer_tpu_torch.models.discriminator import \
         GANcraftDiscriminator
     from scenedreamer_tpu_torch.models.generator import SceneDreamerGenerator
     from scenedreamer_tpu_torch.train.losses import PerceptualLoss
-    from scenedreamer_tpu_torch.train.trainer import GANTrainer
+    from scenedreamer_tpu_torch.train.trainer import GANTrainer, TrainerConfig
     return GANTrainer(
         SceneDreamerGenerator(cfg, seed=seed).to(dev),
         GANcraftDiscriminator(num_labels=cfg.num_reduced_labels,
-                              num_filters=128, seed=seed).to(dev),
-        dims, perceptual=PerceptualLoss(seed=seed).to(dev))
+                              num_filters=128, seed=seed,
+                              smooth_resample=smooth_resample,
+                              dtype=cfg.dtype).to(dev),
+        dims, cfg=TrainerConfig(aug_policy=aug_policy),
+        perceptual=PerceptualLoss(seed=seed, dtype=cfg.dtype).to(dev))
 
 
 def _exact_scatter(torch, g, c, rows, corners):
@@ -1184,6 +1211,32 @@ def train_path(torch, kernels, cfg, world, voxel, dev):
                 peak_gb=peak_gb, rays=hw * hw)
 
 
+def twin_margins(torch, ta, ma, tb, mb):
+    """Two trainers from one state after the same step: the largest
+    relative difference of their losses and of their gradient norms, and
+    of their parameters the worst margin against 1e-5 (or 2 lr + 1e-5
+    where |grad| < 1e-5: Adam with beta1 = 0 moves those by up to their
+    learning rate whichever way the rounding tips it), how many such, of
+    how many, and the largest difference."""
+    rel = {n: abs(mb[n] - ma[n]) / max(abs(ma[n]), 1e-30) for n in ma}
+    loss_rel = max(v for n, v in rel.items() if not n.endswith('grad_norm'))
+    norm_rel = max(v for n, v in rel.items() if n.endswith('grad_norm'))
+    lr_of = {id(p): g['lr'] for o in (ta.g_opt, ta.d_opt)
+             for g in o.opt.param_groups for p in g['params']}
+    worst, loose, total, max_err = -math.inf, 0, 0, 0.0
+    with torch.no_grad():
+        for mod_a, mod_b in ((ta.gen, tb.gen), (ta.dis, tb.dis)):
+            for pa, pb in zip(mod_a.parameters(), mod_b.parameters()):
+                err = (pa - pb).abs()
+                flat = pa.grad.abs() < 1e-5
+                limit = torch.where(flat, 2 * lr_of[id(pa)] + 1e-5, 1e-5)
+                worst = max(worst, float((err - limit).max()))
+                loose += int((flat & (err > 1e-5)).sum())
+                total += err.numel()
+                max_err = max(max_err, float(err.max()))
+    return loss_rel, norm_rel, worst, loose, total, max_err
+
+
 def train_compact(torch, cfg, world, voxel, dev):
     """Phase 7, compaction: twin trainers from one seed take one
     `train_step_shared` on one batch with the same draws, one with
@@ -1216,22 +1269,8 @@ def train_compact(torch, cfg, world, voxel, dev):
         torch.cuda.synchronize()
         runs.append((trainer, m, time.time() - t0))
     (ta, ma, sa), (tb, mb, sb) = runs
-    rel = {n: abs(mb[n] - ma[n]) / max(abs(ma[n]), 1e-30) for n in ma}
-    loss_rel = max(v for n, v in rel.items() if not n.endswith('grad_norm'))
-    norm_rel = max(v for n, v in rel.items() if n.endswith('grad_norm'))
-    lr_of = {id(p): g['lr'] for o in (ta.g_opt, ta.d_opt)
-             for g in o.opt.param_groups for p in g['params']}
-    worst, loose, total, max_err = -math.inf, 0, 0, 0.0
-    with torch.no_grad():
-        for mod_a, mod_b in ((ta.gen, tb.gen), (ta.dis, tb.dis)):
-            for pa, pb in zip(mod_a.parameters(), mod_b.parameters()):
-                err = (pa - pb).abs()
-                flat = pa.grad.abs() < 1e-5
-                limit = torch.where(flat, 2 * lr_of[id(pa)] + 1e-5, 1e-5)
-                worst = max(worst, float((err - limit).max()))
-                loose += int((flat & (err > 1e-5)).sum())
-                total += err.numel()
-                max_err = max(max_err, float(err.max()))
+    loss_rel, norm_rel, worst, loose, total, max_err = twin_margins(
+        torch, ta, ma, tb, mb)
     log(f'[train compact] {hw}x{hw} rays, {natural:.3f} hit before the top '
         f'{hw // 4} rows were cleared, {n_hit} after; compact_k {k}: one '
         f'train_step_shared {sb:.3f} s against {sa:.3f} s without; losses '
@@ -1707,16 +1746,13 @@ def general_loop(torch, kernels):
 
 
 # bf16 limits of phase 12, on the largest and the mean difference from the
-# float32 frame: multiples of JAX's own bf16-to-float32 distance, which
-# tests/test_torch_inference.py::test_bf16_frame_within_jax_bf16_distance
-# measures on the CPU (TINY frame: max 1.703e-4, mean 3.025e-5; at the
-# flagship layer widths max 1.62e-4, mean 2.97e-5). The card's frame has
-# the full hash width and 200x the pixels of that 32x48 frame, so its
-# largest difference lies further out: on the CPU the port's own
-# distance at the flagship width on 40x64 frames (2 seeds x 3 poses) was
-# max 2.05-2.28e-4, mean 3.6-4.7e-5. Both limits stay under the frames'
-# 1e-3.
-BF16_JAX_MAX, BF16_JAX_MEAN = 1.703e-4, 3.025e-5
+# float32 frame: multiples of JAX's own bf16-to-float32 distance at the
+# full flagship width, which tests/test_torch_bf16_limit.py measures on
+# the CPU (40x64 frames, two poses: max 1.84e-4, mean 3.40e-5; the port's
+# own distance there max 1.84e-4, mean 3.41e-5). The card's frame has
+# 200x the pixels of those frames, so its largest difference lies
+# further out. Both limits stay under the frames' 1e-3.
+BF16_JAX_MAX, BF16_JAX_MEAN = 1.84e-4, 3.40e-5
 BF16_LIMIT_MAX, BF16_LIMIT_MEAN = 4 * BF16_JAX_MAX, 2 * BF16_JAX_MEAN
 TILE = 128                  # the inference CLI's --tile_size
 TILES = 40                  # 540x960 on the 128 grid: 5 x 8
@@ -1859,7 +1895,7 @@ def serve_rest(torch, kernels, world, style, pose, split_img, ckpts, dev):
         f'{diff.mean():.4g} (limit {BF16_LIMIT_MEAN:.4g}); the limits are 4x '
         f'and 2x JAX\'s own bf16-to-float32 distance on the CPU (max '
         f'{BF16_JAX_MAX}, mean {BF16_JAX_MEAN}, '
-        f'tests/test_torch_inference.py); the float32 frame\'s largest '
+        f'tests/test_torch_bf16_limit.py); the float32 frame\'s largest '
         f'magnitude {np.abs(split_img).max():.4g}; launches {counts}')
     assert np.isfinite(img).all() and np.abs(img).max() <= 1.0
     assert diff.max() <= BF16_LIMIT_MAX and diff.mean() <= BF16_LIMIT_MEAN, \
@@ -1942,6 +1978,362 @@ def serve_rest(torch, kernels, world, style, pose, split_img, ckpts, dev):
     log(f'[serve] phase 12 in {time.time() - t_phase:.1f} s')
     shutil.rmtree(os.path.dirname(os.path.dirname(ckpts)))
     return tiles
+
+
+# bf16 step limits of phase 13: 4x JAX's own bf16-to-float32 distance of
+# one `train_step_shared`, which tests/test_torch_train_amp.py measures
+# on the CPU (TINY generator, D at the flagship 128 filters, DiffAugment
+# on, the same weights and draws): the largest relative difference
+# |a - b| / max(|b|, 1e-2) over the losses 2.08e-3, over the two
+# gradient norms 2.54e-2 (the port's own there 1.50e-3 and 1.14e-2). The
+# G losses pass through the D that the step's first Adam update (about
+# +-lr per weight) just moved, so bf16 noise in D's small gradients
+# reaches them; it grows with D's width (8x from 8 to 128 filters).
+BF16_STEP_JAX_LOSS, BF16_STEP_JAX_NORM = 2.08e-3, 2.54e-2
+BF16_STEP_LIMIT_LOSS = 4 * BF16_STEP_JAX_LOSS
+BF16_STEP_LIMIT_NORM = 4 * BF16_STEP_JAX_NORM
+STEP_FLOOR = 1e-2
+AUG = 'color,translation,cutout'
+STEP_KERNELS = ('hash_bake', 'hash_encode', 'hash_encode_bwd',
+                'hash_bake_bwd', 'hash_bake_dw')
+# two generator configurations that between them set every option the
+# shipped configs leave at its default off it
+OPTION_CONFIGS = {
+    'viewdir': dict(pe_lvl_raydir=4, pe_incl_orig_raydir=True,
+                    clip_feat_map='tanh', sky_global_avgpool=False,
+                    use_seg=False),
+    'noise': dict(raw_noise_std=1.0, clip_feat_map=False,
+                  keep_sky_out=False, keep_sky_out_avgpool=False),
+}
+LOOP_ITERS, LOOP_CKPT, LOOP_RESUME = 24, 12, 16
+
+
+def _step(torch, kernels, trainer, batch, seed, dev,
+          method='train_step_shared'):
+    """One synchronised training step with the launch counts set to 0
+    just before it: (metrics, seconds, launch counts, peak GB)."""
+    draws = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    m = getattr(trainer, method)(batch, draws)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    for k, v in m.items():
+        assert math.isfinite(v), f'non-finite {k} ({method})'
+    return (m, secs, kernels.launch_counts(),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def train_amp(torch, kernels, world, batch, dev):
+    """Phase 13, '[train amp]': AMP and float32 `train_step_shared` on
+    phase 6's batch from the same seeded weights and draws; the first
+    step of each (a warm-up) compared loss by loss, then 3 timed steps of
+    each in turn, then one AMP step on the paired spec."""
+    import dataclasses
+    from scenedreamer_tpu_torch.models.generator import GeneratorConfig
+    tcfg = GeneratorConfig()
+    trainers = {name: make_trainer(dataclasses.replace(tcfg, dtype=dt),
+                                   world.dims, dev)
+                for name, dt in (('amp', torch.bfloat16),
+                                 ('float32', torch.float32))}
+    first = {name: _step(torch, kernels, tr, batch, SEED, dev)
+             for name, tr in trainers.items()}
+    (ma, sa, _, _), (mf, sf, _, _) = first['amp'], first['float32']
+    readings = []
+    for n in sorted(mf):
+        rel = abs(ma[n] - mf[n]) / max(abs(mf[n]), STEP_FLOOR)
+        limit = BF16_STEP_LIMIT_NORM if n.endswith('grad_norm') \
+            else BF16_STEP_LIMIT_LOSS
+        readings.append((n, ma[n], mf[n], rel, limit))
+    log(f'[train amp] first step (a warm-up; the same weights, batch and '
+        f'draws): AMP {sa:.3f} s, float32 {sf:.3f} s; each metric, AMP / '
+        f'float32, |a - b| / max(|b|, {STEP_FLOOR}) against its limit '
+        f'(BF16_STEP_LIMIT_LOSS {BF16_STEP_LIMIT_LOSS:.4g}, _NORM '
+        f'{BF16_STEP_LIMIT_NORM:.4g}: 4x JAX\'s own on the CPU): '
+        + '; '.join(f'{n} {a:.6g} / {b:.6g}: {r:.3g} (limit {lim:.3g})'
+                    for n, a, b, r, lim in readings))
+    steps = {name: [] for name in trainers}
+    for i in range(TRAIN_STEPS):
+        for name, tr in trainers.items():
+            steps[name].append(_step(torch, kernels, tr, batch,
+                                     SEED + 1 + i, dev))
+        ca, cf = steps['amp'][-1][2], steps['float32'][-1][2]
+        for k in STEP_KERNELS:
+            assert ca[k] == cf[k] > 0, \
+                f'AMP step {i} launched {k} {ca[k]} times, float32 {cf[k]}'
+        for k in PAIRED + GENERAL:
+            assert ca[k] == 0, f'the xor AMP step launched {k}'
+    out = {}
+    for name, runs in steps.items():
+        secs = [r[1] for r in runs]
+        out[name] = dict(s_per_iter=statistics.mean(secs),
+                         peak_gb=max(r[3] for r in runs), counts=runs[-1][2])
+        log(f'[train amp] {name}: {out[name]["s_per_iter"]:.3f} s/iteration '
+            f'(mean of {TRAIN_STEPS} after the warm-up; '
+            f'{[round(t, 3) for t in secs]}), peak {out[name]["peak_gb"]:.1f}'
+            f' GB, launches per step {runs[-1][2]}')
+    amp = trainers['amp']
+    for mod in (amp.gen, amp.dis):
+        for n, p in mod.named_parameters():
+            assert p.dtype == torch.float32 and p.grad.dtype == torch.float32, n
+            assert bool(torch.isfinite(p.grad).all()), f'non-finite grad {n}'
+    log(f'[train amp] AMP parameters and gradients: float32 and finite '
+        f'({sum(1 for m in (amp.gen, amp.dis) for _ in m.parameters())} '
+        f'tensors); float32 / AMP s/iteration '
+        f'{out["float32"]["s_per_iter"] / out["amp"]["s_per_iter"]:.2f}x')
+    for n, a, b, r, lim in readings:
+        assert r <= lim, f'AMP {n} {a} is {r:.3g} from float32 {b} ' \
+            f'(limit {lim:.3g})'
+    del trainers, amp
+    torch.cuda.empty_cache()
+    ptr = make_trainer(dataclasses.replace(tcfg, hash_variant='paired',
+                                           dtype=torch.bfloat16),
+                       world.dims, dev)
+    m, secs, counts, peak = _step(torch, kernels, ptr, batch, SEED, dev)
+    log(f'[train amp] paired spec, one AMP step: {secs:.3f} s (first step '
+        f'of its trainer), peak {peak:.1f} GB, launches {counts}')
+    for k in PAIRED:
+        assert counts[k] > 0, f'the paired AMP step never launched {k}'
+    for k in XOR + GENERAL:
+        assert counts[k] == 0, f'the paired AMP step launched {k}'
+    out['paired_counts'] = counts
+    del ptr
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_aug(torch, kernels, world, batch, f32_spi, dev):
+    """Phase 13, '[train aug]': a step with DiffAugment and the nearest
+    label resize, then `train_step_fused` against `train_step` on twin
+    trainers from one seed and one draw seed."""
+    from scenedreamer_tpu_torch.models.generator import GeneratorConfig
+    tcfg = GeneratorConfig()
+    tr = make_trainer(tcfg, world.dims, dev, aug_policy=AUG,
+                      smooth_resample=False)
+    warm = _step(torch, kernels, tr, batch, SEED, dev)
+    m, secs, counts, peak = _step(torch, kernels, tr, batch, SEED + 1, dev)
+    log(f'[train aug] aug_policy {AUG}, smooth_resample false: '
+        f'train_step_shared {secs:.3f} s (after a warm-up step of '
+        f'{warm[1]:.3f} s) against [train amp]\'s float32 step '
+        f'{f32_spi:.3f} s: DiffAugment and the nearest resize cost '
+        f'{secs - f32_spi:+.3f} s; peak {peak:.1f} GB; ' + ', '.join(
+            f'{k} {v:.4g}' for k, v in m.items()))
+    del tr
+    torch.cuda.empty_cache()
+    runs = []
+    for method in ('train_step', 'train_step_fused'):
+        t = make_trainer(tcfg, world.dims, dev, aug_policy=AUG,
+                         smooth_resample=False)
+        runs.append((t,) + _step(torch, kernels, t, batch, SEED, dev,
+                                 method))
+    (ta, ma, sa, _, _), (tb, mb, sb, _, _) = runs
+    loss_rel, norm_rel, worst, loose, total, max_err = twin_margins(
+        torch, ta, ma, tb, mb)
+    log(f'[train aug] train_step_fused {sb:.3f} s against train_step '
+        f'{sa:.3f} s from one state and draw seed: losses max rel diff '
+        f'{loss_rel:.3g} (tolerance 1e-5), gradient norms {norm_rel:.3g} '
+        f'(1e-4); parameters max abs diff {max_err:.3g}, worst margin '
+        f'{worst:.3g} (<= 0 passes; {loose} of {total} within 2 lr where '
+        f'|grad| < 1e-5)')
+    assert loss_rel <= 1e-5 and norm_rel <= 1e-4 and worst <= 0, \
+        'train_step_fused differs from train_step'
+    del runs, ta, tb
+    torch.cuda.empty_cache()
+    return dict(s_per_iter=secs, peak_gb=peak)
+
+
+def train_options(torch, kernels, world, batch, style, pose, f32_counts,
+                  dev):
+    """Phase 13, '[train options]': per `OPTION_CONFIGS` entry one
+    training step at the flagship training width (finite, K2/K3 launched
+    as the default step launches them) and one 540x960 frame with
+    compaction and the sky skip on, held within 1e-3 of the same frame
+    with both off (not with `raw_noise_std`: JAX draws the noise on the
+    compacted rays only)."""
+    import dataclasses
+    import numpy as np
+    from scenedreamer_tpu_torch.models.generator import (
+        GeneratorConfig, SceneDreamerGenerator)
+    from scenedreamer_tpu_torch.render.pipeline import TiledRenderer
+    out = {}
+    for name, opts in OPTION_CONFIGS.items():
+        tr = make_trainer(dataclasses.replace(GeneratorConfig(), **opts),
+                          world.dims, dev)
+        m, secs, counts, peak = _step(torch, kernels, tr, batch, SEED, dev)
+        del tr
+        for k in STEP_KERNELS + PAIRED + GENERAL:
+            assert counts[k] == f32_counts[k], \
+                f'{name}: the step launched {k} {counts[k]} times, the ' \
+                f'default step {f32_counts[k]}'
+        model = SceneDreamerGenerator(GeneratorConfig(
+            num_samples=SAMPLES, num_blocks_early_stop=M, **opts),
+            seed=SEED).to(dev).eval()
+        kw = dict(num_samples=SAMPLES, num_blocks_early_stop=M, pad=PAD,
+                  resolution_hw=RES, device=dev)
+        r_on = TiledRenderer(model, world, **kw)
+        z = r_on.style_z(style.numpy())
+        r_on.frame(pose, z)                                 # warm-up
+        s_on, img_on, _ = timed_frame(torch, r_on, pose, z)
+        os.environ['SCENEDREAMER_FIELD_COMPACT'] = '0'
+        try:
+            r_off = TiledRenderer(model, world, sky_fast=False, **kw)
+        finally:
+            del os.environ['SCENEDREAMER_FIELD_COMPACT']
+        s_off, img_off, _ = timed_frame(torch, r_off, pose, z)
+        err = float(np.abs(img_on - img_off).max())
+        log(f'[train options] {name} {opts}: one train_step_shared '
+            f'{secs:.3f} s (its trainer\'s first), peak {peak:.1f} GB, '
+            f'K2/K3 launches as the default step; frame {RES[0]}x{RES[1]} '
+            f'compaction on {s_on:.3f} s, off {s_off:.3f} s, image max abs '
+            f'diff {err:.3g}'
+            + (' (noise drawn on other rays: not held)'
+               if opts.get('raw_noise_std') else ' (tolerance 1e-3)'))
+        for img in (img_on, img_off):
+            assert np.isfinite(img).all() and np.abs(img).max() <= 1.0
+        if not opts.get('raw_noise_std'):
+            assert err <= 1e-3, f'{name}: the compacted frame differs'
+        out[name] = dict(step_s=secs, frame_s=s_on, frame_err=err)
+        del model, r_on, r_off
+        torch.cuda.empty_cache()
+    return out
+
+
+def _kernel_names(trace_dir):
+    """The names of the device kernels in the Chrome trace under
+    `trace_dir` (events of category 'kernel')."""
+    import glob
+    (path,) = glob.glob(os.path.join(trace_dir, '*.json'))
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    return path, sorted({e['name'] for e in events
+                         if e.get('cat') == 'kernel'})
+
+
+def _loop_spread(series, first=5):
+    """s/iteration of each logged iteration from `first` on: (median,
+    min, max, count)."""
+    per = [1.0 / v for step, v in series['perf/iters_per_s'] if step >= first]
+    return statistics.median(per), min(per), max(per), len(per)
+
+
+def train_cli_amp(torch, kernels):
+    """Phase 13, '[train cli amp]': `cli.train.main` with AMP, DiffAugment
+    and the paired spec on phase 9's cache and pairs, `--profile`, 24
+    iterations with a checkpoint at 12, a resume from 12 to 16, then the
+    same 24 iterations in float32."""
+    import yaml
+    root = os.path.join(REPO, 'smoke_out', 'loop')
+    with open(os.path.join(REPO, 'configs', 'scenedreamer_train.yaml')) as f:
+        base = yaml.safe_load(f)
+    base.update(logging_iter=1, snapshot_save_iter=LOOP_CKPT,
+                image_save_iter=10 ** 6)
+    base['gen']['hash_variant'] = 'paired'
+    base['trainer']['aug_policy'] = AUG
+    paths = {}
+    for name, enabled in (('amp', True), ('float32', False)):
+        cfg = json.loads(json.dumps(base))
+        cfg['trainer']['amp_config'] = {'enabled': enabled}
+        paths[name] = os.path.join(root, f'train_{name}.yaml')
+        with open(paths[name], 'w') as f:
+            yaml.safe_dump(cfg, f)
+
+    def argv(name, logs, *extra):
+        return ['--config', paths[name], '--data-root',
+                os.path.join(root, 'data'), '--terrain-cache',
+                os.path.join(root, 'cache'), '--logdir',
+                os.path.join(root, logs), '--seed', str(SEED)] + list(extra)
+
+    def finite(series, what):
+        assert series, f'{what}: no metrics written'
+        for n, points in series.items():
+            for step, v in points:
+                assert math.isfinite(v), f'{what}: {n} = {v} at {step}'
+
+    out = {}
+    text, counts, logdir, series, secs, peak = _run_cli(
+        torch, kernels, argv('amp', 'logs_amp', '--max-iter',
+                             str(LOOP_ITERS), '--profile'))
+    _check_counts(counts, PAIRED, XOR + GENERAL, f'AMP, {LOOP_ITERS} '
+                  f'iterations')
+    finite(series, 'AMP loop')
+    assert [s for s, _ in series['gen/total']] == \
+        list(range(1, LOOP_ITERS + 1))
+    trace, names = _kernel_names(os.path.join(logdir, 'trace'))
+    hashes = [n for n in names if 'paired' in n or 'shift_bake' in n
+              or 'folded_bwd' in n or 'dw_' in n]
+    log(f'[train cli amp] --profile: {trace} holds {len(names)} distinct '
+        f'kernels; the hash kernels among them: {hashes}')
+    for want in ('encode_paired_kernel', 'shift_bake_kernel'):
+        assert any(want in n for n in hashes), \
+            f'the trace does not name {want}'
+    out['amp'] = _loop_spread(series) + (secs, peak)
+    ckpts = os.path.join(logdir, 'checkpoints')
+    with open(os.path.join(ckpts, 'latest_checkpoint.txt'), 'w') as f:
+        f.write(f'step_{LOOP_CKPT:08d}.pt\n')       # as if killed after 12
+    text, counts, logdir2, series, _, _ = _run_cli(
+        torch, kernels, argv('amp', 'logs_amp', '--max-iter',
+                             str(LOOP_RESUME), '--resume'))
+    assert f'resumed at iteration {LOOP_CKPT}' in text, \
+        f'the run did not resume at {LOOP_CKPT}'
+    finite(series, 'AMP resumed')
+    assert [s for s, _ in series['gen/total']] == \
+        list(range(LOOP_CKPT + 1, LOOP_RESUME + 1))
+    state = torch.load(os.path.join(logdir2, 'checkpoints',
+                                    f'step_{LOOP_RESUME:08d}.pt'),
+                       map_location='cpu', weights_only=True)
+    dtypes = {str(v.dtype) for part in ('generator', 'discriminator')
+              for v in state[part].values() if v.is_floating_point()}
+    assert dtypes == {'torch.float32'}, dtypes
+    del state
+    med, lo, hi, n = _loop_spread(series, LOOP_CKPT + 2)
+    log(f'[train cli amp] resumed at {LOOP_CKPT}, ran to {LOOP_RESUME} '
+        f'(meters at {[s for s, _ in series["gen/total"]]}); checkpointed '
+        f'parameters {sorted(dtypes)}; without --profile, iterations '
+        f'{LOOP_CKPT + 2}-{LOOP_RESUME}: {med:.3f} s/iteration median '
+        f'({n}; {lo:.3f}-{hi:.3f})')
+    out['amp_resumed'] = (med, lo, hi, n)
+    text, counts, _, series, secs, peak = _run_cli(
+        torch, kernels, argv('float32', 'logs_f32', '--max-iter',
+                             str(LOOP_ITERS)))
+    _check_counts(counts, PAIRED, XOR + GENERAL, f'float32, {LOOP_ITERS} '
+                  f'iterations')
+    finite(series, 'float32 loop')
+    out['float32'] = _loop_spread(series) + (secs, peak)
+    for name in ('amp', 'float32'):
+        med, lo, hi, n, secs, peak = out[name]
+        log(f'[train cli amp] {name}: {med:.3f} s/iteration, median of '
+            f'iterations 5-{LOOP_ITERS} ({n}; spread {lo:.3f}-{hi:.3f}; '
+            f'prefetch on, aug {AUG}, paired), run {secs:.1f} s with '
+            f'set-up and checkpoints, peak {peak:.1f} GB')
+    for logs in ('logs_amp', 'logs_f32'):
+        shutil.rmtree(os.path.join(root, logs))
+    return out
+
+
+def rest_of_training(torch, kernels, world, style, pose, dev):
+    """Phase 13, the rest of training: `[train amp]`, `[train aug]`,
+    `[train options]`, `[train cli amp]`."""
+    from scenedreamer_tpu_torch.data.synthetic import make_batch
+    from scenedreamer_tpu_torch.models.generator import GeneratorConfig
+    t_phase = time.time()
+    tcfg = GeneratorConfig()
+    hw = TRAIN_CROP + tcfg.pad
+    voxel = torch.from_numpy(world.voxel).to(dev)
+    batch = make_batch(world, batch_size=1, height=hw, width=hw,
+                       max_samples=tcfg.num_blocks_early_stop, pad=tcfg.pad,
+                       seed=SEED, device=dev, voxel=voxel)
+    amp = train_amp(torch, kernels, world, batch, dev)
+    aug = train_aug(torch, kernels, world, batch,
+                    amp['float32']['s_per_iter'], dev)
+    options = train_options(torch, kernels, world, batch, style, pose,
+                            amp['float32']['counts'], dev)
+    del batch, voxel
+    torch.cuda.empty_cache()
+    loop = train_cli_amp(torch, kernels)
+    log(f'[train] phase 13 in {time.time() - t_phase:.1f} s')
+    return dict(amp=amp, aug=aug, options=options, loop=loop)
 
 
 def split_extra(split):
@@ -2063,6 +2455,7 @@ def main():
     from scenedreamer_tpu_torch.scene.terrain import generate_terrain
     from scenedreamer_tpu_torch.scene.voxel_world import build_voxel_world
 
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision('highest')
@@ -2403,20 +2796,28 @@ def main():
     padded = serve_rest(torch, kernels, world, style, ctl[0], img_on,
                         loop['xor_checkpoints'], dev)
 
+    # 13. the rest of training -----------------------------------------------
+    rest = rest_of_training(torch, kernels, world, style, ctl[0], dev)
+
     table_rows = kernel_rows(serving, k3, k3_split, train, k5, k5_split,
                              k5b, loop) \
         + general_rows(k4, k4_split, (int(chunk_n), *k4c), urender, ustep,
                        uloop)
+    amp_counts = {**rest['amp']['amp']['counts'],
+                  **{k: v for k, v in rest['amp']['paired_counts'].items()
+                     if k in PAIRED}}
     for row in table_rows:
         row['launches_per_padded_tile_frame'] = {
             f'tiles_per_batch_{tb}': counts[row['name']]
             for tb, counts in padded.items()}
+        row['launches_per_amp_step'] = amp_counts[row['name']]
     log(json.dumps({'kernels': table_rows}))
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
+    log(f'[smoke] phases 1-13 in {time.time() - t_start:.1f} s')
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -12,7 +12,12 @@ pseudo ground truth and the masks, outside autograd; then run the
 training step (kernels K2/K3, or K5 with `gen.hash_variant: paired`).
 The same yaml keys and flags as the JAX package's CLI, plus `--device`
 (default 'cuda'; raises without a GPU unless 'cpu' is asked for). One
-process, one device; float32 (`trainer.amp_config.enabled: true` raises).
+process, one device. `trainer.amp_config.enabled: true` trains with bf16
+compute in the generator, the discriminator and the VGG loss, float32
+parameters, optimizer state and losses, and no loss scaling (JAX
+`cli/train.py:48-56`); `trainer.aug_policy` turns on DiffAugment;
+`--profile` writes a `torch.profiler` Chrome trace of iterations 2-4
+(CPU and CUDA activity) under `<logdir>/trace`.
 
 Usage:
     python -m scenedreamer_tpu_torch.cli.train \\
@@ -49,7 +54,8 @@ from scenedreamer_tpu_torch.train.sampling import (CameraBatchSampler,
                                                    TrainingBatchBuilder)
 from scenedreamer_tpu_torch.train.trainer import (GANTrainer, TrainerConfig,
                                                   load_checkpoint,
-                                                  save_checkpoint)
+                                                  save_checkpoint,
+                                                  split_generator)
 from scenedreamer_tpu_torch.utils.config import Config
 from scenedreamer_tpu_torch.utils.meters import (MetricsWriter,
                                                  make_logging_dir)
@@ -67,15 +73,17 @@ def build_everything(cfg, args, device):
     pad = int(gen_cfg.get('pad', 6))
 
     # `trainer.amp_config.enabled` (reference
-    # `configs/scenedreamer_train.yaml:11-12`): the shipped config trains
-    # with it off; bf16 mixed precision is not ported
-    if bool(cfg.get('trainer', {}).get('amp_config', {})
-            .get('enabled', False)):
-        raise NotImplementedError(
-            'trainer.amp_config.enabled: true (bf16 mixed precision) is '
-            'not ported; the port trains in float32')
+    # `configs/scenedreamer_train.yaml:11-12`, GradScaler machinery in
+    # `trainers/base.py:77-78`): bf16 module compute with float32
+    # parameters and losses, as the JAX package: no loss scaling (bf16
+    # has float32's exponent range), and the trainer's skip of a
+    # non-finite gradient stands in for the scaler's retry
+    amp = bool(cfg.get('trainer', {}).get('amp_config', {})
+               .get('enabled', False))
+    model_dtype = torch.bfloat16 if amp else torch.float32
 
     gcfg = GeneratorConfig(
+        dtype=model_dtype,
         style_dims=int(gen_cfg.get('style_dims', 128)),
         interm_style_dims=int(gen_cfg.get('interm_style_dims', 256)),
         final_feat_dim=int(gen_cfg.get('final_feat_dim', 64)),
@@ -100,14 +108,11 @@ def build_everything(cfg, args, device):
     generator = SceneDreamerGenerator(gcfg, seed=args.seed).to(device)
 
     dis_cfg = cfg.get('dis', {})
-    if not bool(dis_cfg.get('smooth_resample', True)):
-        raise NotImplementedError(
-            'dis.smooth_resample: false is not ported (the shipped '
-            'configs keep it on)')
     discriminator = GANcraftDiscriminator(
         num_labels=int(dis_cfg.get('num_labels', 12)),
         num_filters=int(dis_cfg.get('num_filters', 128)),
-        seed=args.seed).to(device)
+        smooth_resample=bool(dis_cfg.get('smooth_resample', True)),
+        dtype=model_dtype, seed=args.seed).to(device)
 
     dataset = PairedImageDataset(
         args.data_root, dataset_type=args.dataset_type,
@@ -138,7 +143,8 @@ def build_everything(cfg, args, device):
         if perc_cfg:
             kwargs = dict(layers=tuple(perc_cfg['layers']),
                           weights=tuple(perc_cfg['weights']))
-        perceptual = L.PerceptualLoss(seed=args.seed, **kwargs).to(device)
+        perceptual = L.PerceptualLoss(seed=args.seed, dtype=model_dtype,
+                                      **kwargs).to(device)
     ema_cfg = cfg.get('trainer', {}).get('model_average_config', {})
     ema_beta = 0.0
     if ema_cfg.get('enabled', False):
@@ -302,6 +308,12 @@ def _parser():
                         'default is the single-forward step '
                         '(train_step_shared). Env override: '
                         'SCENEDREAMER_SHARED_FWD=0')
+    p.add_argument('--profile', action='store_true',
+                   help='write a torch.profiler Chrome trace (CPU and CUDA '
+                        'activity) of iterations 2-4 of this process to '
+                        '<logdir>/trace (reference train.py:129-151; after '
+                        'the first iterations, which build the kernels '
+                        'and warm the allocator)')
     p.add_argument('--speed-benchmark', action='store_true',
                    help='per-phase wall timers with a device barrier '
                         '(trainers/base.py:876-940 speed_benchmark); '
@@ -373,7 +385,23 @@ def _run(a, cfg, device, stop_requested):
     def _ph(name):
         return timer.phase(name) if timer else nullcontext()
 
+    profile_window = (2, 4) if a.profile else None
+    trace = {'prof': None}
+
+    def _stop_trace():
+        prof = trace['prof']
+        if prof is None:
+            return
+        trace['prof'] = None
+        prof.stop()
+        trace_dir = os.path.join(logdir, 'trace')
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, 'trace.json')
+        prof.export_chrome_trace(path)
+        print(f'[train] trace written to {path}')
+
     it = 0
+    steps_run = 0   # iterations run by THIS process (`it` jumps on resume)
     shared = a.shared_fwd and bool(int(os.environ.get(
         'SCENEDREAMER_SHARED_FWD', '1')))
     step_fn = trainer.train_step_shared if shared else trainer.train_step
@@ -433,9 +461,7 @@ def _run(a, cfg, device, stop_requested):
     def _next_generators():
         # exactly ONE pair of seeds per iteration, always in serial
         # order: prefetching only moves WHEN a pair is drawn
-        seeds = torch.randint(0, 2 ** 62, (2,), generator=master).tolist()
-        return tuple(torch.Generator(device=device).manual_seed(s)
-                     for s in seeds)
+        return split_generator(master, device)
 
     def _finish(message):
         _flush_pending()
@@ -451,6 +477,13 @@ def _run(a, cfg, device, stop_requested):
             fut = None            # (future, g_step) for the prefetched batch
             while nxt is not None:
                 data_np, nxt = nxt, next(diter, None)
+                if profile_window and steps_run == profile_window[0] \
+                        and trace['prof'] is None:
+                    acts = [torch.profiler.ProfilerActivity.CPU]
+                    if device.type == 'cuda':
+                        acts.append(torch.profiler.ProfilerActivity.CUDA)
+                    trace['prof'] = torch.profiler.profile(activities=acts)
+                    trace['prof'].start()
                 if fut is not None:
                     pending, g_step = fut
                     batch = pending.result()
@@ -463,7 +496,11 @@ def _run(a, cfg, device, stop_requested):
                     fut = (executor.submit(_build, nxt, it + 1, gb2), gs2)
                 with _ph('train_step'):
                     metrics = step_fn(batch, g_step)
+                if trace['prof'] is not None \
+                        and steps_run == profile_window[1]:
+                    _stop_trace()
                 it += 1
+                steps_run += 1
                 pending_metrics.append(metrics)
                 if it % logging_iter == 0:
                     _flush_pending()
@@ -502,6 +539,7 @@ def _run(a, cfg, device, stop_requested):
                 save_checkpoint(ckpt_dir, trainer)
         _finish('[train] done at iteration {it}; checkpoints in {ckpt_dir}')
     finally:
+        _stop_trace()       # a run shorter than the window
         writer.close()
         if executor is not None:
             executor.shutdown(wait=False, cancel_futures=True)

@@ -6,8 +6,16 @@ encoder, an FPN top-down pathway with 1x1 lateral connections and
 bilinear upsampling, a stride-1 head and a 1x1 output conv giving
 `num_labels + 1` logits per patch (the +1 channel is "fake").
 Segmentation maps are resampled to the prediction grid with the
-area+argmax `smooth_interp`. Every conv but the output one is
-spectrally normalised.
+area+argmax `smooth_interp`, or (`smooth_resample=False`) with the
+nearest resize of `jax.image.resize(..., 'nearest')`. Every conv but the
+output one is spectrally normalised.
+
+`dtype` is the compute dtype of the convs (JAX's `dtype`, bf16 under
+AMP): the parameters, the power iteration and sigma stay float32 (flax's
+`SpectralNorm` runs in its float32 parameters' dtype and hands the conv a
+float32 kernel, which the conv casts), the conv casts its input, weight
+and bias, the features stay in `dtype`, and the output logits are cast
+to float32 so the N+1 GAN loss stays float32.
 
 Spectral norm follows flax's `nn.SpectralNorm` as the JAX package uses
 it: the power-iteration vector `u` [1, O] is an explicit buffer
@@ -24,7 +32,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from scenedreamer_tpu_torch.ops.resize import resize_bilinear
+from scenedreamer_tpu_torch.models.layers import leaky_relu
+from scenedreamer_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 
 SN_EPS = 1e-12
 
@@ -36,13 +45,15 @@ def _l2_normalize(x):
 class SNConv(nn.Module):
     """Conv2d (zero bias, xavier_normal(gain 0.02) weight), optionally
     spectrally normalised, then leaky ReLU(0.2) unless `act=False`
-    (reference Conv2dBlock, order 'CNA', no activation norm)."""
+    (reference Conv2dBlock, order 'CNA', no activation norm); computes
+    in `dtype`."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
-                 act=True, use_sn=True):
+                 act=True, use_sn=True, dtype=torch.float32):
         super().__init__()
         self.stride, self.pad = stride, (kernel_size - 1) // 2
         self.act, self.use_sn = act, use_sn
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels))
@@ -79,8 +90,10 @@ class SNConv(nn.Module):
         """x [B, C, H, W] (NCHW inside the discriminator)."""
         w = self.normalized_weight(update_stats) if self.use_sn \
             else self.weight
-        y = F.conv2d(x, w, self.bias, stride=self.stride, padding=self.pad)
-        return F.leaky_relu(y, 0.2) if self.act else y
+        dt = self.compute_dtype
+        y = F.conv2d(x.to(dt), w.to(dt), self.bias.to(dt),
+                     stride=self.stride, padding=self.pad)
+        return leaky_relu(y, grad_one_at_zero=True) if self.act else y
 
 
 def smooth_interp(segmap, size):
@@ -99,11 +112,14 @@ def smooth_interp(segmap, size):
 class FPSEDiscriminator(nn.Module):
     """Feature-pyramid patch discriminator (`gancraft.py:133-278`)."""
 
-    def __init__(self, num_labels=12, num_filters=128, kernel_size=3):
+    def __init__(self, num_labels=12, num_filters=128, kernel_size=3,
+                 smooth_resample=True, dtype=torch.float32):
         super().__init__()
         nf = num_filters
-        down = functools.partial(SNConv, kernel_size=kernel_size, stride=2)
-        lat = functools.partial(SNConv, kernel_size=1, stride=1)
+        self.smooth_resample = smooth_resample
+        down = functools.partial(SNConv, kernel_size=kernel_size, stride=2,
+                                 dtype=dtype)
+        lat = functools.partial(SNConv, kernel_size=1, stride=1, dtype=dtype)
         self.enc1 = down(3, nf)
         self.enc2 = down(nf, 2 * nf)
         self.enc3 = down(2 * nf, 4 * nf)
@@ -113,9 +129,10 @@ class FPSEDiscriminator(nn.Module):
         self.lat4 = lat(8 * nf, 4 * nf)
         self.lat3 = lat(4 * nf, 4 * nf)
         self.lat2 = lat(2 * nf, 4 * nf)
-        self.final2 = SNConv(4 * nf, 2 * nf, kernel_size, stride=1)
+        self.final2 = SNConv(4 * nf, 2 * nf, kernel_size, stride=1,
+                             dtype=dtype)
         self.output = SNConv(2 * nf, num_labels + 1, 1, act=False,
-                             use_sn=False)
+                             use_sn=False, dtype=dtype)
 
     def forward(self, images, segmaps, update_stats=False):
         """images [B, H, W, 3]; segmaps [B, H, W, num_labels] one-hot.
@@ -137,8 +154,11 @@ class FPSEDiscriminator(nn.Module):
         feat23 = up_to(feat24, feat13) + self.lat3(feat13, us)
         feat22 = up_to(feat23, feat12) + self.lat2(feat12, us)
         feat32 = self.final2(feat22, us)
-        pred2 = self.output(feat32).permute(0, 2, 3, 1)
-        label_map = smooth_interp(segmaps, pred2.shape[1:3])
+        pred2 = self.output(feat32).permute(0, 2, 3, 1).float()
+        if self.smooth_resample:
+            label_map = smooth_interp(segmaps, pred2.shape[1:3])
+        else:
+            label_map = resize_nearest(segmaps, pred2.shape[1:3])
         features = [f.permute(0, 2, 3, 1) for f in (
             feat11, feat12, feat13, feat14, feat15, feat25, feat24, feat23,
             feat22)]
@@ -147,15 +167,15 @@ class FPSEDiscriminator(nn.Module):
 
 class GANcraftDiscriminator(nn.Module):
     """Routes the fake / real / pseudo-real branches through one FPSE
-    (`discriminators/gancraft.py:73-130`), in the shipped configuration
-    (`use_label` and `smooth_resample` on: the segmentation masks
-    condition D and are resampled with `smooth_interp`). All inputs
-    NHWC."""
+    (`discriminators/gancraft.py:73-130`) with `use_label` on (the
+    segmentation masks condition D), in compute dtype `dtype`. All
+    inputs NHWC."""
 
     def __init__(self, num_labels=12, num_filters=128, kernel_size=3,
-                 seed=0):
+                 seed=0, smooth_resample=True, dtype=torch.float32):
         super().__init__()
-        self.fpse = FPSEDiscriminator(num_labels, num_filters, kernel_size)
+        self.fpse = FPSEDiscriminator(num_labels, num_filters, kernel_size,
+                                      smooth_resample, dtype)
         gen = torch.Generator().manual_seed(seed)
         for mod in self.modules():
             if isinstance(mod, SNConv):

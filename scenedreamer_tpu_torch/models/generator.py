@@ -25,9 +25,21 @@ the field on only the first K rays after a stable hits-first sort and
 scatters the per-ray results back: exact sky-ray compaction, the JAX
 package's `compact_k`. `GeneratorConfig.dtype=torch.bfloat16` computes
 the layers in bf16 with float32 parameters (the JAX package's `dtype`,
-serving only): the hash kernels stay float32, the bf16 scene code is
-rounded where JAX rounds it before the bake, sky-only zeros come in the
-compute dtype, and `refine` returns float32.
+for serving and AMP training): the hash kernels stay float32 (the
+RenderMLP's first layer casts the encoding, and autograd hands the
+kernels float32 cotangents), the bf16 scene code is rounded where JAX
+rounds it before the bake, sky-only zeros come in the compute dtype,
+and `refine` returns float32.
+
+Every field of `GeneratorConfig` is honoured as in JAX: the ray-direction
+input (`pe_lvl_raydir`, `pe_incl_orig_raydir`: RenderMLP's `fc_viewdir`
+and `mod_5`), `clip_feat_map` (True, 'tanh' or False), `raw_noise_std`
+(drawn by `sigma_noise`; on the compacted path only on the kept rays, as
+JAX draws it, so with noise the two paths differ), the sky-leak options
+(`keep_sky_out`, `keep_sky_out_avgpool`, and `sky_global_avgpool=False`:
+a 31x31 average pool, edge-corrected; a caller's `sky_avg`, which the
+renderer always passes as the frame's global mean, takes precedence, as
+in JAX's renderer) and `use_seg`.
 """
 import dataclasses
 
@@ -127,13 +139,18 @@ class HashEncoder(nn.Module):
             self.embeddings.copy_(init_hashgrid_table(self.spec, generator))
 
 
-# config values the JAX package's shipped configs use and the port
-# implements; other values of these fields raise
 _DTYPES = (torch.float32, torch.bfloat16)
-_FIXED = dict(raw_noise_std=0.0, clip_feat_map=True,
-              keep_sky_out=True, keep_sky_out_avgpool=True,
-              sky_global_avgpool=True, pe_lvl_raydir=0,
-              pe_incl_orig_raydir=False, use_seg=True)
+SKY_POOL = 31       # the local sky average's window (`sky_global_avgpool=False`)
+
+
+def _local_sky_avg(sky_c):
+    """The SKY_POOL x SKY_POOL moving average of sky_c [B, H, W, 1, C]
+    over the image, 'SAME' padded and divided by the in-image count
+    (JAX's two `reduce_window` sums)."""
+    x = sky_c[..., 0, :].permute(0, 3, 1, 2)
+    avg = F.avg_pool2d(x, SKY_POOL, stride=1, padding=SKY_POOL // 2,
+                       count_include_pad=False)
+    return avg.permute(0, 2, 3, 1)[..., None, :]
 
 
 class SceneDreamerGenerator(nn.Module):
@@ -143,11 +160,6 @@ class SceneDreamerGenerator(nn.Module):
 
     def __init__(self, cfg=GeneratorConfig(), seed=0):
         super().__init__()
-        for name, value in _FIXED.items():
-            if getattr(cfg, name) != value:
-                raise NotImplementedError(
-                    f'GeneratorConfig.{name}={getattr(cfg, name)!r} is not '
-                    f'ported (only {value!r})')
         if cfg.dtype not in _DTYPES:
             raise NotImplementedError(
                 f'GeneratorConfig.dtype={cfg.dtype!r} is not ported (only '
@@ -159,7 +171,8 @@ class SceneDreamerGenerator(nn.Module):
         self.render_net = RenderMLP(
             spec.output_dim, style_dim=c.interm_style_dims,
             mask_dim=c.num_reduced_labels, out_channels_c=c.final_feat_dim,
-            hidden_channels=c.mlp_hidden, dtype=dt)
+            hidden_channels=c.mlp_hidden, viewdir_dim=c.viewdir_dim,
+            use_seg=c.use_seg, dtype=dt)
         self.world_encoder = ConditionalHashGrid(dtype=dt)
         self.sky_net = SKYMLP(c.sky_in_dim, style_dim=c.interm_style_dims,
                               out_channels_c=c.final_feat_dim, dtype=dt)
@@ -211,9 +224,11 @@ class SceneDreamerGenerator(nn.Module):
                 for g in global_enc]
 
     def field_features(self, worldcoord, voxel_dims, global_enc, z,
-                       mc_masks_onehot, baked=None):
+                       mc_masks_onehot, baked=None, raydirs_in=None):
         """Hash-encode world points with the scene code and run the
-        RenderMLP (`scenedreamer.py:285-311`). worldcoord [B, ..., 3].
+        RenderMLP (`scenedreamer.py:285-311`). worldcoord [B, ..., 3];
+        raydirs_in [B, ..., 1, C_v] (the ray-direction input, broadcast
+        over the samples) when the config has one.
         A foldable spec encodes against the baked table (K2 / K5); any
         other encodes the points concatenated with the broadcast scene
         code, [B, ..., 5], with the general encode (K4), whose point
@@ -240,7 +255,12 @@ class SceneDreamerGenerator(nn.Module):
             feat = hashgrid_encode(spec, self.hash_encoder.embeddings, pts)
             feat = feat.reshape(b, -1, spec.output_dim)
         m_flat = mc_masks_onehot.reshape(b, -1, mc_masks_onehot.shape[-1])
-        sigma, feat_c = self.render_net(feat, z, m_flat)
+        rd_flat = None
+        if raydirs_in is not None:
+            rd_flat = raydirs_in.expand(
+                normalized.shape[:-1] + (raydirs_in.shape[-1],)).reshape(
+                b, -1, raydirs_in.shape[-1])
+        sigma, feat_c = self.render_net(feat, z, m_flat, rd_flat)
         out_shape = normalized.shape[:-1]
         return (sigma.reshape(out_shape + (sigma.shape[-1],)),
                 feat_c.reshape(out_shape + (feat_c.shape[-1],)))
@@ -309,6 +329,15 @@ class SceneDreamerGenerator(nn.Module):
         worldcoord = fma(raydirs[:, :, :, None, :], rand_depth,
                          cam_ori[:, None, None, None, :])
 
+        # the ray-direction input (the train config has none)
+        raydirs_in = None
+        if c.pe_lvl_raydir > 0:
+            raydirs_in = positional_encoding(raydirs[:, :, :, None, :],
+                                             c.pe_lvl_raydir,
+                                             c.pe_incl_orig_raydir)
+        elif c.pe_incl_orig_raydir:
+            raydirs_in = raydirs[:, :, :, None, :]
+
         # sky masks: last slot empty = ray ends in sky; first slot empty =
         # pure sky ray (reference scenedreamer.py:334-337)
         sky_mask = ~hit_mask[..., -1:]                        # [B,H,W,1]
@@ -318,7 +347,8 @@ class SceneDreamerGenerator(nn.Module):
         if not sky_only and compact_k is not None and compact_k < r_all:
             weights, sigma, total_w, terrain_sum = self._compact_field(
                 int(compact_k), worldcoord, mc_masks, new_dists,
-                hit_mask, voxel_dims, global_enc, z, baked)
+                hit_mask, voxel_dims, global_enc, z, baked, raydirs_in,
+                generator)
         else:
             if sky_only:
                 # zeros in the compute dtype, so the compositing promotes
@@ -332,26 +362,41 @@ class SceneDreamerGenerator(nn.Module):
                     torch.float32)
                 sigma, feat_c = self.field_features(
                     worldcoord, voxel_dims, global_enc, z, mc_onehot,
-                    baked=baked)
+                    baked=baked, raydirs_in=raydirs_in)
+            if c.raw_noise_std > 0:
+                sigma = sigma + self.sigma_noise(
+                    sigma.shape, sigma.dtype, sigma.device,
+                    generator) * c.raw_noise_std
             weights = volume_rendering_relu(
                 sigma, new_dists * c.dists_scale, dim=-2)
             weights = weights * (~sky_only_mask).to(weights.dtype).reshape(
                 b, h, w, 1, 1)
             total_w = weights.sum(dim=-2, keepdim=True)       # [B,H,W,1,1]
-            # clip-mode compositing (reference scenedreamer.py:373-427)
-            terrain_sum = (weights * (torch.clamp(feat_c, -1, 1) + 1)).sum(
+            terrain_sum = (weights * self._clip_feat(feat_c)).sum(
                 dim=-2, keepdim=True)                         # [B,H,W,1,C]
 
         sky_c = self.sky_color(raydirs, z)                    # [B,H,W,1,C]
         is_gnd = (worldcoord[..., 0] <= 1.0).any(dim=-1, keepdim=True)
         nosky = (~sky_mask | is_gnd).to(torch.float32)[..., None]
 
-        # sky-leak suppression with the global sky average
-        if sky_avg is None:
-            sky_avg = sky_c.mean(dim=(1, 2), keepdim=True)
-        sky_c = sky_c * (1.0 - nosky) + sky_avg * nosky
-        rgbs_sky = torch.clamp(sky_c, -1, 1) + 1
-        net_out = (terrain_sum + (1.0 - total_w) * rgbs_sky).squeeze(-2) - 1.0
+        # sky-leak suppression (reference scenedreamer.py:373-427)
+        sky_weight = 1.0 - total_w
+        if c.keep_sky_out:
+            if c.keep_sky_out_avgpool:
+                if sky_avg is None:
+                    sky_avg = sky_c.mean(dim=(1, 2), keepdim=True) \
+                        if c.sky_global_avgpool else _local_sky_avg(sky_c)
+                sky_c = sky_c * (1.0 - nosky) + sky_avg * nosky
+            else:
+                sky_weight = sky_weight * (1.0 - nosky)
+        if c.clip_feat_map is True:
+            net_out = (terrain_sum + sky_weight * (torch.clamp(
+                sky_c, -1, 1) + 1)).squeeze(-2) - 1.0
+        elif c.clip_feat_map == 'tanh':
+            net_out = (terrain_sum
+                       + sky_weight * torch.tanh(sky_c)).squeeze(-2)
+        else:
+            net_out = (terrain_sum + sky_weight * sky_c).squeeze(-2)
 
         return {
             'net_out': net_out,            # [B, H, W, C]
@@ -365,13 +410,32 @@ class SceneDreamerGenerator(nn.Module):
             'sky_only_mask': sky_only_mask,
         }
 
+    def sigma_noise(self, shape, dtype, device, generator=None):
+        """Standard normal draws of the density noise (`raw_noise_std`),
+        in sigma's dtype as JAX draws them. A test replaces this to feed
+        JAX's draws."""
+        return torch.randn(shape, generator=generator, dtype=dtype,
+                           device=device)
+
+    def _clip_feat(self, feat):
+        """The per-sample feature term of the compositing sum, by
+        `clip_feat_map` (reference scenedreamer.py:373-427)."""
+        mode = self.cfg.clip_feat_map
+        if mode is True:
+            return torch.clamp(feat, -1, 1) + 1
+        if mode == 'tanh':
+            return torch.tanh(feat)
+        return feat
+
     def _compact_field(self, k, worldcoord, mc_masks, new_dists, hit_mask,
-                       voxel_dims, global_enc, z, baked):
+                       voxel_dims, global_enc, z, baked, raydirs_in=None,
+                       generator=None):
         """`render_pixels`' field on the first `k` rays of each batch item
         after a stable hits-first sort (the JAX package's compact_k
         branch): the field, the compositing weights, the total weight and
         the terrain sum on those rays, scattered back to [B, H, W, ...]
-        with zeros on the others. Returns (weights, sigma, total_w,
+        with zeros on the others. The density noise is drawn on the kept
+        rays only, as JAX draws it. Returns (weights, sigma, total_w,
         terrain_sum)."""
         c = self.cfg
         b, h, w, s = worldcoord.shape[:4]
@@ -396,14 +460,20 @@ class SceneDreamerGenerator(nn.Module):
                              c.num_reduced_labels).to(torch.float32)
             dists_c = take(new_dists.reshape(b, r_all, s, 1))
             keep_c = take(~miss.reshape(b, r_all, 1, 1))
+        rd_c = None if raydirs_in is None else take(
+            raydirs_in.reshape(b, r_all, 1, raydirs_in.shape[-1]))
         sigma_c, feat_c = self.field_features(
             take(worldcoord.reshape(b, r_all, s, 3)), voxel_dims,
-            global_enc, z, mc_c, baked=baked)
+            global_enc, z, mc_c, baked=baked, raydirs_in=rd_c)
+        if c.raw_noise_std > 0:
+            sigma_c = sigma_c + self.sigma_noise(
+                sigma_c.shape, sigma_c.dtype, sigma_c.device,
+                generator) * c.raw_noise_std
         w_c = volume_rendering_relu(sigma_c, dists_c * c.dists_scale,
                                     dim=-2)
         w_c = w_c * keep_c.to(w_c.dtype)
         total_c = w_c.sum(dim=-2, keepdim=True)               # [B,K,1,1]
-        terrain_c = (w_c * (torch.clamp(feat_c, -1, 1) + 1)).sum(
+        terrain_c = (w_c * self._clip_feat(feat_c)).sum(
             dim=-2, keepdim=True)                             # [B,K,1,C]
         return put(w_c), put(sigma_c), put(total_c), put(terrain_c)
 

@@ -2,7 +2,8 @@
 
 Counterpart of `scenedreamer_tpu/models/layers.py` with the reference's
 module and parameter names, so a reference state dict loads as is:
-  * ModLinear (`imaginaire/model_utils/layers.py:184-271`)
+  * ModLinear (`imaginaire/model_utils/layers.py:184-271`) and AffineMod
+    (`:128-181`)
   * RenderMLP == LightningMLP (`gancraft_base.py:20-88`)
   * StyleMLP (`gancraft_base.py:91-126`), SKYMLP (`gancraft_base.py:129-169`)
   * ConditionalHashGrid world encoder (`model_utils/layers.py:6-55`)
@@ -29,11 +30,41 @@ import torch.nn.functional as F
 from scenedreamer_tpu_torch.ops.resize import resize_bilinear
 
 
-def leaky_relu(x):
-    """Slope 0.2 in x's dtype: JAX multiplies a bf16 x by 0.2 rounded to
-    bf16 (0.2001953125), not by the float32 0.2."""
+class _LeakyReLU(torch.autograd.Function):
+    """`F.leaky_relu` whose gradient at exactly 0 is 1, as JAX's
+    `where(x >= 0, x, slope * x)` differentiates (torch's own backward
+    passes the slope there)."""
+
+    @staticmethod
+    def forward(ctx, x, slope):
+        y = F.leaky_relu(x, slope)
+        ctx.save_for_backward(y)
+        ctx.slope = slope
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return torch.where(y < 0, g * ctx.slope, g), None
+
+
+def leaky_relu(x, grad_one_at_zero=False):
+    """Leaky ReLU as JAX computes it: slope 0.2 in x's dtype (JAX
+    multiplies a bf16 x by 0.2 rounded to bf16, 0.2001953125, not by the
+    float32 0.2). `grad_one_at_zero` also takes JAX's gradient at exactly
+    0 (1, where torch's fused backward passes the slope), at the price of
+    three elementwise kernels in the backward for one. The discriminator
+    needs it: DiffAugment's cutout and zero fill give all-zero input
+    windows, which a zero bias (every bias at init) passes on as exact
+    zeros layer after layer. The generator's layers keep the fused
+    backward: their activations reach ~1.7 GB at the flagship training
+    width, where the three kernels cost ~20 ms of device time a step on
+    an H100 (`scripts/torch_profile_train.py`), and no exact zeros reach
+    them in the tests held against JAX."""
     slope = 0.2 if x.dtype == torch.float32 else \
         float(torch.tensor(0.2, dtype=x.dtype))
+    if grad_one_at_zero and torch.is_grad_enabled() and x.requires_grad:
+        return _LeakyReLU.apply(x, slope)
     return F.leaky_relu(x, slope)
 
 
@@ -130,34 +161,81 @@ class ModLinear(nn.Module):
         return y.reshape(*prefix, y.shape[-1])
 
 
+class AffineMod(nn.Module):
+    """x * alpha(z) + beta(z) over the channel axis (reference
+    layers.py:128-181): alpha(z) = z @ weight_alpha.T + bias_alpha, beta
+    likewise, computed in float32 and cast to `dtype`."""
+
+    def __init__(self, in_features, style_dim, dtype=torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.weight_alpha = nn.Parameter(torch.empty(in_features, style_dim))
+        self.bias_alpha = nn.Parameter(torch.empty(in_features))
+        self.weight_beta = nn.Parameter(torch.empty(in_features, style_dim))
+        self.bias_beta = nn.Parameter(torch.empty(in_features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        _mod_weight_(self.weight_alpha, generator)
+        nn.init.ones_(self.bias_alpha)
+        _mod_weight_(self.weight_beta, generator)
+        nn.init.zeros_(self.bias_beta)
+
+    def forward(self, x, z):
+        """x [B, ..., I]; z [B, S]."""
+        dt = self.compute_dtype
+        z = z.float()
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        alpha = F.linear(z, self.weight_alpha, self.bias_alpha)
+        beta = F.linear(z, self.weight_beta, self.bias_beta)
+        return x * alpha.reshape(shape).to(dt) + beta.reshape(shape).to(dt)
+
+
 class RenderMLP(nn.Module):
-    """Per-sample neural field: hash features + segmentation one-hot and
-    style -> (sigma, color feature). Reference `gancraft_base.py:20-88`
-    in the generator's configuration (segmentation input, no view
-    direction input)."""
+    """Per-sample neural field: hash features (+ segmentation one-hot
+    with `use_seg`, + the ray-direction encoding when `viewdir_dim` > 0)
+    and style -> (sigma, color feature). Reference `gancraft_base.py:
+    20-88`. With a view direction, `fc_5` is a plain linear without
+    bias, `fc_viewdir(raydir)` is added to it and `mod_5` (AffineMod)
+    modulates the sum; otherwise `fc_5` is a ModLinear."""
 
     def __init__(self, in_channels, style_dim, mask_dim, out_channels_c,
-                 hidden_channels=256, dtype=torch.float32):
+                 hidden_channels=256, viewdir_dim=0, use_seg=True,
+                 dtype=torch.float32):
         super().__init__()
         hc = hidden_channels
         self.fc_1 = Dense(in_channels, hc, dtype=dtype)
-        self.fc_m_a = Dense(mask_dim, hc, bias=False, dtype=dtype)
+        self.fc_m_a = Dense(mask_dim, hc, bias=False, dtype=dtype) \
+            if use_seg else None
         self.fc_2 = ModLinear(hc, hc, style_dim, dtype)
         self.fc_3 = ModLinear(hc, hc, style_dim, dtype)
         self.fc_4 = ModLinear(hc, hc, style_dim, dtype)
         self.fc_sigma = Dense(hc, 1, dtype=dtype)
-        self.fc_5 = ModLinear(hc, hc, style_dim, dtype)
+        if viewdir_dim > 0:
+            self.fc_5 = Dense(hc, hc, bias=False, dtype=dtype)
+            self.fc_viewdir = Dense(viewdir_dim, hc, bias=False, dtype=dtype)
+            self.mod_5 = AffineMod(hc, style_dim, dtype)
+        else:
+            self.fc_5 = ModLinear(hc, hc, style_dim, dtype)
         self.fc_6 = ModLinear(hc, hc, style_dim, dtype)
         self.fc_out_c = Dense(hc, out_channels_c, dtype=dtype)
 
-    def forward(self, x, z, m):
-        """x [B, N, C_in]; z [B, S]; m [B, N, mask_dim]."""
-        f = leaky_relu(self.fc_1(x) + self.fc_m_a(m))
+    def forward(self, x, z, m, raydir=None):
+        """x [B, N, C_in]; z [B, S]; m [B, N, mask_dim] (unused without
+        `use_seg`); raydir [B, N, viewdir_dim] when `viewdir_dim` > 0."""
+        f = self.fc_1(x)
+        if self.fc_m_a is not None:
+            f = f + self.fc_m_a(m)
+        f = leaky_relu(f)
         f = leaky_relu(self.fc_2(f, z))
         f = leaky_relu(self.fc_3(f, z))
         f = leaky_relu(self.fc_4(f, z))
         sigma = self.fc_sigma(f)
-        f = leaky_relu(self.fc_5(f, z))
+        if isinstance(self.fc_5, ModLinear):
+            f = leaky_relu(self.fc_5(f, z))
+        else:
+            f = self.fc_5(f) + self.fc_viewdir(raydir)
+            f = leaky_relu(self.mod_5(f, z))
         f = leaky_relu(self.fc_6(f, z))
         return sigma, self.fc_out_c(f)
 

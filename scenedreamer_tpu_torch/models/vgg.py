@@ -7,7 +7,10 @@ ImageNet normalisation of [-1, 1] inputs. The convs are `conv0` ..
 `conv15` as in the JAX package (`utils/convert.vgg_state_dict_from_flax`
 carries its weights). torchvision's pretrained weights are not in the
 repository, so by default the weights are a random init from a seed, as
-the JAX package does without them. NHWC at the public call.
+the JAX package does without them. NHWC at the public call. `dtype`
+is the convs' compute dtype (bf16 under AMP, as JAX's `VGG19Features
+.dtype`): the weights stay float32 and each conv casts its input, weight
+and bias.
 """
 import math
 
@@ -44,9 +47,11 @@ class VGG19Features(nn.Module):
     """x [B, H, W, 3] -> {tap name: NHWC activation} for `layers`; only
     the convs up to the last tap are built."""
 
-    def __init__(self, layers=('relu_3_1', 'relu_4_1', 'relu_5_1'), seed=0):
+    def __init__(self, layers=('relu_3_1', 'relu_4_1', 'relu_5_1'), seed=0,
+                 dtype=torch.float32):
         super().__init__()
         self.layers = tuple(layers)
+        self.compute_dtype = dtype
         self.last = max(i for i, (n, _, _) in enumerate(VGG19_CFG)
                         if n in self.layers)
         cin = 3
@@ -66,12 +71,15 @@ class VGG19Features(nn.Module):
                 nn.init.zeros_(conv.bias)
 
     def forward(self, x):
-        y = x.permute(0, 3, 1, 2)
+        dt = self.compute_dtype
+        y = x.permute(0, 3, 1, 2).to(dt)
         taps = {}
         for i, (name, _, pool) in enumerate(VGG19_CFG[:self.last + 1]):
             if pool:
                 y = F.max_pool2d(y, 2, 2)
-            y = F.relu(getattr(self, f'conv{i}')(y))
+            conv = getattr(self, f'conv{i}')
+            y = F.relu(conv._conv_forward(y, conv.weight.to(dt),
+                                          conv.bias.to(dt)))
             if name in self.layers:
                 taps[name] = y.permute(0, 2, 3, 1)
         return taps

@@ -8,7 +8,8 @@ Counterpart of `scenedreamer_tpu/train/losses.py`:
     L1 (`imaginaire/losses/perceptual.py:16-150`,
     `configs/scenedreamer_train.yaml:13-16`)
   * L2 / L1 reconstruction against the pseudo ground truth.
-Tensors are NHWC (channel axis -1).
+Tensors are NHWC (channel axis -1). Under AMP the feature distances
+are reduced in float32 from bf16 features, as JAX does.
 """
 import torch
 
@@ -54,10 +55,11 @@ def gan_loss(outputs, t_real, dis_update=True):
 
 
 def feature_matching_loss(fake_features, real_features):
-    """Mean L1 over the discriminator's feature lists; real detached."""
+    """Mean L1 over the discriminator's feature lists (float32 whatever
+    their dtype); real detached."""
     total, n = 0.0, 0
     for f, r in zip(fake_features, real_features):
-        total = total + (f - r.detach()).abs().mean()
+        total = total + (f.float() - r.detach().float()).abs().mean()
         n += 1
     return total / max(n, 1)
 
@@ -78,15 +80,15 @@ def l1_loss(x, y):
 
 class PerceptualLoss(torch.nn.Module):
     """Multi-layer L1 distance of frozen VGG19 features. `vgg` defaults to
-    a randomly initialised `VGG19Features` (seed `seed`); its weights
-    never train."""
+    a randomly initialised `VGG19Features` (seed `seed`, compute dtype
+    `dtype`); its weights never train."""
 
     def __init__(self, vgg=None, layers=PERCEPTUAL_LAYERS,
-                 weights=PERCEPTUAL_WEIGHTS, seed=0):
+                 weights=PERCEPTUAL_WEIGHTS, seed=0, dtype=torch.float32):
         super().__init__()
         self.layers, self.weights = tuple(layers), tuple(weights)
-        self.vgg = vgg if vgg is not None else VGG19Features(self.layers,
-                                                             seed=seed)
+        self.vgg = vgg if vgg is not None else VGG19Features(
+            self.layers, seed=seed, dtype=dtype)
         self.vgg.requires_grad_(False)
 
     def forward(self, inp, target):
@@ -95,5 +97,6 @@ class PerceptualLoss(torch.nn.Module):
             ft = self.vgg(imagenet_normalize(target))
         loss = 0.0
         for layer, w in zip(self.layers, self.weights):
-            loss = loss + w * (fi[layer] - ft[layer]).abs().mean()
+            loss = loss + w * (fi[layer].float()
+                               - ft[layer].float()).abs().mean()
         return loss

@@ -36,7 +36,7 @@ from scenedreamer_tpu_torch.ops.masks import rand_crop, segmask_smooth
 from scenedreamer_tpu_torch.ops.ray_voxel import (build_occupancy_bits,
                                                   camera_rays,
                                                   ray_voxel_intersection)
-from scenedreamer_tpu_torch.ops.resize import resize_bilinear
+from scenedreamer_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 from scenedreamer_tpu_torch.scene import camera as camctl
 from scenedreamer_tpu_torch.scene.labels import (NUM_MC_LABELS,
                                                  get_label_translator)
@@ -210,17 +210,6 @@ class CameraBatchSampler:
         return {kk: torch.stack(v) for kk, v in out.items()}
 
 
-def _resize_nearest_centred(x, size):
-    """Nearest resize of [B, H, W, C] with cell-centred source indices,
-    floor((dst + 0.5) * in / out) in float32, as
-    `jax.image.resize(..., 'nearest')` picks them."""
-    def index(n_in, n_out):
-        pos = (torch.arange(n_out, dtype=torch.float32) + 0.5) \
-            * n_in / n_out
-        return torch.floor(pos).long().clamp(max=n_in - 1).to(x.device)
-    return x[:, index(x.shape[1], size[0])][:, :, index(x.shape[2], size[1])]
-
-
 class PseudoGTGenerator:
     """Wraps the SPADE oracle into the reference pseudo-GT contract
     (`scenedreamer.py:158-213`)."""
@@ -260,7 +249,7 @@ class PseudoGTGenerator:
         masks_in = fake_masks
         r = self.spade_res
         if self.resize_512:
-            masks_in = _resize_nearest_centred(fake_masks, (r, r))
+            masks_in = resize_nearest(fake_masks, (r, r))
         # f32 regardless of oracle precision (the reference's fp16
         # oracle output is consumed in f32 too, `scenedreamer.py:204`)
         img = self.spade_apply(masks_in, generator).to(torch.float32)

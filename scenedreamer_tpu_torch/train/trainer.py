@@ -10,12 +10,17 @@ shard_map paths (reference `imaginaire/trainers/base.py:676-816`,
     optional feature matching against pseudo-real D features, the style
     VAE's Gaussian KL, VGG19 perceptual and L2 against the pseudo ground
     truth;
-  * `train_step` = D update, then G update with its own render;
-    `train_step_shared` renders once and keeps the graph: D updates on
-    the detached fake, the G loss goes through the updated D, and the G
-    backward runs through the kept graph (the JAX package's
-    single-forward step; the same math as `dis_step` then `gen_step`
-    with the same draws);
+  * `train_step` = D update, then G update with its own render, each on
+    its own generator split from the caller's (JAX's `kd, kg =
+    split(key)`); `train_step_fused` is the same call (JAX's
+    one-executable form); `train_step_shared` renders once and keeps
+    the graph: D updates on the detached fake, the G loss goes through
+    the updated D, and the G backward runs through the kept graph (the
+    JAX package's single-forward step; the same math as `dis_step` then
+    `gen_step` with the same draws);
+  * DiffAugment (`aug_policy`) on D's image inputs in both updates,
+    drawn after the update's render from the same generator; the label
+    masks pass through;
   * global-norm clipping, the skip of a non-finite or too large
     (`skip_grad_norm`) gradient, which keeps parameters and optimizer
     state, and EMA averaging of G;
@@ -24,7 +29,11 @@ shard_map paths (reference `imaginaire/trainers/base.py:676-816`,
 
 Batches are dicts of NHWC tensors on the models' device. Each step
 returns its metrics as Python floats (one device sync per update, for
-the skip decision and the metrics).
+the skip decision and the metrics). The models carry their compute
+dtype: with bf16 models (AMP, JAX `cli/train.py:48-56`) the parameters,
+the optimizer state, the logits and the losses stay float32, and no
+loss is scaled (bf16 has float32's exponent range; the skip of a
+non-finite gradient stands in for a scaler's retry).
 """
 import contextlib
 import dataclasses
@@ -35,6 +44,7 @@ import torch
 
 from scenedreamer_tpu_torch.train import losses as L
 from scenedreamer_tpu_torch.train import optim
+from scenedreamer_tpu_torch.utils import diff_aug
 
 
 @dataclasses.dataclass
@@ -47,8 +57,8 @@ class TrainerConfig:
     # (the reference's `gen_opt.skip_grad`); 0 disables
     skip_grad_norm: float = 0.0
     ema_beta: float = 0.0
-    # DiffAugment policy of the D inputs; only '' (off, the shipped
-    # default) is ported
+    # DiffAugment policy of the D inputs: a comma-joined subset of
+    # 'color', 'translation', 'cutout' ('' = off, the shipped default)
     aug_policy: str = ''
 
 
@@ -87,6 +97,18 @@ def frozen(module):
             p.requires_grad_(flag)
 
 
+def split_generator(generator, device=None):
+    """Two generators on `device` (default: `generator`'s), seeded from
+    two draws of `generator` (None gives None twice: both then use the
+    global generator)."""
+    if generator is None:
+        return None, None
+    seeds = torch.randint(0, 2 ** 62, (2,), generator=generator,
+                          device=generator.device).tolist()
+    return tuple(torch.Generator(device=device or generator.device)
+                 .manual_seed(s) for s in seeds)
+
+
 def _floats(metrics):
     return {k: float(v.detach()) if torch.is_tensor(v) else float(v)
             for k, v in metrics.items()}
@@ -108,10 +130,7 @@ class GANTrainer:
                  cfg=None, perceptual=None, iters_per_epoch=1000,
                  d_opt=None):
         self.cfg = cfg = cfg if cfg is not None else TrainerConfig()
-        if cfg.aug_policy:
-            raise NotImplementedError(
-                'DiffAugment (aug_policy) is not ported; only the '
-                "shipped default '' is")
+        diff_aug.parse_policy(cfg.aug_policy)
         self.gen, self.dis = generator, discriminator
         # None: set per world by the caller before the first step
         self.voxel_dims = None if voxel_dims is None \
@@ -133,9 +152,38 @@ class GANTrainer:
                         generator=generator, style_eps=style_eps,
                         compact_k=compact_k)
 
-    def _dis_loss(self, batch, fake):
+    def _aug_draws(self, update, name, x, generator):
+        """The DiffAugment draws of D input `name` ('images',
+        'pseudo_real_img' or 'fake_images') in `update` ('dis' or 'gen'),
+        from `generator`. A test replaces this to feed another
+        implementation's draws (JAX: `fold_in(key, 101)` for the D update,
+        102 for the G update, split 3 ways in that order of names)."""
+        return diff_aug.draw(self.cfg.aug_policy, x.shape, generator,
+                             x.device)
+
+    def _augment(self, update, batch, fake, names, generator):
+        """DiffAugment (`cfg.aug_policy`) on the D inputs `names` of
+        `batch` and on `fake`, each with its own draws (JAX
+        `trainer.py:166-183`); the label masks pass through."""
+        policy = self.cfg.aug_policy
+        if not policy:
+            return batch, fake
+        batch = dict(batch)
+        for name in names:
+            batch[name] = diff_aug.apply_diff_aug(
+                batch[name], policy,
+                self._aug_draws(update, name, batch[name], generator))
+        fake = diff_aug.apply_diff_aug(
+            fake, policy,
+            self._aug_draws(update, 'fake_images', fake, generator))
+        return batch, fake
+
+    def _dis_loss(self, batch, fake, generator=None):
         """D loss (`gancraft.py:206-251`) on a detached fake."""
         w = self.cfg.loss_weights
+        names = [n for n, k in (('images', 'gan'),
+                                ('pseudo_real_img', 'pseudo_gan')) if k in w]
+        batch, fake = self._augment('dis', batch, fake, names, generator)
         d_out = self.dis(batch, {'fake_images': fake},
                          incl_real='gan' in w,
                          incl_pseudo_real='pseudo_gan' in w,
@@ -154,9 +202,9 @@ class GANTrainer:
         m['dis/total'] = total
         return total, m
 
-    def _dis_update(self, batch, fake):
+    def _dis_update(self, batch, fake, generator=None):
         self.d_opt.zero_grad()
-        loss, m = self._dis_loss(batch, fake.detach())
+        loss, m = self._dis_loss(batch, fake.detach(), generator)
         loss.backward()
         ok, m['dis/grad_norm'] = clip_and_validate(self.d_opt.params,
                                                    self.cfg)
@@ -164,18 +212,23 @@ class GANTrainer:
             self.d_opt.step()
         return _floats(m)
 
-    def _gen_loss(self, g_out, batch):
+    def _gen_loss(self, g_out, batch, generator=None):
         """G loss (`gancraft.py:158-204`) from the generator's outputs,
         through the current D (its parameters frozen, its spectral-norm
-        vectors read but not advanced)."""
+        vectors read but not advanced); D sees the augmented fake, the
+        other terms the fake itself."""
         w = self.cfg.loss_weights
         total, m = 0.0, {}
         fake = g_out['fake_images']
         if 'gan' in w or 'pseudo_gan' in w:
             fm = self.cfg.use_feature_matching
+            d_batch, d_fake = self._augment(
+                'gen', batch, fake, ['pseudo_real_img'] if fm else [],
+                generator)
             with frozen(self.dis):
-                d_out = self.dis(batch, g_out, incl_real=False,
-                                 incl_pseudo_real=fm, update_stats=False)
+                d_out = self.dis(d_batch, {'fake_images': d_fake},
+                                 incl_real=False, incl_pseudo_real=fm,
+                                 update_stats=False)
             gl = L.gan_loss(d_out['fake_outputs'], True, dis_update=False)
             if 'gan' in w:
                 m['gen/gan'] = gl
@@ -225,22 +278,35 @@ class GANTrainer:
         with torch.no_grad():
             fake = self._render(batch, generator, style_eps,
                                 compact_k)['fake_images']
-        return self._dis_update(batch, fake)
+        return self._dis_update(batch, fake, generator)
 
     def gen_step(self, batch, generator=None, style_eps=None,
                  compact_k=None):
         """G update on a fresh render (`gancraft.py:158-204`)."""
         self.g_opt.zero_grad()
         g_out = self._render(batch, generator, style_eps, compact_k)
-        return self._gen_update(*self._gen_loss(g_out, batch))
+        return self._gen_update(*self._gen_loss(g_out, batch, generator))
 
     def train_step(self, batch, generator=None, style_eps=(None, None),
                    compact_k=None):
-        """One iteration with two renders: `dis_step`, then `gen_step`
-        (style draws given per phase as a (D, G) pair)."""
-        dm = self.dis_step(batch, generator, style_eps[0], compact_k)
-        gm = self.gen_step(batch, generator, style_eps[1], compact_k)
+        """One iteration with two renders: `dis_step`, then `gen_step`,
+        each on its own generator split from `generator` (as JAX splits
+        the step key into kd, kg) and style draws given per phase as a
+        (D, G) pair."""
+        gd, gg = split_generator(generator)
+        dm = self.dis_step(batch, gd, style_eps[0], compact_k)
+        gm = self.gen_step(batch, gg, style_eps[1], compact_k)
         return {**dm, **gm}
+
+    def train_step_fused(self, batch, generator=None,
+                         style_eps=(None, None), compact_k=None):
+        """JAX's `train_step_fused` (`trainer.py:573-589`): the D and the
+        G update of `train_step` as one executable. Eager PyTorch queues
+        both updates on one stream in order either way, so this is
+        `train_step`'s call; it is not captured as a CUDA graph (the
+        kernels launched through ctypes and `compact_k`'s data-dependent
+        shapes would each need work of their own)."""
+        return self.train_step(batch, generator, style_eps, compact_k)
 
     def train_step_shared(self, batch, generator=None, style_eps=None,
                           compact_k=None):
@@ -249,8 +315,8 @@ class GANTrainer:
         G backward through the kept graph."""
         self.g_opt.zero_grad()
         g_out = self._render(batch, generator, style_eps, compact_k)
-        dm = self._dis_update(batch, g_out['fake_images'])
-        gm = self._gen_update(*self._gen_loss(g_out, batch))
+        dm = self._dis_update(batch, g_out['fake_images'], generator)
+        gm = self._gen_update(*self._gen_loss(g_out, batch, generator))
         return {**dm, **gm}
 
     # ------------------------------------------------------------------

@@ -8,7 +8,9 @@ names, so the mapping is
   * flax conv kernel [kh, kw, I, O] -> torch weight [O, I, kh, kw];
   * flax `nn.Dense` kernel [in, out] -> torch weight [out, in] (the
     generator's own `Dense` already stores [out, in] and is copied);
-  * ModLinear / AffineMod leaves by name;
+  * ModLinear / AffineMod leaves by name (with a view direction the
+    RenderMLP's `fc_5`, `fc_viewdir` and `mod_5`; without `use_seg` no
+    `fc_m_a`);
   * world encoder `block_<i>.Conv_<j>` -> `conv_blocks.<i-1>.layers.<2j>`;
   * style net `fc_<i>` -> `fc_layers.<i>`;
   * style encoder `fc_mu` / `fc_var` weights: the JAX package flattens
@@ -161,15 +163,12 @@ def load_reference_generator_state_dict(sd_or_ckpt):
     with `strict=True`: prefixes stripped, spectral norm folded, name
     variants mapped (`_reference_name`). The style encoder's `fc_mu` /
     `fc_var` weights are not permuted: the port flattens NCHW, as the
-    reference does. A state dict with `render_net.fc_viewdir` needs the
-    ray-direction input (`pe_lvl_raydir` > 0), which the port does not
-    implement, and is refused."""
+    reference does. A generator that takes the ray direction
+    (`render_net.fc_viewdir`, `fc_5` without bias, `mod_5`) loads into a
+    config with `pe_lvl_raydir` > 0 or `pe_incl_orig_raydir`, as JAX's
+    converter maps it (`convert.py:132-136` there)."""
     sd = sd_or_ckpt.get('net_G', sd_or_ckpt)
     sd = fold_spectral_norm(strip_prefixes(sd))
-    if any(k.startswith('render_net.fc_viewdir') for k in sd):
-        raise NotImplementedError(
-            'this generator takes the ray direction (render_net.fc_viewdir,'
-            ' pe_lvl_raydir > 0); the port implements pe_lvl_raydir=0 only')
     out = {}
     for k, v in sd.items():
         name = _reference_name(k)

@@ -3,7 +3,7 @@
     python scripts/torch_profile_train.py [--scene_size 1024] [--steps 3]
                                           [--hash_variant xor|paired]
                                           [--hash_log2_size 21]
-                                          [--direct_only]
+                                          [--direct_only] [--amp]
 
 Builds a world (seed 8888) and the flagship training models of
 configs/scenedreamer_train.yaml from seeded random weights (generator
@@ -22,7 +22,9 @@ every level of the table scatters K3a, K4b and K5c on the direct path
 (one global atomic per corner: the scatters before their coarse path),
 for a before / after pair in one run of the card. The models and the sample
 points come from `chip_smoke.py` (`make_trainer`, `sample_points`).
-Float32 throughout (TF32 off). Needs CUDA.
+Float32 throughout (TF32 off); `--amp` computes the generator, D and
+the VGG loss in bf16 with float32 parameters and losses (the training
+CLI's `trainer.amp_config.enabled: true`). Needs CUDA.
 """
 import argparse
 import os
@@ -49,6 +51,8 @@ def main(argv=None):
     p.add_argument('--scatter_order', action='store_true',
                    help='also time the hash scatter in ray order and '
                         'shuffled')
+    p.add_argument('--amp', action='store_true',
+                   help='bf16 compute (AMP), float32 parameters')
     p.add_argument('--direct_only', action='store_true',
                    help='every level of the table scatters on the direct '
                         'path')
@@ -83,9 +87,10 @@ def main(argv=None):
     voxel = torch.from_numpy(world.voxel).to(dev)
     print(f'world {world.dims} in {time.time() - t0:.1f} s', flush=True)
     cfg = GeneratorConfig(hash_variant=a.hash_variant,
-                          hash_log2_size=a.hash_log2_size)
-    print(f'hash variant {cfg.hash_variant}, log2 size {a.hash_log2_size}',
-          flush=True)
+                          hash_log2_size=a.hash_log2_size,
+                          dtype=torch.bfloat16 if a.amp else torch.float32)
+    print(f'hash variant {cfg.hash_variant}, log2 size {a.hash_log2_size}, '
+          f'compute {cfg.dtype}', flush=True)
     trainer = make_trainer(cfg, world.dims, dev, seed=a.seed)
     draws = torch.Generator(device=dev).manual_seed(a.seed)
     hw = 256 + cfg.pad

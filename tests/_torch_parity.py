@@ -66,3 +66,32 @@ def tiny_models(key_seed=0, batch_hw=20, cfg=None):
     tmodel.eval()
     batch = {k: np.asarray(v) for k, v in batch.items()}
     return world, jmodel, params, tmodel, batch
+
+
+def jax_diff_aug_draws(key, policy, shape):
+    """The random values JAX's `apply_diff_aug(x, key, policy)` draws for
+    an image batch of `shape` [B, H, W, C], as torch tensors in the form
+    `scenedreamer_tpu_torch.utils.diff_aug.draw` returns them: one key
+    split off per policy entry, then 3 uniforms for 'color' and 2
+    randints for 'translation' and 'cutout' (`utils/diff_aug.py`)."""
+    import jax
+    b, h, w, _ = shape
+    out = []
+    for p in (q.strip() for q in policy.split(',')):
+        key, sub = jax.random.split(key)
+        if p == 'color':
+            vals = [jax.random.uniform(k, (b, 1, 1, 1))
+                    for k in jax.random.split(sub, 3)]
+        elif p == 'translation':
+            k1, k2 = jax.random.split(sub)
+            sh, sw = int(h * 0.125 + 0.5), int(w * 0.125 + 0.5)
+            vals = [jax.random.randint(k1, (b,), -sh, sh + 1),
+                    jax.random.randint(k2, (b,), -sw, sw + 1)]
+        else:
+            k1, k2 = jax.random.split(sub)
+            ch, cw = int(h * 0.5 + 0.5), int(w * 0.5 + 0.5)
+            vals = [jax.random.randint(k1, (b, 1, 1), 0, h + (1 - ch % 2)),
+                    jax.random.randint(k2, (b, 1, 1), 0, w + (1 - cw % 2))]
+        out.append(tuple(torch.from_numpy(np.array(v).reshape(b))
+                         for v in vals))
+    return out

@@ -139,9 +139,9 @@ def test_bf16_frame_within_jax_bf16_distance(setup, width):
     """The port's bf16 frame is no further from JAX's bf16 frame (same
     weights) than JAX's bf16 frame is from its float32 one: at TINY on
     the golden weights, and at the flagship layer widths on the port's
-    seeded init, converted to flax by JAX's own converter. The wide
-    case's distance is the basis of the card's bf16 limit
-    (`chip_smoke.BF16_JAX_MAX`, `BF16_JAX_MEAN`)."""
+    seeded init, converted to flax by JAX's own converter. The card's
+    bf16 limit (`chip_smoke.BF16_JAX_MAX`, `BF16_JAX_MEAN`) comes from the
+    full flagship width (`tests/test_torch_bf16_limit.py`)."""
     from scenedreamer_tpu.utils.convert import convert_scenedreamer_generator
     world, _, params, _, style = setup
     pose = _poses(world)['tour']
@@ -313,9 +313,16 @@ def test_reference_state_dict_matches_jax_converter(setup):
     r = TiledRenderer(loaded.eval(), world, device='cpu', **PKW)
     np.testing.assert_allclose(r.frame(pose, r.style_z(style)), jimg,
                                atol=IMG_ATOL, rtol=0)
-    with pytest.raises(NotImplementedError, match='pe_lvl_raydir'):
-        load_reference_generator_state_dict(
-            {**ref, 'render_net.fc_viewdir.weight': np.zeros((4, 4))})
+    # a generator that takes the ray direction (`render_net.fc_viewdir`,
+    # `mod_5`) loads into a config with one; its frames are held against
+    # JAX in `tests/test_torch_generator_options.py`
+    vcfg = port_config(dataclasses.replace(TINY, pe_incl_orig_raydir=True))
+    vsd = SceneDreamerGenerator(vcfg, seed=2).state_dict()
+    got = load_reference_generator_state_dict(
+        {'module.' + k: v.numpy() for k, v in vsd.items()})
+    SceneDreamerGenerator(vcfg).load_state_dict(got, strict=True)
+    assert torch.equal(got['render_net.fc_viewdir.weight'],
+                       vsd['render_net.fc_viewdir.weight'])
 
 
 def test_trainer_checkpoint_directory_loads_g_ema(tmp_path):

@@ -274,12 +274,16 @@ def test_pseudo_gt_matches_jax(sampled, spade, crop, pad, spade_res):
 
 
 def test_nearest_centred_resize_matches_jax_image_resize():
+    """`ops/resize.py:resize_nearest` (the pseudo-GT mask resize and the
+    discriminator's label map with `smooth_resample=False`) picks JAX's
+    source rows and columns: growing, shrinking by a divisor (the label
+    map) and not, one axis kept."""
     x = np.random.default_rng(0).standard_normal((1, 24, 20, 3)) \
         .astype(np.float32)
-    for size in ((64, 64), (48, 40), (7, 9)):
+    for size in ((64, 64), (48, 40), (7, 9), (6, 5), (24, 7)):
         want = np.asarray(jax.image.resize(
             jnp.asarray(x), (1,) + size + (3,), 'nearest'))
-        got = tsamp._resize_nearest_centred(torch.from_numpy(x), size)
+        got = tsamp.resize_nearest(torch.from_numpy(x), size)
         np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -273,5 +273,16 @@ def test_feature_matching_term(setup):
 
 
 def test_aug_policy_is_refused(setup):
-    with pytest.raises(NotImplementedError):
-        _port_trainer(setup, TrainerConfig(aug_policy='color'))
+    """DiffAugment runs (held against JAX in
+    `tests/test_torch_train_amp.py`); a policy name it does not know is
+    refused when the trainer is built."""
+    with pytest.raises(ValueError, match='unknown DiffAugment'):
+        _port_trainer(setup, TrainerConfig(aug_policy='color,flip'))
+    tr = _port_trainer(setup, TrainerConfig(aug_policy='color,cutout'))
+    m = tr.train_step_shared(setup['batch'],
+                             torch.Generator().manual_seed(0),
+                             style_eps=torch.from_numpy(setup['eps_shared']))
+    jm = setup['shared'][1]
+    assert all(np.isfinite(v) for v in m.values())
+    assert m['dis/total'] != jm['dis/total']      # D saw augmented images
+    assert m['gen/l2'] == pytest.approx(jm['gen/l2'], rel=LOSS_RTOL)

@@ -94,8 +94,10 @@ def setup(tmp_path_factory):
                                   '  reset_opt_d_on_resume: true'))
     configs['amp'] = str(root / 'amp.yaml')
     with open(configs['amp'], 'w') as f:
-        f.write(YAML.format(variant='xor',
-                            extra='  amp_config:\n    enabled: true'))
+        f.write(YAML.format(
+            variant='xor', extra='  amp_config:\n    enabled: true\n'
+                                 '  aug_policy: color,translation,cutout')
+            .replace('dis:\n', 'dis:\n  smooth_resample: false\n'))
     return root, configs
 
 
@@ -216,10 +218,39 @@ def test_two_forward_step_runs(setup):
     assert [s for s, _ in series['gen/total']] == [1, 2]
 
 
-def test_amp_and_lmdb_raise(setup):
+def test_amp_diff_aug_and_profile(setup, capsys):
+    """`amp_config.enabled: true` with DiffAugment, the nearest label
+    resize and `--profile`: bf16 models, float32 checkpointed parameters
+    and optimizer state, finite meters, and a Chrome trace of the
+    iterations from the third on, closed when the run ends inside the
+    window (3 iterations run)."""
     root, configs = setup
-    with pytest.raises(NotImplementedError, match='amp_config'):
-        cli.main(_argv(root, configs['amp'], 'logs_amp', '--max-iter', '1'))
+    capsys.readouterr()
+    cli.main(_argv(root, configs['amp'], 'logs_amp', '--max-iter', '3',
+                   '--profile'))
+    out = capsys.readouterr().out
+    logdir = _newest(root, 'logs_amp')
+    series = _series(logdir)
+    assert [s for s, _ in series['gen/total']] == [1, 2, 3]
+    assert all(math.isfinite(v) for pts in series.values() for _, v in pts)
+    sd = torch.load(os.path.join(logdir, 'checkpoints', 'step_00000003.pt'),
+                    weights_only=True)
+    for part in ('generator', 'discriminator'):
+        assert {v.dtype for v in sd[part].values()
+                if v.is_floating_point()} == {torch.float32}
+    assert all(v.dtype == torch.float32 for st in sd['g_opt']['adam'][
+        'state'].values() for v in st.values() if torch.is_tensor(v)
+        and v.is_floating_point())
+    (trace,) = glob.glob(os.path.join(logdir, 'trace', '*.json'))
+    assert f'trace written to {trace}' in out
+    with open(trace) as f:
+        events = json.load(f)['traceEvents']
+    assert any('train_step' in str(e.get('name', '')) or
+               'conv' in str(e.get('name', '')) for e in events)
+
+
+def test_lmdb_raises(setup):
+    root, configs = setup
     with pytest.raises(NotImplementedError, match='lmdb'):
         cli.main(_argv(root, configs['xor'], 'logs_lmdb', '--max-iter', '1',
                        '--dataset-type', 'lmdb'))
