@@ -1218,6 +1218,15 @@ def twin_margins(torch, ta, ma, tb, mb):
     where |grad| < 1e-5: Adam with beta1 = 0 moves those by up to their
     learning rate whichever way the rounding tips it), how many such, of
     how many, and the largest difference."""
+    return state_margins(torch, ta, ma, {'gen': tb.gen.state_dict(),
+                                         'dis': tb.dis.state_dict()}, mb)
+
+
+def state_margins(torch, ta, ma, sd, mb):
+    """`twin_margins` of trainer `ta` (its metrics `ma`, its gradients
+    deciding where Adam may tip) against the generator and discriminator
+    state dicts `sd` ({'gen': ..., 'dis': ...}) and metrics `mb` of
+    another run of the same step."""
     rel = {n: abs(mb[n] - ma[n]) / max(abs(ma[n]), 1e-30) for n in ma}
     loss_rel = max(v for n, v in rel.items() if not n.endswith('grad_norm'))
     norm_rel = max(v for n, v in rel.items() if n.endswith('grad_norm'))
@@ -1225,9 +1234,9 @@ def twin_margins(torch, ta, ma, tb, mb):
              for g in o.opt.param_groups for p in g['params']}
     worst, loose, total, max_err = -math.inf, 0, 0, 0.0
     with torch.no_grad():
-        for mod_a, mod_b in ((ta.gen, tb.gen), (ta.dis, tb.dis)):
-            for pa, pb in zip(mod_a.parameters(), mod_b.parameters()):
-                err = (pa - pb).abs()
+        for part, mod_a in (('gen', ta.gen), ('dis', ta.dis)):
+            for name, pa in mod_a.named_parameters():
+                err = (pa - sd[part][name].to(pa.device)).abs()
                 flat = pa.grad.abs() < 1e-5
                 limit = torch.where(flat, 2 * lr_of[id(pa)] + 1e-5, 1e-5)
                 worst = max(worst, float((err - limit).max()))
@@ -1324,6 +1333,11 @@ def _run_cli(torch, kernels, argv):
     gc.collect()
     torch.cuda.empty_cache()
     (logdir,) = set(glob.glob(os.path.join(logs, '*'))) - before
+    return tee.text(), counts, logdir, _read_series(logdir), seconds, peak_gb
+
+
+def _read_series(logdir):
+    """A run's metrics.jsonl as {name: [(step, value), ...]}."""
     series = {}
     with open(os.path.join(logdir, 'metrics.jsonl')) as f:
         for line in f:
@@ -1331,7 +1345,7 @@ def _run_cli(torch, kernels, argv):
             for k, v in rec.items():
                 if k not in ('t', 'step'):
                     series.setdefault(k, []).append((rec['step'], v))
-    return tee.text(), counts, logdir, series, seconds, peak_gb
+    return series
 
 
 def _check_counts(counts, ran, idle, what):
@@ -1342,10 +1356,12 @@ def _check_counts(counts, ran, idle, what):
         assert counts[name] == 0, f'{what}: launched {name}'
 
 
-def loop_path(torch, kernels, world, dev):
-    """Phase 9: the training CLI at the flagship training width, on the
-    paired variant (6 iterations, then a resume to 8), on the xor
-    variant (3) and with `--speed-benchmark` (3)."""
+def loop_data(world):
+    """Phase 9's inputs under smoke_out/loop: a terrain cache of `world`,
+    16 synthetic 320x320 PNG pairs and configs/scenedreamer_train.yaml
+    logging every iteration (checkpoints at 3, snapshots at 4), as
+    `train_xor.yaml` and, with `gen.hash_variant: paired`,
+    `train_paired.yaml`. Returns (root, {variant: yaml path})."""
     import dataclasses
     import numpy as np
     import yaml
@@ -1355,7 +1371,6 @@ def loop_path(torch, kernels, world, dev):
     root = os.path.join(REPO, 'smoke_out', 'loop')
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    t0 = time.time()
     # the cache holds uncropped worlds; rows outside [ground, sky) are
     # dropped again on load, so zeros there give the same world back
     full = np.zeros((SAMPLE_HEIGHT,) + world.voxel.shape[1:], np.int8)
@@ -1374,6 +1389,15 @@ def loop_path(torch, kernels, world, dev):
         configs[variant] = os.path.join(root, f'train_{variant}.yaml')
         with open(configs[variant], 'w') as f:
             yaml.safe_dump(cfg, f)
+    return root, configs
+
+
+def loop_path(torch, kernels, world, dev):
+    """Phase 9: the training CLI at the flagship training width, on the
+    paired variant (6 iterations, then a resume to 8), on the xor
+    variant (3) and with `--speed-benchmark` (3)."""
+    t0 = time.time()
+    root, configs = loop_data(world)
     log(f'[loop] terrain cache + 16 PNG pairs + yamls in '
         f'{time.time() - t0:.1f} s under {root}')
 
@@ -1439,7 +1463,8 @@ def loop_path(torch, kernels, world, dev):
     xor_spi = statistics.median(1.0 / v for v in ips[1:])
     log(f'[loop] xor: {xor_spi:.3f} s/iteration (median of iterations 2-3; '
         f'all {[round(1 / v, 3) for v in ips]}), peak memory {xpeak:.1f} GB')
-    loop.update(xor_counts=counts, xor_iterations=3, xor_s_per_iter=xor_spi)
+    loop.update(xor_counts=counts, xor_iterations=3, xor_s_per_iter=xor_spi,
+                xor_series=series)
 
     # paired with --speed-benchmark: 3 iterations ---------------------------
     text, counts, _, series, secs, _ = _run_cli(
@@ -1474,7 +1499,7 @@ def loop_path(torch, kernels, world, dev):
     for name in os.listdir(ckpts):
         if name.endswith('.pt') and name != latest:
             os.remove(os.path.join(ckpts, name))
-    loop.update(xor_checkpoints=ckpts)
+    loop.update(xor_checkpoints=ckpts, xor_yaml=configs['xor'])
     return loop
 
 
@@ -1849,6 +1874,8 @@ def serve_rest(torch, kernels, world, style, pose, split_img, ckpts, dev):
         for name in idle:
             assert counts[name] == 0, f'the padded-tile frame launched {name}'
         tiles[tb] = counts
+        if tb == 1:
+            tile_img = img
         del r
         torch.cuda.empty_cache()
 
@@ -1977,7 +2004,7 @@ def serve_rest(torch, kernels, world, style, pose, split_img, ckpts, dev):
         f'({len(shapes)} frames) in {time.time() - t0:.1f} s with terrain')
     log(f'[serve] phase 12 in {time.time() - t_phase:.1f} s')
     shutil.rmtree(os.path.dirname(os.path.dirname(ckpts)))
-    return tiles
+    return dict(counts=tiles, img=tile_img)
 
 
 # bf16 step limits of phase 13: 4x JAX's own bf16-to-float32 distance of
@@ -2301,6 +2328,7 @@ def train_cli_amp(torch, kernels):
                   f'iterations')
     finite(series, 'float32 loop')
     out['float32'] = _loop_spread(series) + (secs, peak)
+    out['float32_series'], out['float32_yaml'] = series, paths['float32']
     for name in ('amp', 'float32'):
         med, lo, hi, n, secs, peak = out[name]
         log(f'[train cli amp] {name}: {med:.3f} s/iteration, median of '
@@ -2334,6 +2362,405 @@ def rest_of_training(torch, kernels, world, style, pose, dev):
     loop = train_cli_amp(torch, kernels)
     log(f'[train] phase 13 in {time.time() - t_phase:.1f} s')
     return dict(amp=amp, aug=aug, options=options, loop=loop)
+
+
+# phase 14: multi-GPU -------------------------------------------------------
+MULTI_XOR_ITERS, MULTI_PAIRED_ITERS = 8, 4
+# the torchrun CLI (NCCL, world 1) against the same CLI in one process on
+# the same yaml and seed: only the float atomics of the table scatters
+# (K3a, K5c) make two such runs differ, and Adam (beta1 = 0) turns that
+# noise in near-zero gradients into +-lr steps, which the later
+# iterations' meters carry. Held to CLI_TOL, relative with denominators
+# floored at 1e-2; the distance of two one-process runs (phase 9's xor
+# run and this phase's, iterations 1-3) is printed beside it
+CLI_TOL = 1e-3
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def run_session(cmd, timeout, **kw):
+    """`subprocess.run(cmd, capture_output=True, text=True)` in a session
+    of its own: at the timeout the whole session is killed, torchrun's
+    ranks with it (killing torchrun alone leaves them hung in a
+    collective)."""
+    import signal
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, start_new_session=True, **kw)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise
+    return subprocess.CompletedProcess(cmd, p.returncode, out, err)
+
+
+def torchrun_cli(argv, nproc=1, timeout=900):
+    """`cli.train.main(argv)` through `torch.distributed.run
+    --nproc_per_node <nproc>` (env:// rendezvous, NCCL; at 1, world size
+    1) in children of this script (`--worker cli`): (their output, each
+    rank's launch counts, the run's log directory, its metrics,
+    seconds)."""
+    import glob
+    logs = argv[argv.index('--logdir') + 1]
+    before = set(glob.glob(os.path.join(logs, '*')))
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node',
+           str(nproc), '--master_port', str(_free_port()),
+           os.path.abspath(__file__), '--worker', 'cli'] + argv
+    t0 = time.time()
+    res = run_session(cmd, timeout, cwd=REPO,
+                      env=dict(os.environ, PYTHONPATH=REPO))
+    seconds = time.time() - t0
+    assert res.returncode == 0, \
+        f'torchrun failed ({res.returncode}):\n{res.stdout[-4000:]}\n' \
+        f'{res.stderr[-4000:]}'
+    counts = [json.loads(ln[len('[worker] launches '):])
+              for ln in res.stdout.splitlines()
+              if ln.startswith('[worker] launches ')]
+    assert len(counts) == nproc, counts
+    (logdir,) = set(glob.glob(os.path.join(logs, '*'))) - before
+    return res.stdout, counts, logdir, _read_series(logdir), seconds
+
+
+def _meter_distance(got, want, steps):
+    """The largest relative difference over the meters both runs wrote at
+    `steps` (not the timings, nor the sampler's running counts, which
+    the prefetch's timing moves), denominators floored at 1e-2:
+    (distance, meter, step)."""
+    worst = (0.0, None, None)
+    for name, points in want.items():
+        if name.startswith(('perf/', 'speed/', 'sampler/')) \
+                or name not in got:
+            continue
+        a, b = dict(got[name]), dict(points)
+        for st in steps:
+            if st in a and st in b:
+                d = abs(a[st] - b[st]) / max(abs(b[st]), 1e-2)
+                worst = max(worst, (d, name, st), key=lambda t: t[0])
+    return worst
+
+
+def multi_cli(torch, kernels, loop, rest):
+    """Phase 14 (a): the training CLI through torchrun at world size 1 over
+    NCCL: 8 iterations on phase 9's xor yaml against the same in one
+    process (meters, launches, s/iteration), and 4 on phase 13's float32
+    paired yaml against phase 13's run of it."""
+    root = os.path.join(REPO, 'smoke_out', 'loop')
+
+    def argv(yaml_path, logs, iters):
+        return ['--config', yaml_path, '--data-root',
+                os.path.join(root, 'data'), '--terrain-cache',
+                os.path.join(root, 'cache'), '--logdir',
+                os.path.join(root, logs), '--seed', str(SEED), '--max-iter',
+                str(iters)]
+    _, plain_counts, _, plain, plain_secs, _ = _run_cli(
+        torch, kernels, argv(loop['xor_yaml'], 'logs_multi_plain',
+                             MULTI_XOR_ITERS))
+    text, (counts,), _, dist, dist_secs = torchrun_cli(
+        argv(loop['xor_yaml'], 'logs_multi_nccl', MULTI_XOR_ITERS))
+    assert 'rank 0 of 1 (nccl)' in text, 'the CLI did not run over NCCL'
+    steps = list(range(1, MULTI_XOR_ITERS + 1))
+    for series in (plain, dist):
+        assert [s for s, _ in series['gen/total']] == steps
+    spi = {name: statistics.median(1.0 / v for st, v in series[
+        'perf/iters_per_s'] if st >= 2) for name, series in
+        (('plain', plain), ('nccl', dist))}
+    d, name, st = _meter_distance(dist, plain, steps)
+    floor = _meter_distance(plain, loop['xor_series'], [1, 2, 3])
+    log(f'[multi cli] xor, {MULTI_XOR_ITERS} iterations: torchrun '
+        f'--nproc_per_node 1 (NCCL, world 1) {spi["nccl"]:.3f} s/iteration '
+        f'against {spi["plain"]:.3f} in one process (medians of iterations '
+        f'2-{MULTI_XOR_ITERS}; runs {dist_secs:.1f} / {plain_secs:.1f} s with '
+        f'set-up and process start); meters max rel diff {d:.3g} ({name} at '
+        f'{st}; tolerance {CLI_TOL}); two one-process runs (phase 9, this '
+        f'phase), iterations 1-3: {floor[0]:.3g} ({floor[1]} at {floor[2]})')
+    log(f'[multi cli] launches in {MULTI_XOR_ITERS} iterations: torchrun '
+        f'{counts}, one process {plain_counts}')
+    assert counts == plain_counts, \
+        'the NCCL run launched other kernels than the one-process run'
+    assert d <= CLI_TOL, 'the NCCL CLI run differs from the one-process run'
+    out = dict(s_per_iter=spi, xor_rel=d, floor_rel=floor[0])
+    text, (counts,), _, paired, secs = torchrun_cli(
+        argv(rest['loop']['float32_yaml'], 'logs_multi_paired',
+             MULTI_PAIRED_ITERS))
+    steps = list(range(1, MULTI_PAIRED_ITERS + 1))
+    assert [s for s, _ in paired['gen/total']] == steps
+    d, name, st = _meter_distance(paired, rest['loop']['float32_series'],
+                                  steps)
+    log(f'[multi cli] paired float32 (phase 13\'s yaml: DiffAugment), '
+        f'{MULTI_PAIRED_ITERS} iterations through torchrun in {secs:.1f} s: '
+        f'meters against phase 13\'s float32 run max rel diff {d:.3g} '
+        f'({name} at {st}; tolerance {CLI_TOL})')
+    _check_counts(counts, PAIRED, XOR + GENERAL, 'NCCL paired')
+    assert d <= CLI_TOL, 'the NCCL paired run differs from phase 13\'s'
+    out.update(paired_rel=d)
+    for logs in ('logs_multi_plain', 'logs_multi_nccl', 'logs_multi_paired'):
+        shutil.rmtree(os.path.join(root, logs))
+    return out
+
+
+def _spawn_step_ranks(kind, work, timeout=900):
+    """Two ranks of `--worker step <kind> <work>` sharing this card over
+    gloo (NCCL refuses two ranks on one device); returns their results
+    (`<work>/rank<r>.pt`)."""
+    port = str(_free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--worker', 'step', kind,
+         work], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, PYTHONPATH=REPO, MASTER_ADDR=
+                            'localhost', MASTER_PORT=port, RANK=str(r),
+                            WORLD_SIZE='2', LOCAL_RANK='0'))
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, text in zip(procs, outs):
+        assert p.returncode == 0, f'{kind} rank failed:\n{text[-4000:]}'
+    import torch
+    return [torch.load(os.path.join(work, f'rank{r}.pt'), weights_only=False)
+            for r in range(2)]
+
+
+def _hold_ranks(torch, tag, ref, m_ref, ranks, plain_counts, kl_half=False):
+    """Two ranks' step (rank 0's parameters; both ranks' metrics and
+    launches) against the one-process trainer `ref` after its step
+    (metrics `m_ref`), with phase 7's twin tolerances: losses 1e-5
+    relative, gradient norms 1e-4, parameters 1e-5 or 2 lr + 1e-5 where
+    |grad| < 1e-5. With `kl_half` the ranks' `gen/kl` (a mean of their
+    per-item sums) is held to half the batch-2 process's sum."""
+    r0, r1 = ranks
+    assert r0['metrics'] == r1['metrics'], f'{tag}: the ranks\' metrics differ'
+    got = dict(r0['metrics'])
+    want = dict(m_ref)
+    if kl_half:
+        kl_got, kl_want = got.pop('gen/kl'), want.pop('gen/kl') / 2
+        kl_rel = abs(kl_got - kl_want) / abs(kl_want)
+        log(f'[multi {tag}] gen/kl {kl_got:.6g}, half the one process\'s '
+            f'{kl_want:.6g} (rel diff {kl_rel:.3g}, tolerance 1e-5 + 1e-6 '
+            f'abs)')
+        assert abs(kl_got - kl_want) <= 1e-5 * abs(kl_want) + 1e-6
+    loss_rel, norm_rel, worst, loose, total, max_err = state_margins(
+        torch, ref, want, r0['state'], got)
+    log(f'[multi {tag}] against one process: losses max rel diff '
+        f'{loss_rel:.3g} (tolerance 1e-5), gradient norms {norm_rel:.3g} '
+        f'(1e-4); parameters max abs diff {max_err:.3g}, worst margin '
+        f'{worst:.3g} (<= 0 passes; {loose} of {total} within 2 lr); '
+        f'launches per step rank 0 {r0["counts"]}, rank 1 {r1["counts"]}')
+    assert loss_rel <= 1e-5, f'{tag}: the losses differ'
+    assert norm_rel <= 1e-4, f'{tag}: the gradient norms differ'
+    assert worst <= 0, f'{tag}: the update differs'
+    for r in ranks:
+        assert r['counts'] == plain_counts, \
+            f'{tag}: launches per step differ from the plain step\'s'
+
+
+def multi_steps(torch, kernels, world, plain_counts, dev):
+    """Phase 14 (b) and (c): two ranks sharing the card over gloo take one
+    `train_step_shared` at the flagship training width, float32: (b) data
+    2 (batch 1 each, deterministic sampling) against one process's batch-2
+    step with the same draws; (c) data 1 x rays 2 (each rank renders 131
+    of the 262 rows) against the rays=1 step, stochastic sampling from
+    one seed."""
+    from scenedreamer_tpu_torch.data.synthetic import make_batch
+    from scenedreamer_tpu_torch.models.generator import GeneratorConfig
+    work = os.path.join(REPO, 'smoke_out', 'multi')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    voxel = torch.from_numpy(world.voxel).to(dev)
+    out = {}
+    for kind, b in (('dp', 2), ('rays', 1)):
+        cfg = GeneratorConfig(coarse_deterministic_sampling=kind == 'dp')
+        hw = TRAIN_CROP + cfg.pad
+        batch = {k: v.cpu() for k, v in make_batch(
+            world, batch_size=b, height=hw, width=hw,
+            max_samples=cfg.num_blocks_early_stop, pad=cfg.pad, seed=SEED,
+            device=dev, voxel=voxel).items()}
+        eps = torch.randn((b, cfg.style_dims),
+                          generator=torch.Generator().manual_seed(SEED))
+        kdir = os.path.join(work, kind)
+        os.makedirs(kdir)
+        torch.save(dict(batch=batch, eps=eps, dims=tuple(world.dims)),
+                   os.path.join(kdir, 'inputs.pt'))
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        ranks = _spawn_step_ranks(kind, kdir)
+        wall = time.time() - t0
+        # the one-process reference, after the ranks have left the card
+        ref = make_trainer(cfg, world.dims, dev)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        if kind == 'dp':
+            # the KL term sums over the batch: the ranks mean their sums
+            # (JAX's pmean, DDP), so one process takes half the weight
+            ref.cfg.loss_weights = dict(ref.cfg.loss_weights)
+            ref.cfg.loss_weights['kl'] /= 2
+            m_ref = ref.train_step_shared(batch, style_eps=eps.to(dev))
+        else:
+            m_ref = ref.train_step_shared(
+                batch, torch.Generator(device=dev).manual_seed(SEED))
+        r0 = ranks[0]
+        log(f'[multi {kind}] two ranks sharing one card over gloo (not a '
+            f'scaling number): mesh {r0["mesh"]}, first step '
+            f'{r0["step_s"]:.3f} / {ranks[1]["step_s"]:.3f} s (warm-up '
+            f'included), second {r0["step2_s"]:.3f} / '
+            f'{ranks[1]["step2_s"]:.3f} s, all-reducing '
+            f'{r0["reduce_bytes"] / 1e6:.1f} MB a rank a step (one '
+            f'all_reduce of that size alone {r0["reduce_s"]:.3f} / '
+            f'{ranks[1]["reduce_s"]:.3f} s), peak {r0["peak_gb"]:.1f} / '
+            f'{ranks[1]["peak_gb"]:.1f} GB; {wall:.1f} s with process start '
+            f'and set-up')
+        _hold_ranks(torch, kind, ref, m_ref, ranks, plain_counts,
+                    kl_half=kind == 'dp')
+        out[kind] = dict(counts=r0['counts'],
+                         step_s=[r['step_s'] for r in ranks],
+                         step2_s=[r['step2_s'] for r in ranks],
+                         reduce_bytes=r0['reduce_bytes'],
+                         reduce_s=[r['reduce_s'] for r in ranks],
+                         peak_gb=[r['peak_gb'] for r in ranks])
+        del ref, batch, ranks
+        torch.cuda.empty_cache()
+    del voxel
+    shutil.rmtree(work)
+    return out
+
+
+def multi_render(torch, kernels, world, style, pose, tile_img, dev):
+    """Phase 14 (d): mesh mode over [cuda:0] (the card's one device):
+    `TiledRenderer(mesh=...)` on phase 4's pose against phase 12's
+    padded-tile frame (tolerance 1e-3; expected equal), then
+    `render_trajectory(mesh=...)` for 2 frames, its first within one uint8
+    step of it."""
+    import numpy as np
+    from scenedreamer_tpu_torch.models.generator import (
+        GeneratorConfig, SceneDreamerGenerator)
+    from scenedreamer_tpu_torch.render.pipeline import (TiledRenderer,
+                                                        render_trajectory,
+                                                        to_uint8)
+    cfg = GeneratorConfig(num_samples=SAMPLES, num_blocks_early_stop=M)
+    model = SceneDreamerGenerator(cfg, seed=SEED).to(dev).eval()
+    kw = dict(num_samples=SAMPLES, num_blocks_early_stop=M, pad=PAD,
+              resolution_hw=RES, tile_size=TILE)
+    r = TiledRenderer(model, world, mesh=[dev], **kw)
+    assert not r.split_refine
+    secs, img, counts, peak = _warm_timed(torch, kernels, r, pose,
+                                          r.style_z(style.numpy()))
+    st = r.last_stats
+    err = float(np.abs(img - tile_img).max())
+    field_tiles = st['tiles'] - st['tiles_sky_only']
+    log(f'[multi mesh] TiledRenderer(mesh=[{dev}]): {secs:.3f} s/frame, peak '
+        f'{peak:.1f} GB, {st["tiles"]} tiles ({st["tiles_sky_only"]} sky '
+        f'only), launches {counts}; image max abs diff from phase 12\'s '
+        f'padded-tile frame {err:.3g} (tolerance 1e-3)')
+    assert err <= 1e-3, 'the mesh frame differs from the padded-tile frame'
+    assert counts['dda'] == 1 and counts['hash_bake'] == 1
+    assert counts['hash_encode'] == field_tiles
+    out_dir = os.path.join(REPO, 'smoke_out', 'multi_render')
+    frames = render_trajectory(model, world, style, out_dir, camera_mode=4,
+                               cam_maxstep=2, cam_ang=72, mesh=[dev], **kw)
+    step = int(np.abs(frames[0].astype(int)
+                      - to_uint8(tile_img).astype(int)).max())
+    log(f'[multi mesh] render_trajectory(mesh=[{dev}]): {len(frames)} '
+        f'frames; frame 0 against phase 12\'s frame: max uint8 step {step}')
+    assert len(frames) == 2 and step <= 1
+    shutil.rmtree(out_dir)
+    return dict(s_per_frame=secs, err=err)
+
+
+def multi_gpu(torch, kernels, world, style, pose, tile_img, loop, rest, dev):
+    """Phase 14, multi-GPU: (a) the CLI over NCCL at world size 1, (b)
+    data-parallel and (c) row-parallel ranks over gloo on the one card,
+    (d) mesh-mode serving over [cuda:0]."""
+    t_phase = time.time()
+    cli = multi_cli(torch, kernels, loop, rest)
+    steps = multi_steps(torch, kernels, world,
+                        rest['amp']['float32']['counts'], dev)
+    render = multi_render(torch, kernels, world, style, pose, tile_img, dev)
+    log(f'[multi] phase 14 in {time.time() - t_phase:.1f} s')
+    return dict(cli=cli, steps=steps, render=render,
+                dp_counts=steps['dp']['counts'],
+                rays_counts=steps['rays']['counts'])
+
+
+def worker(args):
+    """A child of phase 14: `cli <argv>` runs `cli.train.main(argv)` (under
+    torchrun) and prints its launch counts; `step dp|rays <dir>` is one
+    rank of two (env:// rendezvous over gloo on this card) taking one
+    `train_step_shared` and writing `<dir>/rank<r>.pt`."""
+    import torch
+    sys.path.insert(0, REPO)
+    from scenedreamer_tpu_torch import kernels
+    float32_exact(torch)
+    if args[0] == 'cli':
+        from scenedreamer_tpu_torch.cli import train as cli
+        kernels.reset_launch_counts()
+        cli.main(args[1:])
+        torch.cuda.synchronize()
+        log('[worker] launches ' + json.dumps(kernels.launch_counts()))
+        return 0
+    from scenedreamer_tpu_torch.models.generator import GeneratorConfig
+    from scenedreamer_tpu_torch.parallel import mesh as pm
+    kind, work = args[1], args[2]
+    rank, world = pm.init_distributed('cuda', backend='gloo')
+    dev = torch.device('cuda')
+    inp = torch.load(os.path.join(work, 'inputs.pt'), weights_only=False)
+    mesh = pm.make_mesh(rays=2 if kind == 'rays' else 1)
+    cfg = GeneratorConfig(coarse_deterministic_sampling=kind == 'dp')
+    trainer = make_trainer(cfg, inp['dims'], dev)
+    trainer.mesh = mesh
+    pm.replicate(trainer.gen)
+    pm.replicate(trainer.dis)
+    batch = {k: v.to(dev) for k, v in inp['batch'].items()}
+    if kind == 'dp':
+        batch = pm.shard_batch(mesh, batch)
+        kw = dict(style_eps=inp['eps'][rank:rank + 1].to(dev))
+    else:
+        kw = dict(generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    metrics = trainer.train_step_shared(batch, **kw)
+    torch.cuda.synchronize()
+    step_s = time.time() - t0
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pm.check_replicated(trainer.gen, trainer.dis)
+    state = {'gen': {k: v.cpu() for k, v in trainer.gen.state_dict().items()},
+             'dis': {k: v.cpu() for k, v in trainer.dis.state_dict().items()}}
+    # a second step, past the first one's warm-up (allocator, cuDNN and
+    # cuBLAS set-up), for the steady time only
+    t0 = time.time()
+    trainer.train_step_shared(batch, **kw)
+    torch.cuda.synchronize()
+    step2_s = time.time() - t0
+    # float32 gradients and metrics of both updates, the D update's
+    # spectral-norm buffers too; then the same all_reduce alone
+    n = (sum(p.numel() for o in (trainer.g_opt, trainer.d_opt)
+             for p in o.params) + len(metrics)
+         + sum(b.numel() for b in trainer.dis.buffers()))
+    flat = torch.zeros(n, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    torch.distributed.all_reduce(flat)
+    torch.cuda.synchronize()
+    out = dict(metrics=metrics, counts=counts, step_s=step_s,
+               step2_s=step2_s, peak_gb=peak_gb, reduce_bytes=4 * n,
+               reduce_s=time.time() - t0, mesh=mesh.shape)
+    if rank == 0:
+        out['state'] = state
+    torch.save(out, os.path.join(work, f'rank{rank}.pt'))
+    torch.distributed.destroy_process_group()
+    return 0
 
 
 def split_extra(split):
@@ -2435,11 +2862,21 @@ def general_rows(k4, k4_split, k4c, render, step, loop):
     return out
 
 
+def float32_exact(torch):
+    """TF32 off for matmuls and convolutions, as the JAX package's
+    float32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision('highest')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ['--worker']:
+        return worker(sys.argv[2:])
     sys.path.insert(0, REPO)
     import numpy as np
     from scenedreamer_tpu_torch import kernels
@@ -2456,9 +2893,7 @@ def main():
     from scenedreamer_tpu_torch.scene.voxel_world import build_voxel_world
 
     t_start = time.time()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision('highest')
+    float32_exact(torch)
     dev = torch.device('cuda')
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
         f'device {torch.cuda.get_device_name(0)}')
@@ -2799,6 +3234,10 @@ def main():
     # 13. the rest of training -----------------------------------------------
     rest = rest_of_training(torch, kernels, world, style, ctl[0], dev)
 
+    # 14. multi-GPU ------------------------------------------------------------
+    multi = multi_gpu(torch, kernels, world, style, ctl[0], padded['img'],
+                      loop, rest, dev)
+
     table_rows = kernel_rows(serving, k3, k3_split, train, k5, k5_split,
                              k5b, loop) \
         + general_rows(k4, k4_split, (int(chunk_n), *k4c), urender, ustep,
@@ -2809,15 +3248,17 @@ def main():
     for row in table_rows:
         row['launches_per_padded_tile_frame'] = {
             f'tiles_per_batch_{tb}': counts[row['name']]
-            for tb, counts in padded.items()}
+            for tb, counts in padded['counts'].items()}
         row['launches_per_amp_step'] = amp_counts[row['name']]
+        row['launches_per_dp_step'] = multi['dp_counts'][row['name']]
+        row['launches_per_rays_step'] = multi['rays_counts'][row['name']]
     log(json.dumps({'kernels': table_rows}))
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
-    log(f'[smoke] phases 1-13 in {time.time() - t_start:.1f} s')
+    log(f'[smoke] phases 1-14 in {time.time() - t_start:.1f} s')
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

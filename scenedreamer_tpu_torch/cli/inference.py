@@ -10,7 +10,9 @@ over the trajectory) and renders the camera trajectory to PNG frames
 and an mp4, through the split-refine renderer or, with
 `--no_split_refine`, the padded-tile one. `--amp` computes the layers in
 bf16. Runs on CUDA; `--device cpu` (or `--platform cpu`) runs the plain
-PyTorch path. `--mesh_tiles` (multi-GPU) is not ported and raises.
+PyTorch path. `--mesh_tiles` deals each frame's padded tiles over every
+visible GPU (one process, a generator replica per GPU; on the CPU, the
+one CPU device).
 
 Usage:
     python -m scenedreamer_tpu_torch.cli.inference --output_dir out \
@@ -57,19 +59,6 @@ def load_generator(checkpoint, cfg, device, seed=0):
     return model.to(device)
 
 
-def _device(a):
-    """--device, else --platform (cpu -> the CPU; gpu / cuda -> CUDA),
-    else the default, CUDA."""
-    if a.device is not None or a.platform is None:
-        return a.device
-    if a.platform == 'cpu':
-        return 'cpu'
-    if a.platform in ('gpu', 'cuda'):
-        return 'cuda'
-    raise ValueError(f'--platform {a.platform!r}: the port runs on cpu or '
-                     f'gpu / cuda')
-
-
 def main(argv=None):
     """Run the CLI; returns the rendered frames ([H, W, 3] uint8)."""
     p = argparse.ArgumentParser(description=__doc__)
@@ -105,7 +94,8 @@ def main(argv=None):
     p.add_argument('--tiles_per_batch', type=int, default=1,
                    help='padded tiles per field call')
     p.add_argument('--mesh_tiles', action='store_true',
-                   help='tiles over several devices (not ported)')
+                   help="deal each frame's padded tiles over every visible "
+                        'GPU (multi-GPU inference)')
     p.add_argument('--save_depth', action='store_true',
                    help='also write depth and voxel-id frames '
                         '(reference inference_givenstyle_depth)')
@@ -118,20 +108,18 @@ def main(argv=None):
                    help="torch device (default 'cuda'; 'cpu' runs the "
                         'plain PyTorch path)')
     a = p.parse_args(argv)
-    if a.mesh_tiles:
-        raise NotImplementedError('--mesh_tiles is not ported: ROADMAP.md '
-                                  'Queue 1 item 3, multi-GPU')
 
     import time
     import numpy as np
     import torch
-    from scenedreamer_tpu_torch.device import resolve_device
+    from scenedreamer_tpu_torch.device import (device_from_flags,
+                                               resolve_device)
     from scenedreamer_tpu_torch.models.generator import GeneratorConfig
     from scenedreamer_tpu_torch.render.pipeline import render_trajectory
     from scenedreamer_tpu_torch.scene.terrain import generate_terrain
     from scenedreamer_tpu_torch.scene.voxel_world import build_voxel_world
 
-    device = resolve_device(_device(a))
+    device = resolve_device(device_from_flags(a.device, a.platform))
     print(f'[inference] generating terrain (size={a.scene_size}, '
           f'seed={a.seed})')
     maps = generate_terrain(size=a.scene_size, seed=a.seed)
@@ -161,6 +149,11 @@ def main(argv=None):
         t = np.linspace(0.0, 1.0, max(a.cam_maxstep, 2))[:, None]
         style = ((1.0 - t) * style[:1] + t * s2[:1]).astype(np.float32)
     os.makedirs(a.output_dir, exist_ok=True)
+    mesh = None
+    if a.mesh_tiles:
+        mesh = [device] if device.type != 'cuda' else [
+            torch.device('cuda', i) for i in range(torch.cuda.device_count())]
+        print(f'[inference] mesh tiles over {[str(d) for d in mesh]}')
     timings = []
     t0 = time.perf_counter()
     frames = render_trajectory(
@@ -171,8 +164,8 @@ def main(argv=None):
         sample_depth=a.sample_depth, pad=a.pad, tile_size=a.tile_size,
         resolution_hw=tuple(a.resolution), fps=a.fps, seed=a.seed,
         save_depth=a.save_depth, tiles_per_batch=a.tiles_per_batch,
-        split_refine=False if a.no_split_refine else None, device=device,
-        timings=timings)
+        split_refine=False if a.no_split_refine else None,
+        device=None if mesh else device, mesh=mesh, timings=timings)
     wall = time.perf_counter() - t0
     n = max(1, len(frames))
     loop = sum(t['queue_s'] + t['wait_s'] + t['write_s'] for t in timings)

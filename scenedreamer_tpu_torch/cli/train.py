@@ -11,9 +11,20 @@ cached world, rejection-sample cameras (kernel K1), make the SPADE
 pseudo ground truth and the masks, outside autograd; then run the
 training step (kernels K2/K3, or K5 with `gen.hash_variant: paired`).
 The same yaml keys and flags as the JAX package's CLI, plus `--device`
-(default 'cuda'; raises without a GPU unless 'cpu' is asked for). One
-process, one device. `trainer.amp_config.enabled: true` trains with bf16
-compute in the generator, the discriminator and the VGG loss, float32
+(default 'cuda'; raises without a GPU unless 'cpu' is asked for;
+`--platform cpu|gpu` says the same).
+
+Several processes (torchrun's env:// rendezvous; NCCL on CUDA, gloo on
+the CPU) train data-parallel over a ('data', `--mesh-rays`) mesh of the
+ranks (`parallel/mesh.py`): each data group loads its own share of the
+dataset and seeds its host and device draws with `--seed` + its data
+index; the first rank of each rays group builds the group's batch and
+broadcasts it; the trainer means gradients and metrics over the ranks;
+rank 0 writes the metrics, the image snapshots and the checkpoints, and
+every rank resumes from the same checkpoint.
+
+`trainer.amp_config.enabled: true` trains with bf16 compute in the
+generator, the discriminator and the VGG loss, float32
 parameters, optimizer state and losses, and no loss scaling (JAX
 `cli/train.py:48-56`); `trainer.aug_policy` turns on DiffAugment;
 `--profile` writes a `torch.profiler` Chrome trace of iterations 2-4
@@ -24,9 +35,12 @@ Usage:
         --config configs/scenedreamer_train.yaml \\
         --data-root data/lhq --terrain-cache data/terrain_cache \\
         --logdir logs
+    python -m torch.distributed.run --nproc_per_node 8 \\
+        -m scenedreamer_tpu_torch.cli.train ... [--mesh-rays 2]
 """
 import argparse
 import glob
+import itertools
 import os
 import signal
 import threading
@@ -36,15 +50,17 @@ from contextlib import nullcontext
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from scenedreamer_tpu_torch.data.paired_dataset import (AugmentConfig,
                                                         DataLoader,
                                                         PairedImageDataset)
-from scenedreamer_tpu_torch.device import resolve_device
+from scenedreamer_tpu_torch.device import device_from_flags, resolve_device
 from scenedreamer_tpu_torch.models.discriminator import GANcraftDiscriminator
 from scenedreamer_tpu_torch.models.generator import (GeneratorConfig,
                                                      SceneDreamerGenerator)
 from scenedreamer_tpu_torch.models.spade import SPADEWrapper
+from scenedreamer_tpu_torch.parallel import mesh as pm
 from scenedreamer_tpu_torch.scene.voxel_world import WorldCache
 from scenedreamer_tpu_torch.train import losses as L
 from scenedreamer_tpu_torch.train import optim
@@ -65,9 +81,10 @@ from scenedreamer_tpu_torch.utils.visualization import (image_grid,
                                                         tensor2label)
 
 
-def build_everything(cfg, args, device):
+def build_everything(cfg, args, device, mesh):
     """Models, loader, world cache, batch builder and trainer from the
-    config and the parsed flags, on `device`."""
+    config and the parsed flags, on `device`; the loader reads the
+    share of `mesh`'s data group, and the trainer steps over the mesh."""
     gen_cfg = cfg.get('gen', {})
     crop = tuple(gen_cfg.get('crop_size', (256, 256)))
     pad = int(gen_cfg.get('pad', 6))
@@ -118,7 +135,8 @@ def build_everything(cfg, args, device):
         args.data_root, dataset_type=args.dataset_type,
         augment=AugmentConfig(random_crop_h_w=crop))
     loader = DataLoader(dataset, batch_size=args.batch_size,
-                        seed=args.seed,
+                        seed=args.seed, process_index=mesh.data_index,
+                        process_count=mesh.data,
                         num_workers=int(cfg.get('data', {})
                                         .get('num_workers', 4)))
 
@@ -151,7 +169,7 @@ def build_everything(cfg, args, device):
         if 'g_smooth_img' in ema_cfg:
             # half-life parameterization (`utils/trainer.py:158-167`):
             # beta = 0.5 ** (global_batch / g_smooth_img)
-            ema_beta = 0.5 ** (args.batch_size
+            ema_beta = 0.5 ** (args.batch_size * mesh.data
                                / float(ema_cfg['g_smooth_img']))
         else:
             ema_beta = float(ema_cfg.get('beta', 0.9999))
@@ -182,7 +200,7 @@ def build_everything(cfg, args, device):
             aug_policy=str(tcfg.get('aug_policy', '') or ''),
             ema_beta=ema_beta),
         perceptual=perceptual, d_opt=d_opt,
-        iters_per_epoch=iters_per_epoch)
+        iters_per_epoch=iters_per_epoch, mesh=mesh)
     if float(do.get('lr', optim.DIS_LR)) != optim.DIS_LR:
         print(f"[train] dis lr override: {do.get('lr')}")
     if clip or skip_norm:
@@ -324,6 +342,12 @@ def _parser():
                         'while the device trains on batch i (a single '
                         'ordered worker keeps every rng/world call in '
                         'the serial order, so the batches are the same)')
+    p.add_argument('--mesh-rays', type=int, default=1,
+                   help='size of the rays (image-row) axis of the mesh of '
+                        'ranks; data axis = ranks // rays')
+    p.add_argument('--platform', default=None,
+                   help="'cpu', or 'gpu' / 'cuda' (the default); --device "
+                        'wins when both are given')
     p.add_argument('--device', default=None,
                    help="torch device (default 'cuda'; 'cpu' runs the "
                         'plain PyTorch path)')
@@ -332,7 +356,14 @@ def _parser():
 
 def main(argv=None):
     a = _parser().parse_args(argv)
-    device = resolve_device(a.device)
+    device = resolve_device(device_from_flags(a.device, a.platform))
+    started = not dist.is_initialized()
+    pm.init_distributed(device)
+    started = started and dist.is_initialized()
+    if device.type == 'cuda':
+        # this rank's GPU by its index: a bare 'cuda' would mean GPU 0 on
+        # the prefetch worker's thread, whose current device is its own
+        device = torch.device('cuda', torch.cuda.current_device())
     cfg = Config(a.config)
 
     # AutoResume parity (`train.py:152-158`): on SIGTERM/SIGINT save a
@@ -351,6 +382,8 @@ def main(argv=None):
     finally:
         for sig, handler in old_handlers.items():
             signal.signal(sig, handler)
+        if started:
+            dist.destroy_process_group()
 
 
 def _run(a, cfg, device, stop_requested):
@@ -359,19 +392,46 @@ def _run(a, cfg, device, stop_requested):
     snapshot_save_iter = int(cfg.get('snapshot_save_iter', 10000))
     snapshot_save_epoch = int(cfg.get('snapshot_save_epoch', 5))
     image_save_iter = int(cfg.get('image_save_iter', 5000))
+    # the ('data', 'rays') mesh of the ranks (JAX `cli/train.py:386-395`):
+    # with process groups whenever torch.distributed is up, world 1 too
+    mesh = pm.make_mesh(rays=a.mesh_rays)
+    rank = pm.rank()
+    if dist.is_initialized():
+        print(f'[train] rank {rank} of {pm.world_size()} '
+              f'({dist.get_backend()}), mesh {mesh.shape}, data index '
+              f'{mesh.data_index}, rays index {mesh.rays_index}')
     (gen, dis, loader, world_cache, builder, trainer, gcfg) = \
-        build_everything(cfg, a, device)
+        build_everything(cfg, a, device, mesh)
 
-    logdir = make_logging_dir(a.logdir, cfg.get('name', 'scenedreamer'))
-    writer = MetricsWriter(logdir)
+    # rank 0 names the run directory; rank 0 alone writes into it
+    logdir = [make_logging_dir(a.logdir, cfg.get('name', 'scenedreamer'))
+              if rank == 0 else None]
+    if dist.is_initialized():
+        dist.broadcast_object_list(logdir, src=0,
+                                   device=pm.comm_device())
+    logdir = logdir[0]
+    writer = MetricsWriter(logdir if rank == 0 else None)
     ckpt_dir = os.path.join(logdir, 'checkpoints')
     print(f'[train] logging to {logdir}')
 
+    def _save():
+        # rank 0 writes; the others wait until it is on disk
+        if rank == 0:
+            path = save_checkpoint(ckpt_dir, trainer)
+        else:
+            path = os.path.join(ckpt_dir, f'step_{trainer.step:08d}.pt')
+        _barrier()
+        return path
+
     # host dice (worlds, cameras, relabeling) from one numpy generator;
     # device draws (oracle style, render) from per-step torch generators
-    # seeded off one master generator
-    rng = np.random.default_rng(a.seed)
-    master = torch.Generator().manual_seed(a.seed)
+    # seeded off one master generator; both seeded by the data index
+    # (JAX `cli/train.py:422-423` seeds by process), so the ranks of a
+    # rays group draw alike
+    rng = np.random.default_rng(a.seed + mesh.data_index)
+    master = torch.Generator().manual_seed(a.seed + mesh.data_index)
+    # the first rank of each rays group builds its batches
+    builds = mesh.rays_index == 0
 
     # one world per batch element (reference: one per DDP rank).
     # WorldCache crops every world to the cache-wide height slab, so
@@ -385,7 +445,7 @@ def _run(a, cfg, device, stop_requested):
     def _ph(name):
         return timer.phase(name) if timer else nullcontext()
 
-    profile_window = (2, 4) if a.profile else None
+    profile_window = (2, 4) if a.profile and rank == 0 else None
     trace = {'prof': None}
 
     def _stop_trace():
@@ -408,7 +468,12 @@ def _run(a, cfg, device, stop_requested):
     print(f"[train] iteration step: "
           f"{'single-forward (shared graph)' if shared else 'two-forward'}")
     if a.resume:
-        resume_dir = _find_resume_dir(a.logdir, ckpt_dir)
+        # every rank resumes from the checkpoint rank 0 finds
+        resume_dir = [_find_resume_dir(a.logdir, ckpt_dir)]
+        if dist.is_initialized():
+            dist.broadcast_object_list(resume_dir, src=0,
+                                       device=pm.comm_device())
+        resume_dir = resume_dir[0]
         restored = load_checkpoint(resume_dir, trainer) \
             if resume_dir else None
         if restored is not None:
@@ -429,6 +494,9 @@ def _run(a, cfg, device, stop_requested):
                     lr_policy=dict(do['lr_policy'])
                     if do.get('lr_policy') else None, iters_per_epoch=ipe)
                 print('[train] reset opt_D state')
+    # the same parameters on every rank (JAX `cli/train.py:531-532`)
+    pm.replicate(gen)
+    pm.replicate(dis)
     pending_metrics = []
 
     def _flush_pending():
@@ -449,6 +517,8 @@ def _run(a, cfg, device, stop_requested):
 
     def _build(data_np, it_now, g_batch):
         nonlocal world
+        if not builds:
+            return None
         if it_now > 0 and it_now % max(1, a.world_switch_every) == 0:
             with _ph('world_sample'):
                 world = [world_cache.sample_world(rng=_RandomAdapter(rng))
@@ -465,14 +535,19 @@ def _run(a, cfg, device, stop_requested):
 
     def _finish(message):
         _flush_pending()
-        path = save_checkpoint(ckpt_dir, trainer)
+        path = _save()
+        pm.check_replicated(gen, dis)
         print(message.format(it=it, ckpt_dir=ckpt_dir, path=path))
 
     try:
         t0 = time.time()
         for epoch in range(max_epoch):
             loader.set_epoch(epoch)
-            diter = iter(loader)
+            # every data group takes len(loader) steps an epoch: the
+            # loader's stride gives the first len(dataset) % data groups
+            # an item more, and a group that ran on would meet another
+            # group's epoch-end collectives with its step's all_reduce
+            diter = itertools.islice(iter(loader), len(loader))
             nxt = next(diter, None)
             fut = None            # (future, g_step) for the prefetched batch
             while nxt is not None:
@@ -494,6 +569,10 @@ def _run(a, cfg, device, stop_requested):
                 if executor is not None and nxt is not None:
                     gb2, gs2 = _next_generators()
                     fut = (executor.submit(_build, nxt, it + 1, gb2), gs2)
+                # on the main thread, so the collectives keep one order
+                batch = pm.broadcast_batch(mesh, batch, device)
+                if steps_run == 0:
+                    pm.global_batch_from_local(mesh, batch)
                 with _ph('train_step'):
                     metrics = step_fn(batch, g_step)
                 if trace['prof'] is not None \
@@ -524,10 +603,13 @@ def _run(a, cfg, device, stop_requested):
                         timer.reset()
                     t0 = time.time()
                 if it % snapshot_save_iter == 0:
-                    save_checkpoint(ckpt_dir, trainer)
+                    _save()
                 if it % image_save_iter == 0:
-                    _save_snapshot_images(writer, trainer, batch, g_step, it)
-                if stop_requested['flag']:
+                    if rank == 0:
+                        _save_snapshot_images(writer, trainer, batch, g_step,
+                                              it)
+                    _barrier()
+                if _any_rank(stop_requested['flag']):
                     _finish('[train] termination requested - checkpointed '
                             '{path}')
                     return
@@ -536,13 +618,28 @@ def _run(a, cfg, device, stop_requested):
             if a.max_iter and it >= a.max_iter:
                 break
             if (epoch + 1) % snapshot_save_epoch == 0:
-                save_checkpoint(ckpt_dir, trainer)
+                _save()
         _finish('[train] done at iteration {it}; checkpoints in {ckpt_dir}')
     finally:
         _stop_trace()       # a run shorter than the window
         writer.close()
         if executor is not None:
             executor.shutdown(wait=False, cancel_futures=True)
+
+
+def _barrier():
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _any_rank(flag):
+    """`flag` of any rank, so that every rank stops at the same
+    iteration (a SIGTERM may reach one rank only)."""
+    if not dist.is_initialized():
+        return flag
+    t = torch.tensor([int(flag)], device=pm.comm_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
 
 
 def _find_resume_dir(logdir_root, own_ckpt_dir):

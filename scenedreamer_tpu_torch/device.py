@@ -15,3 +15,17 @@ def resolve_device(device=None):
             'CUDA is not available; pass device="cpu" to run the plain '
             'PyTorch path on the CPU')
     return dev
+
+
+def device_from_flags(device=None, platform=None):
+    """The device of a CLI's `--device` and `--platform` flags: --device
+    when given, else --platform ('cpu' -> the CPU; 'gpu' / 'cuda' ->
+    CUDA), else None (CUDA, by `resolve_device`)."""
+    if device is not None or platform is None:
+        return device
+    if platform == 'cpu':
+        return 'cpu'
+    if platform in ('gpu', 'cuda'):
+        return 'cuda'
+    raise ValueError(f'--platform {platform!r}: the port runs on cpu or '
+                     f'gpu / cuda')

@@ -269,7 +269,7 @@ class SceneDreamerGenerator(nn.Module):
                       global_enc, voxel_dims, num_samples=None,
                       sample_depth_clip=None, deterministic=None,
                       sky_avg=None, sky_only=False, baked=None,
-                      generator=None, compact_k=None):
+                      generator=None, compact_k=None, rows=None):
         """Per-pixel rendering pass (`scenedreamer.py:313-430`).
 
         `compact_k`: evaluate the hash field and the RenderMLP on only the
@@ -307,16 +307,28 @@ class SceneDreamerGenerator(nn.Module):
         deterministic = c.coarse_deterministic_sampling \
             if deterministic is None else deterministic
         b, h, w, m = voxel_id.shape
+        nsamples = (num_samples - c.num_blocks_early_stop
+                    if c.sample_use_box_boundaries else num_samples + 1)
+        uniforms = None
+        raydirs_all = raydirs
+        if rows is not None:
+            if compact_k is not None:
+                raise ValueError('compact_k runs on whole images: render '
+                                 'a band of rows without it')
+            uniforms = self._band_draws(rows, (b, h, w, m), nsamples,
+                                        deterministic, depth, generator)
+            voxel_id, depth, hit_mask, raydirs = (
+                x[:, rows] for x in (voxel_id, depth, hit_mask, raydirs))
+            h = voxel_id.shape[1]
 
         with torch.no_grad():
-            nsamples = (num_samples - c.num_blocks_early_stop
-                        if c.sample_use_box_boundaries else num_samples + 1)
             rand_depth, new_dists, new_idx = sample_depth(
                 depth.reshape(b * h * w, m, 2),
                 hit_mask.reshape(b * h * w, m), nsamples,
                 deterministic=deterministic,
                 use_box_boundaries=c.sample_use_box_boundaries,
-                sample_depth_clip=sample_depth_clip, generator=generator)
+                sample_depth_clip=sample_depth_clip, generator=generator,
+                uniforms=uniforms)
             s = rand_depth.shape[-1]
             rand_depth = rand_depth.reshape(b, h, w, s, 1)
             new_dists = new_dists.reshape(b, h, w, s, 1)
@@ -364,9 +376,12 @@ class SceneDreamerGenerator(nn.Module):
                     worldcoord, voxel_dims, global_enc, z, mc_onehot,
                     baked=baked, raydirs_in=raydirs_in)
             if c.raw_noise_std > 0:
-                sigma = sigma + self.sigma_noise(
-                    sigma.shape, sigma.dtype, sigma.device,
-                    generator) * c.raw_noise_std
+                shape = sigma.shape if rows is None else \
+                    (b, raydirs_all.shape[1]) + sigma.shape[2:]
+                noise = self.sigma_noise(shape, sigma.dtype, sigma.device,
+                                         generator)
+                sigma = sigma + (noise if rows is None
+                                 else noise[:, rows]) * c.raw_noise_std
             weights = volume_rendering_relu(
                 sigma, new_dists * c.dists_scale, dim=-2)
             weights = weights * (~sky_only_mask).to(weights.dtype).reshape(
@@ -375,7 +390,10 @@ class SceneDreamerGenerator(nn.Module):
             terrain_sum = (weights * self._clip_feat(feat_c)).sum(
                 dim=-2, keepdim=True)                         # [B,H,W,1,C]
 
-        sky_c = self.sky_color(raydirs, z)                    # [B,H,W,1,C]
+        # [B,H,W,1,C]; a band takes its rows of the whole image's, whose
+        # average the sky-leak suppression uses
+        sky_all = self.sky_color(raydirs_all, z)
+        sky_c = sky_all if rows is None else sky_all[:, rows]
         is_gnd = (worldcoord[..., 0] <= 1.0).any(dim=-1, keepdim=True)
         nosky = (~sky_mask | is_gnd).to(torch.float32)[..., None]
 
@@ -383,9 +401,11 @@ class SceneDreamerGenerator(nn.Module):
         sky_weight = 1.0 - total_w
         if c.keep_sky_out:
             if c.keep_sky_out_avgpool:
-                if sky_avg is None:
-                    sky_avg = sky_c.mean(dim=(1, 2), keepdim=True) \
-                        if c.sky_global_avgpool else _local_sky_avg(sky_c)
+                if sky_avg is None and c.sky_global_avgpool:
+                    sky_avg = sky_all.mean(dim=(1, 2), keepdim=True)
+                elif sky_avg is None:
+                    sky_avg = _local_sky_avg(sky_all)
+                    sky_avg = sky_avg if rows is None else sky_avg[:, rows]
                 sky_c = sky_c * (1.0 - nosky) + sky_avg * nosky
             else:
                 sky_weight = sky_weight * (1.0 - nosky)
@@ -409,6 +429,23 @@ class SceneDreamerGenerator(nn.Module):
             'sky_mask': sky_mask,
             'sky_only_mask': sky_only_mask,
         }
+
+    def _band_draws(self, rows, shape, nsamples, deterministic, depth,
+                    generator):
+        """The uniforms `sample_depth` draws for a whole [B, H, W, M]
+        image, in its order ('samples', then 'boundary'), cut to the band
+        `rows`: a band then takes the draws of its rows in the whole
+        render."""
+        b, h, w, m = shape
+        names = () if deterministic else (('samples', nsamples),)
+        if self.cfg.sample_use_box_boundaries:
+            names += (('boundary', m),)
+        out = {}
+        for name, n in names:
+            u = torch.rand((b * h * w, n), generator=generator,
+                           device=depth.device, dtype=depth.dtype)
+            out[name] = u.reshape(b, h, w, n)[:, rows].reshape(-1, n)
+        return out
 
     def sigma_noise(self, shape, dtype, device, generator=None):
         """Standard normal draws of the density noise (`raw_noise_std`),
@@ -485,7 +522,7 @@ class SceneDreamerGenerator(nn.Module):
         return torch.tanh(raw), raw
 
     def forward(self, data, voxel_dims, random_style=False, pad=None,
-                generator=None, style_eps=None, compact_k=None):
+                generator=None, style_eps=None, compact_k=None, band=None):
         """The training forward (`scenedreamer.py:432-476`).
 
         data (NHWC): voxel_id [B,H,W,M] int; depth [B,H,W,M,2];
@@ -496,6 +533,9 @@ class SceneDreamerGenerator(nn.Module):
         reparameterisation eps first, then the stratified depths);
         style_eps [B, style_dims] replaces the style draws.
         compact_k: `render_pixels`' exact sky-ray compaction.
+        band: a `parallel.mesh.RowBand`: render its rows alone
+        (`render_pixels(rows=...)`) and put the whole feature map
+        together with `band.gather` before the RenderCNN.
 
         Returns dict with fake_images [B, H-pad, W-pad, 3] in [-1, 1],
         fake_images_raw, mu, logvar (None with a random style) and the
@@ -519,8 +559,11 @@ class SceneDreamerGenerator(nn.Module):
         out = self.render_pixels(
             data['voxel_id'], data['depth'], data['hit_mask'],
             data['raydirs'], data['cam_ori'], z, global_enc, voxel_dims,
-            generator=generator, compact_k=compact_k)
-        fake, fake_raw = self.refine(out['net_out'], z)
+            generator=generator, compact_k=compact_k,
+            rows=None if band is None else band.rows)
+        net_out = out['net_out'] if band is None else \
+            band.gather(out['net_out'])
+        fake, fake_raw = self.refine(net_out, z)
         if pad:
             fake = fake[:, pad // 2:-(pad // 2), pad // 2:-(pad // 2), :]
         return {'fake_images': fake, 'fake_images_raw': fake_raw,

@@ -49,14 +49,25 @@ frame i + 1 before it writes frame i's PNG, mp4 frame and depth outputs
 next frame's hit counts first, so what overlaps is frame i's writes with
 frame i + 1's field.
 
+Mesh mode (`mesh`, a list of devices: JAX's mesh over `jax.devices()`,
+`pipeline.py:80-126, 304-364, 683-710`; the CLI's `--mesh_tiles`) runs
+the padded-tile route over several devices from one process: each device
+holds a replica of the generator, and the frame's tiles are dealt to the
+devices in contiguous blocks, the tiles with a hit first, then, with
+`sky_fast`, the pure-sky ones on the sky-only route; each device runs
+its block through the padded-tile program, `tiles_per_batch` tiles a
+call, and the tiles come back to the first device, which holds the
+frame. The DDA, the sky average and the bake run once per frame on the
+first device. Split refine is off in mesh mode, as in JAX.
+
 Not here: `export_tile` (a `torch.export` artifact needs the forward
-kernels registered as `torch.library` ops) and the mesh path
-(`--mesh_tiles`, multi-GPU). JAX's `field_tiles_per_batch` and
-`ray_voxel_intersection(chunk='auto')` have no counterpart: they cut
+kernels registered as `torch.library` ops). JAX's `field_tiles_per_batch`
+and `ray_voxel_intersection(chunk='auto')` have no counterpart: they cut
 dispatches over a remote TPU link and programs that would run for
 minutes; the split path here runs image-row chunks and K1 runs a frame
 in one launch.
 """
+import copy
 import os
 import time
 
@@ -153,8 +164,10 @@ class TiledRenderer:
     defaults to CUDA and raises without it unless 'cpu' is passed.
     `split_refine` None reads SCENEDREAMER_SPLIT_REFINE; `tile_size` and
     `tiles_per_batch` shape the padded-tile route (see the module
-    docstring). `sky_fast`: field chunks, or single padded tiles, where
-    no ray hits skip the field. The environment variables are read here,
+    docstring). `mesh`, a list of devices, deals the padded tiles over
+    them (mesh mode: split refine off; the frame is held on the first,
+    which `device`, when given, must be). `sky_fast`: field chunks, or
+    padded tiles, where no ray hits skip the field. The environment variables are read here,
     in the constructor. `last_stats` holds the last frame's rays, rays
     with a hit and, per route, its chunks or tiles by path and the
     field's rays and points.
@@ -164,9 +177,22 @@ class TiledRenderer:
                  num_blocks_early_stop=6, sample_depth=3.0, pad=30,
                  tile_size=128, resolution_hw=(540, 960),
                  chunk_rays=CHUNK_RAYS, device=None, sky_fast=True,
-                 tiles_per_batch=1, split_refine=None):
+                 tiles_per_batch=1, split_refine=None, mesh=None):
+        self.mesh = None if mesh is None else [resolve_device(d)
+                                               for d in mesh]
+        if self.mesh:
+            if device is not None and resolve_device(device) != \
+                    self.mesh[0]:
+                raise ValueError(f'device {device} is not the mesh\'s '
+                                 f'first device {self.mesh[0]}')
+            device = self.mesh[0]
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        # one generator replica per further device of the mesh
+        self.replicas = {self.device: self.model}
+        for dev in self.mesh or ():
+            if dev not in self.replicas:
+                self.replicas[dev] = copy.deepcopy(self.model).to(dev)
         self.world = world
         self.num_samples = num_samples
         self.m = num_blocks_early_stop
@@ -181,7 +207,7 @@ class TiledRenderer:
         if split_refine is None:
             split_refine = os.environ.get(
                 'SCENEDREAMER_SPLIT_REFINE', '1') == '1'
-        self.split_refine = split_refine
+        self.split_refine = split_refine and not self.mesh
         self.field_compact = os.environ.get(
             'SCENEDREAMER_FIELD_COMPACT', '1') == '1'
         h = self.cam_res[0]
@@ -236,7 +262,8 @@ class TiledRenderer:
                  dep=dep.reshape(1, h, w, self.m, 2),
                  hit=hit.reshape(1, h, w, self.m),
                  raydirs=raydirs.reshape(1, h, w, 3), cam_ori=cam_ori[None],
-                 z=z, generator=generator)
+                 z=z, generator=generator, model=model,
+                 global_enc=self.global_enc)
         f['sky_avg'] = model.sky_color(f['raydirs'], z).mean(
             dim=(1, 2), keepdim=True)
         f['baked'] = model.bake_hash(self.global_enc)
@@ -301,10 +328,10 @@ class TiledRenderer:
         def bcast(a):
             return a.expand((b,) + a.shape[1:])
         baked = None if f['baked'] is None else f['baked'] * b
-        return self.model.render_pixels(
+        return f['model'].render_pixels(
             take(f['vid']), take(f['dep']), take(f['hit']),
             take(f['raydirs']), bcast(f['cam_ori']), bcast(f['z']),
-            bcast(self.global_enc), self.world.dims,
+            bcast(f['global_enc']), self.world.dims,
             num_samples=self.num_samples,
             sample_depth_clip=self.sample_depth, deterministic=True,
             sky_avg=bcast(f['sky_avg']), baked=baked, sky_only=sky_only,
@@ -377,44 +404,96 @@ class TiledRenderer:
 
     def _frame_tiles(self, f, tile_in):
         """Padded-tile frame: field and CNN per stacked batch of tiles,
-        cropped and stitched."""
+        cropped and stitched; in mesh mode the batches of each device's
+        block run on that device's replica."""
         h, w = self.cam_res
         t, tb, p0 = self.tile, self.tiles_per_batch, self.pad // 2
         coords = [(min(y0, h - tile_in), min(x0, w - tile_in))
                   for y0 in range(0, self.res[0], t)
                   for x0 in range(0, self.res[1], t)]
         flags = None
-        if self.sky_fast and tb == 1:
+        if self.sky_fast and (tb == 1 or self.mesh):
             # any hit per tile: one fetch per frame routes pure-sky tiles
             hit_any = f['hit'][0].any(dim=-1)
             flags = torch.stack([hit_any[y0:y0 + tile_in,
                                          x0:x0 + tile_in].any()
                                  for y0, x0 in coords]).tolist()
+        if self.mesh:
+            jobs = self._mesh_jobs(coords, flags)
+        else:
+            jobs = [(self.device, coords[s:s + tb],
+                     flags is not None and not flags[s])
+                    for s in range(0, len(coords), tb)]
         img = torch.empty(self.res + (3,), dtype=torch.float32,
                           device=self.device)
         depth = torch.empty(self.res, dtype=torch.float32,
                             device=self.device)
         stats = dict(rays=h * w, tiles=len(coords), tiles_sky_only=0,
                      batches=0, field_rays=0, field_points=0)
-        for s in range(0, len(coords), tb):
-            group = coords[s:s + tb]
+        frames = {self.device: f}
+        pieces = []
+        for dev, group, sky_only in jobs:
+            if dev not in frames:
+                frames[dev] = self._frame_on(f, dev)
+            fd = frames[dev]
             full = group + [group[-1]] * (tb - len(group))
-            sky_only = flags is not None and not flags[s]
-            out = self._render(f, sky_only=sky_only, coords=full,
+            out = self._render(fd, sky_only=sky_only, coords=full,
                                tile_in=tile_in)
-            tiles, _ = self.model.refine(
-                out['net_out'], f['z'].expand((tb,) + f['z'].shape[1:]))
-            dexp = expected_depth(out)
-            for i, (y0, x0) in enumerate(group):
-                img[y0:y0 + t, x0:x0 + t] = tiles[i, p0:p0 + t, p0:p0 + t]
-                depth[y0:y0 + t, x0:x0 + t] = dexp[i, p0:p0 + t, p0:p0 + t]
+            tiles, _ = fd['model'].refine(
+                out['net_out'], fd['z'].expand((tb,) + fd['z'].shape[1:]))
+            pieces.append((group, tiles, expected_depth(out)))
             stats['batches'] += 1
-            stats['tiles_sky_only'] += int(sky_only)
+            stats['tiles_sky_only'] += len(group) if sky_only else 0
             if not sky_only:
                 stats['field_rays'] += tb * tile_in * tile_in
                 stats['field_points'] += out['rand_depth'][..., 0].numel()
+        # every device's work is queued before the first copy back
+        for group, tiles, dexp in pieces:
+            tiles, dexp = tiles.to(self.device), dexp.to(self.device)
+            for i, (y0, x0) in enumerate(group):
+                img[y0:y0 + t, x0:x0 + t] = tiles[i, p0:p0 + t, p0:p0 + t]
+                depth[y0:y0 + t, x0:x0 + t] = dexp[i, p0:p0 + t, p0:p0 + t]
         self.last_stats = stats
         return img, depth
+
+    def _mesh_jobs(self, coords, flags):
+        """(device, tiles, sky_only) per call of mesh mode: the tiles
+        with a hit, then (with the flags) the pure-sky ones, each group
+        dealt to the mesh's devices in contiguous blocks (JAX shards each
+        group over the mesh), each block cut into calls of
+        `tiles_per_batch`."""
+        groups = [(coords, False)]
+        if flags is not None:
+            groups = [(g, sky) for g, sky in (
+                ([c for c, fl in zip(coords, flags) if fl], False),
+                ([c for c, fl in zip(coords, flags) if not fl], True)) if g]
+        n, tb = len(self.mesh), self.tiles_per_batch
+        jobs = []
+        for group, sky in groups:
+            per = -(-len(group) // n)
+            for i, dev in enumerate(self.mesh):
+                block = group[i * per:(i + 1) * per]
+                jobs += [(dev, block[s:s + tb], sky)
+                         for s in range(0, len(block), tb)]
+        return jobs
+
+    def _frame_on(self, f, dev):
+        """The frame's operands `f` on device `dev`, with its replica."""
+        def move(x):
+            if torch.is_tensor(x):
+                return x.to(dev)
+            if isinstance(x, list):
+                return [move(v) for v in x]
+            if isinstance(x, tuple):               # FoldedTable
+                return type(x)._make(move(v) for v in x)
+            return x
+        out = {k: move(v) for k, v in f.items()
+               if k not in ('model', 'generator')}
+        gen = f['generator']
+        out['generator'] = None if gen is None else torch.Generator(
+            device=dev).manual_seed(gen.initial_seed())
+        out['model'] = self.replicas[dev]
+        return out
 
 
 def render_trajectory(model, world, style, output_dir, camera_mode=0,
@@ -431,18 +510,15 @@ def render_trajectory(model, world, style, output_dir, camera_mode=0,
     first voxel's Minecraft color). Frame i gets a `torch.Generator`
     seeded seed + i. `timings`, a list, receives per frame the seconds
     spent queueing it, waiting for its copy and writing its outputs.
-    Returns the frames as [H, W, 3] uint8."""
-    if mesh is not None:
-        raise NotImplementedError(
-            'tiles over several devices (--mesh_tiles) are not ported: '
-            'ROADMAP.md Queue 1 item 3, multi-GPU')
+    `mesh`, a list of devices: mesh mode (`TiledRenderer`). Returns the
+    frames as [H, W, 3] uint8."""
     renderer = TiledRenderer(model, world, num_samples=num_samples,
                              num_blocks_early_stop=num_blocks_early_stop,
                              sample_depth=sample_depth, pad=pad,
                              tile_size=tile_size,
                              resolution_hw=resolution_hw, device=device,
                              tiles_per_batch=tiles_per_batch,
-                             split_refine=split_refine)
+                             split_refine=split_refine, mesh=mesh)
     output_dir = os.path.join(output_dir, 'rgb_render')
     os.makedirs(output_dir, exist_ok=True)
 

@@ -1,7 +1,7 @@
 """GAN training engine: discriminator and generator updates, in PyTorch.
 
-Counterpart of `scenedreamer_tpu/train/trainer.py` without its mesh and
-shard_map paths (reference `imaginaire/trainers/base.py:676-816`,
+Counterpart of `scenedreamer_tpu/train/trainer.py` (reference
+`imaginaire/trainers/base.py:676-816`,
 `imaginaire/trainers/gancraft.py:158-251`):
   * D update: G forward without gradients, N+1 GAN loss on (fake, real)
     and (fake, pseudo-real), weights gan = pseudo_gan = 0.5; the
@@ -25,7 +25,17 @@ shard_map paths (reference `imaginaire/trainers/base.py:676-816`,
     (`skip_grad_norm`) gradient, which keeps parameters and optimizer
     state, and EMA averaging of G;
   * checkpoints written with `torch.save`, found through the same
-    `latest_checkpoint.txt` pointer.
+    `latest_checkpoint.txt` pointer;
+  * with a `parallel.mesh.Mesh` over several processes, the counterpart
+    of JAX's shard_map data-parallel step and GSPMD row sharding: each
+    update means its gradients and its metrics (the D update also the
+    spectral-norm state) over every rank in one flat all_reduce, after
+    the backward and before the clip and the skip decision, so every
+    rank takes the same decision; each rank renders its band of rows
+    when the mesh has a rays axis (`Mesh.row_band`, see
+    `parallel/mesh.py`). Each rank's draws are its own generator's
+    (JAX folds the data index into the key); the ranks of a rays group
+    must share one batch and one seed.
 
 Batches are dicts of NHWC tensors on the models' device. Each step
 returns its metrics as Python floats (one device sync per update, for
@@ -42,6 +52,7 @@ import os
 
 import torch
 
+from scenedreamer_tpu_torch.parallel.mesh import all_mean_
 from scenedreamer_tpu_torch.train import losses as L
 from scenedreamer_tpu_torch.train import optim
 from scenedreamer_tpu_torch.utils import diff_aug
@@ -128,7 +139,7 @@ class GANTrainer:
 
     def __init__(self, generator, discriminator, voxel_dims,
                  cfg=None, perceptual=None, iters_per_epoch=1000,
-                 d_opt=None):
+                 d_opt=None, mesh=None):
         self.cfg = cfg = cfg if cfg is not None else TrainerConfig()
         diff_aug.parse_policy(cfg.aug_policy)
         self.gen, self.dis = generator, discriminator
@@ -145,12 +156,36 @@ class GANTrainer:
         self.g_ema = {n: p.detach().clone()
                       for n, p in generator.named_parameters()} \
             if cfg.ema_beta > 0 else None
+        # a `parallel.mesh.Mesh` with process groups: the data-parallel
+        # (and row-parallel) step; None or one process: the plain step
+        self.mesh = mesh if mesh is not None and mesh.data_group \
+            is not None else None
 
     # ------------------------------------------------------------------
     def _render(self, batch, generator, style_eps, compact_k=None):
+        band = None if self.mesh is None else \
+            self.mesh.row_band(batch['voxel_id'].shape[1])
         return self.gen(batch, self.voxel_dims, random_style=False,
                         generator=generator, style_eps=style_eps,
-                        compact_k=compact_k)
+                        compact_k=compact_k, band=band)
+
+    def _mean_over_ranks(self, params, metrics, buffers=()):
+        """Mean the gradients of `params`, the `metrics` and `buffers`
+        over every rank of the mesh (JAX's `pmean` over 'data'; under
+        rays the ranks of a group agree on all but the bands' gradients,
+        see `parallel/mesh.py`), in one all_reduce. Missing gradients
+        are zeros."""
+        if self.mesh is None:
+            return
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        names = list(metrics)
+        vals = [torch.as_tensor(metrics[n], dtype=torch.float32,
+                                device=params[0].device).detach().clone()
+                for n in names]
+        all_mean_([p.grad for p in params] + vals + list(buffers))
+        metrics.update(zip(names, vals))
 
     def _aug_draws(self, update, name, x, generator):
         """The DiffAugment draws of D input `name` ('images',
@@ -206,6 +241,7 @@ class GANTrainer:
         self.d_opt.zero_grad()
         loss, m = self._dis_loss(batch, fake.detach(), generator)
         loss.backward()
+        self._mean_over_ranks(self.d_opt.params, m, self.dis.buffers())
         ok, m['dis/grad_norm'] = clip_and_validate(self.d_opt.params,
                                                    self.cfg)
         if ok:
@@ -259,6 +295,7 @@ class GANTrainer:
 
     def _gen_update(self, loss, m):
         loss.backward()
+        self._mean_over_ranks(self.g_opt.params, m)
         ok, m['gen/grad_norm'] = clip_and_validate(self.g_opt.params,
                                                    self.cfg)
         if ok:

@@ -6,14 +6,18 @@ Counterpart of `scenedreamer_tpu/utils/meters.py` (reference
 `metrics.jsonl` sink with the JAX package's record layout
 ({'t', 'step', name: value}) and a tensorboard sink when
 `torch.utils.tensorboard` imports; snapshot images also land as PNG
-files under `<logdir>/images`. One process: the cross-process mean is
-the identity (its `torch.distributed` form comes with multi-GPU
-training).
+files under `<logdir>/images`. Across processes (`torch.distributed`),
+each flush means every meter over the ranks; a writer without a logdir
+takes part in that mean and writes nothing (the ranks other than 0).
 """
 import datetime
 import json
 import os
 import time
+import zlib
+
+import numpy as np
+import torch.distributed as dist
 
 from scenedreamer_tpu_torch.utils.png import write_png
 
@@ -27,8 +31,32 @@ def make_logging_dir(logdir_root, config_name):
 
 
 def _cross_process_mean(names, means):
-    """Mean of the per-process meter means; one process, so `means`."""
-    return means
+    """Mean the per-process meter means across the ranks (JAX
+    `utils/meters.py:29-62`).
+
+    One all_gather of a float64 vector per flush: the CRC32 fingerprint
+    of the name set, then the means (NaN for a meter with no values of
+    its own), reduced with nanmean. Every rank must register the same
+    meter names, or meters would be averaged by index with unrelated
+    ones: differing fingerprints raise. The vectors go as objects, so a
+    rank with more names raises too instead of breaking the collective.
+    Returns plain Python floats; one process returns `means`."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return means
+    fp = float(zlib.crc32('\x00'.join(names).encode()))
+    vec = np.asarray([fp] + [means.get(n, np.nan) for n in names],
+                     np.float64)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, vec)
+    if not all(len(v) == len(vec) and v[0] == fp for v in every):
+        raise RuntimeError(
+            'meter name sets diverge across processes; register the '
+            'same meters on every rank (rank-local metrics must be '
+            'flushed through a separate writer)')
+    with np.errstate(invalid='ignore'):
+        red = np.nanmean(np.stack(every)[:, 1:], axis=0)
+    return {n: float(red[i]) for i, n in enumerate(names)
+            if red[i] == red[i]}
 
 
 class Meter:
@@ -58,20 +86,23 @@ class Meter:
 
 class MetricsWriter:
     """jsonl + optional tensorboard sinks with meter reduction on
-    flush."""
+    flush. `logdir` None keeps no sink: the writer only takes part in the
+    cross-process mean."""
 
     def __init__(self, logdir, use_tensorboard=True):
         self.logdir = logdir
+        self._jsonl = self._tb = None
+        self._meters = {}
+        if logdir is None:
+            return
         os.makedirs(logdir, exist_ok=True)
         self._jsonl = open(os.path.join(logdir, 'metrics.jsonl'), 'a')
-        self._tb = None
         if use_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self._tb = SummaryWriter(logdir)
             except ImportError:
                 self._tb = None
-        self._meters = {}
 
     def meter(self, name):
         if name not in self._meters:
@@ -79,6 +110,8 @@ class MetricsWriter:
         return self._meters[name]
 
     def scalar(self, name, value, step):
+        if self._jsonl is None:
+            return
         self._jsonl.write(json.dumps(
             {'t': time.time(), 'step': int(step), name: value}) + '\n')
         self._jsonl.flush()
@@ -86,6 +119,8 @@ class MetricsWriter:
             self._tb.add_scalar(name, value, step)
 
     def image(self, name, img_uint8_hwc, step):
+        if self.logdir is None:
+            return
         out = os.path.join(self.logdir, 'images')
         os.makedirs(out, exist_ok=True)
         write_png(os.path.join(
@@ -108,6 +143,7 @@ class MetricsWriter:
             self.scalar(n, v, step)
 
     def close(self):
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

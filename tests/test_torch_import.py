@@ -99,11 +99,12 @@ def test_entry_points_default_to_cuda(tmp_path):
       '--style2', 'seed:1', '--tiles_per_batch', '2', '--tile_size', '64',
       '--fps', '5'], RuntimeError),
     (['--platform', 'tpu'], ValueError),
-    (['--mesh_tiles', '--device', 'cpu'], NotImplementedError)])
+    (['--mesh_tiles'], RuntimeError)])
 def test_inference_flags_follow_the_device_rule(tmp_path, flags, raises):
     """The inference CLI's flags go through the device rule before any
     work: `--platform gpu` / `cuda` means CUDA (absent here), another
-    platform is refused, and `--mesh_tiles` (multi-GPU) is not ported."""
+    platform is refused, and `--mesh_tiles` (every visible GPU) needs
+    CUDA like the default device."""
     if torch.cuda.is_available():
         pytest.skip('CUDA present: the default device is usable')
     from scenedreamer_tpu_torch.cli import inference
