@@ -172,6 +172,31 @@ of the repository. Phases, each fatal on failure:
      from 12 to 16, the same 24 in float32, the median and spread of
      s/iteration over iterations 5-24 of each.
 
+ 14. multi-GPU ('[multi ...]' lines): the training CLI through torchrun
+     at world size 1 over NCCL against the same CLI in one process; two
+     ranks sharing the card over gloo (data 2 and rays 2) against one
+     process's step; mesh-mode serving over [cuda:0].
+
+ 15. SPADE oracle training ('[train spade ...]' lines), at the
+     configs/landscape1m.yaml width (G 128 filters, style 256, style
+     encoder 64, 184 labels, out 512; D 2 scales x 5 layers, 128 -> 512
+     filters, spectral norm; VGG19 perceptual, random-init; EMA from
+     iteration 1) on 8 synthetic 512x512 PNG pairs through the yaml's
+     augmentations: two gloo ranks sharing the card, batch 2 each with
+     the batch norms synced, their metrics and G's running statistics
+     after one step against one process's batch-4 step (`SYNC_*`); the
+     batch-4 crop-512 step (or the largest batch that fits, said so):
+     s/iteration (median of 3 after the first), peak GB, the device's
+     idle share under `torch.profiler`; one step at a small width on
+     the card against the CPU (`CARD_CPU_*`); `cli.train_spade.main` for
+     2 iterations, and for 1 then `--resume` to 2 with cuDNN's
+     deterministic algorithms, the resumed state held to the straight
+     run's; the same CLI through torchrun at world size 1 over NCCL; no
+     K1-K5 launch in any of it; the straight run folded into
+     `cli.train`'s oracle, its image within 1e-5 of the trainer's eval
+     `generate`, and `cli.train.main --spade-checkpoint <run>` for one
+     iteration on phase 9's xor yaml.
+
 Then the total time, one `kernels` JSON line covering K1-K5 (K4a also
 at the serving chunk, under `at_serving_chunk`; K5b's whole launch there
 under `serving_chunk_ms`; every row with its launches per padded-tile
@@ -2400,18 +2425,19 @@ def run_session(cmd, timeout, **kw):
     return subprocess.CompletedProcess(cmd, p.returncode, out, err)
 
 
-def torchrun_cli(argv, nproc=1, timeout=900):
-    """`cli.train.main(argv)` through `torch.distributed.run
+def torchrun_cli(argv, nproc=1, timeout=900, worker='cli'):
+    """`cli.train.main(argv)` (or, with worker 'spade_cli',
+    `cli.train_spade.main(argv)`) through `torch.distributed.run
     --nproc_per_node <nproc>` (env:// rendezvous, NCCL; at 1, world size
-    1) in children of this script (`--worker cli`): (their output, each
-    rank's launch counts, the run's log directory, its metrics,
+    1) in children of this script (`--worker <worker>`): (their output,
+    each rank's launch counts, the run's log directory, its metrics,
     seconds)."""
     import glob
     logs = argv[argv.index('--logdir') + 1]
     before = set(glob.glob(os.path.join(logs, '*')))
     cmd = [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node',
            str(nproc), '--master_port', str(_free_port()),
-           os.path.abspath(__file__), '--worker', 'cli'] + argv
+           os.path.abspath(__file__), '--worker', worker] + argv
     t0 = time.time()
     res = run_session(cmd, timeout, cwd=REPO,
                       env=dict(os.environ, PYTHONPATH=REPO))
@@ -2691,22 +2717,458 @@ def multi_gpu(torch, kernels, world, style, pose, tile_img, loop, rest, dev):
                 rays_counts=steps['rays']['counts'])
 
 
+# phase 15: SPADE oracle training ------------------------------------------
+SPADE_YAML = os.path.join(REPO, 'configs', 'landscape1m.yaml')
+SPADE_CROP, SPADE_BATCH = 512, 4        # configs/landscape1m.yaml
+SPADE_STEPS = 3                         # timed steps after the first
+SPADE_CLI_ITERS = 2
+# two gloo ranks' batch-2 steps against one process's batch-4 step: the
+# CPU test's tolerance, JAX's own for its sync batch norm
+# (tests/test_parallel.py:141)
+SYNC_RTOL, SYNC_ATOL = 2e-4, 1e-5
+# the card's step against the CPU's at a small width, TF32 off: float32
+# convs summed in another order (cuDNN, oneDNN) through ~40 layers and
+# their backward; parameters within 2 lr + 1e-6 (Adam with beta1 = 0
+# moves each element by about +-lr, so a near-zero gradient's sign can
+# flip) and within 1e-5 on all but 1% of the elements
+CARD_CPU_RTOL, CARD_CPU_STAT_ATOL = 1e-4, 1e-4
+SPADE_SMALL = ['--num-filters', '8', '--spade-filters', '8', '--style-dims',
+               '16', '--style-enc-filters', '8', '--dis-filters', '8',
+               '--out-size', '256']
+
+
+def spade_data():
+    """Phase 15's inputs under smoke_out/spade: 8 synthetic 512x512 PNG
+    pairs (184 labels with the dont-care) and configs/landscape1m.yaml
+    logging every iteration, a snapshot at 2 and the EMA from iteration
+    1 (`landscape1m_smoke.yaml`; every width as the yaml's)."""
+    import yaml
+    from scenedreamer_tpu_torch.data.synthetic import make_paired_folder
+    root = os.path.join(REPO, 'smoke_out', 'spade')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    make_paired_folder(os.path.join(root, 'data'), n=8, size=SPADE_CROP,
+                       seed=SEED)
+    with open(SPADE_YAML) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(logging_iter=1, image_save_iter=2)
+    cfg['trainer']['model_average_config']['start_iteration'] = 1
+    cfg['data']['num_workers'] = 2
+    path = os.path.join(root, 'landscape1m_smoke.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    return root, path
+
+
+def spade_trainer(torch, yaml_path, dev, mesh=None, extra=(), crop=None):
+    """`cli.train_spade.build_trainer` on `yaml_path` with the CLI's
+    defaults and `extra` flags (seed SEED)."""
+    from scenedreamer_tpu_torch.cli import train_spade as ts
+    from scenedreamer_tpu_torch.utils.config import Config
+    args = ts._parser().parse_args(['--data-root', '-', '--seed', str(SEED)]
+                                   + list(extra))
+    return ts.build_trainer(Config(yaml_path), args, dev, 1000,
+                            crop or SPADE_CROP, mesh)
+
+
+def spade_batch(torch, root, yaml_path, b, dev):
+    """`b` items through the CLI's dataset and the yaml's augmentations
+    (resize 512, scale limit 0.2, flip, crop 512), and the D and G
+    updates' style eps from seed SEED."""
+    from scenedreamer_tpu_torch.cli import train_spade as ts
+    from scenedreamer_tpu_torch.data.paired_dataset import (
+        DataLoader, PairedImageDataset)
+    from scenedreamer_tpu_torch.utils.config import Config
+    aug, _ = ts.augment_and_crop(Config(yaml_path))
+    data = next(iter(DataLoader(PairedImageDataset(
+        os.path.join(root, 'data'), augment=aug), b, seed=SEED)))
+    batch = {k: torch.from_numpy(data[k]).to(dev)
+             for k in ('images', 'label')}
+    g = torch.Generator().manual_seed(SEED)
+    eps = tuple(torch.randn((b, 256), generator=g).to(dev) for _ in range(2))
+    return batch, eps
+
+
+def _params_close(got, want, lr):
+    """(max abs diff, share of elements beyond 1e-5) over the float
+    entries of two state dicts that are not running statistics."""
+    worst, far, total = 0.0, 0, 0
+    for k, v in want.items():
+        if 'running' in k or not v.is_floating_point():
+            continue
+        d = (got[k].float().cpu() - v.float().cpu()).abs()
+        worst = max(worst, float(d.max()))
+        far += int((d > 1e-5).sum())
+        total += d.numel()
+    return worst, far / max(total, 1)
+
+
+def device_busy_s(torch, prof):
+    """Seconds in which the device ran at least one kernel or copy of a
+    `torch.profiler` trace: the union of its CUDA events' intervals (a
+    sum would count the overlap of concurrent kernels twice)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e6
+
+
+def spade_flagship(torch, yaml_path, root, dev):
+    """Phase 15 (a): the landscape1m trainer (G 128 filters, style 256,
+    encoder 64, 184 labels, out 512; D 2 x 5 layers 128 -> 512; VGG19
+    perceptual) at batch 4 on crop 512, or the largest batch that fits:
+    the first step from the seeded init (the gloo ranks' reference), then
+    SPADE_STEPS timed steps and one under `torch.profiler`."""
+    for b in (SPADE_BATCH, SPADE_BATCH // 2, 1):
+        tr = None
+        try:
+            tr = spade_trainer(torch, yaml_path, dev)
+            batch, eps = spade_batch(torch, root, yaml_path, b, dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = {k: v.clone() for k, v in tr.gen.state_dict().items()}
+            m0 = tr.train_step(batch, style_eps=eps)
+            break
+        except torch.cuda.OutOfMemoryError:
+            log(f'[train spade] batch {b} at crop {SPADE_CROP} does not fit '
+                'one card; trying a smaller batch')
+            del tr
+            torch.cuda.empty_cache()
+    assert all(math.isfinite(v) for v in m0.values()), m0
+    ref = dict(metrics=m0, stats={k: v.cpu() for k, v in
+                                  tr.gen.state_dict().items()
+                                  if 'running' in k})
+    moved = {k: float((v - before[k]).abs().max())
+             for k, v in tr.gen.state_dict().items()}
+    assert min(moved[k] for k in moved if 'running' in k) > 0, \
+        'a batch norm kept its running statistics'
+    assert moved['spade_generator.head_0.layers.conv.weight'] > 0
+    times = []
+    for i in range(SPADE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch, torch.Generator(device=dev).manual_seed(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        assert all(math.isfinite(v) for v in m.values()), m
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(batch, torch.Generator(device=dev).manual_seed(9))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = device_busy_s(torch, prof)
+    spi = statistics.median(times)
+    log(f'[train spade] landscape1m width, batch {b} at crop {SPADE_CROP}: '
+        f'{spi:.3f} s/iteration (median of {SPADE_STEPS} after the first; '
+        f'{[round(t, 3) for t in times]}), peak {peak:.1f} GB, {b / spi:.2f} '
+        f'images/s; profiled step {wall:.3f} s, device busy {busy:.3f} s, '
+        f'idle share {1 - busy / wall:.3f}; first step G '
+        f"{m0['gen/total']:.4f} D {m0['dis/total']:.4f}")
+    ema_gap = max(float((tr.g_ema[n] - p.detach()).abs().max())
+                  for n, p in tr.gen.named_parameters())
+    assert ema_gap > 0, 'the EMA did not lag the parameters'
+    out = dict(batch=b, s_per_iter=spi, times=times, peak_gb=peak,
+               idle=1 - busy / wall, ref=ref)
+    del tr, batch, eps, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def spade_ranks(torch, yaml_path, root, dev):
+    """Phase 15 (d): two ranks sharing the card over gloo, each with 2 of
+    the batch's 4 items and its rows of the style draws, the batch norms
+    synced over the pair; their metrics and G's running statistics after
+    one step (held against phase 15 (a)'s batch-4 step by the caller)."""
+    work = os.path.join(root, 'ranks')
+    os.makedirs(work)
+    batch, eps = spade_batch(torch, root, yaml_path, SPADE_BATCH,
+                             torch.device('cpu'))
+    torch.save(dict(batch=batch, eps=eps, yaml=yaml_path),
+               os.path.join(work, 'inputs.pt'))
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = _spawn_step_ranks('spade', work)
+    log(f'[train spade dp] two ranks sharing one card over gloo (not a '
+        f'scaling number), batch 2 each, sync batch norm: step '
+        f'{ranks[0]["step_s"]:.3f} / {ranks[1]["step_s"]:.3f} s (warm-up '
+        f'included), peak {ranks[0]["peak_gb"]:.1f} / '
+        f'{ranks[1]["peak_gb"]:.1f} GB; {time.time() - t0:.1f} s with '
+        f'process start and set-up')
+    assert ranks[0]['metrics'] == ranks[1]['metrics']
+    for k, v in ranks[0]['stats'].items():
+        assert torch.equal(v, ranks[1]['stats'][k]), k
+    shutil.rmtree(work)
+    return ranks[0]
+
+
+def hold_sync(torch, rank, ref, b):
+    if b != SPADE_BATCH:
+        log(f'[train spade dp] not held: the one-process step ran at batch '
+            f'{b}')
+        return None
+    mrel = max(abs(rank['metrics'][k] - v) / max(abs(v), 1e-12)
+               for k, v in ref['metrics'].items())
+    worst = 0.0
+    for k, v in ref['stats'].items():
+        d = (rank['stats'][k] - v).abs()
+        worst = max(worst, float((d - SYNC_RTOL * v.abs()).max()))
+        assert bool((d <= SYNC_ATOL + SYNC_RTOL * v.abs()).all()), k
+    for k, v in ref['metrics'].items():
+        assert abs(rank['metrics'][k] - v) <= SYNC_ATOL + SYNC_RTOL * abs(v), k
+    log(f'[train spade dp] against one process\'s batch-4 step: metrics max '
+        f'rel diff {mrel:.3g}, G running statistics within rtol {SYNC_RTOL} '
+        f'+ atol {SYNC_ATOL} (largest excess over the rtol part '
+        f'{worst:.3g})')
+    return mrel
+
+
+def spade_card_vs_cpu(torch, yaml_path, dev):
+    """Phase 15 (f): one step at a small width (8 filters, style 16, D 8
+    filters x 2 x 5 layers, VGG19 perceptual, 184 labels, crop 128, batch
+    2) on the card and on the CPU from the same seeded weights, batch and
+    draws."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    label = np.eye(184, dtype=np.float32)[rng.integers(0, 184, (2, 128,
+                                                               128))]
+    images = rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32)
+    g = torch.Generator().manual_seed(SEED)
+    eps = tuple(torch.randn((2, 16), generator=g) for _ in range(2))
+    out = []
+    for d in (torch.device('cpu'), dev):
+        tr = spade_trainer(torch, yaml_path, d, extra=SPADE_SMALL, crop=128)
+        batch = {'label': torch.from_numpy(label).to(d),
+                 'images': torch.from_numpy(images).to(d)}
+        m = tr.train_step(batch, style_eps=tuple(e.to(d) for e in eps))
+        out.append((m, {k: v.cpu() for k, v in tr.gen.state_dict().items()},
+                    {k: v.cpu() for k, v in tr.dis.state_dict().items()}))
+        del tr
+    (mc, gc_, dc), (mg, gg, dg) = out
+    mrel = max(abs(mg[k] - v) / max(abs(v), 1e-12) for k, v in mc.items())
+    srel = max(float((gg[k] - v).abs().max()) for k, v in gc_.items()
+               if 'running' in k)
+    gmax, gfar = _params_close(gg, gc_, 1e-4)
+    dmax, dfar = _params_close(dg, dc, 4e-4)
+    log(f'[train spade card] one small-width step on the card against the '
+        f'CPU: metrics max rel diff {mrel:.3g} (tolerance {CARD_CPU_RTOL}), '
+        f'running statistics max abs diff {srel:.3g} '
+        f'({CARD_CPU_STAT_ATOL}), G parameters max abs diff {gmax:.3g} '
+        f'({gfar:.3g} beyond 1e-5), D {dmax:.3g} ({dfar:.3g}); bounds 2 lr '
+        f'+ 1e-6 and 1%')
+    assert mrel <= CARD_CPU_RTOL and srel <= CARD_CPU_STAT_ATOL
+    assert gmax <= 2e-4 + 1e-6 and dmax <= 8e-4 + 1e-6
+    assert gfar <= 0.01 and dfar <= 0.01
+    return dict(metrics_rel=mrel, stats_abs=srel, g=gmax, d=dmax)
+
+
+def _spade_state(path):
+    import torch
+    return torch.load(os.path.join(path, 'checkpoints',
+                                   f'step_{SPADE_CLI_ITERS:08d}.pt'),
+                      map_location='cpu', weights_only=True)
+
+
+def spade_cli(torch, yaml_path, root, dev):
+    """Phase 15 (b), (c): `cli.train_spade.main` for SPADE_CLI_ITERS
+    iterations, and for 1 then `--resume` to SPADE_CLI_ITERS, in this
+    process with cuDNN's deterministic algorithms (the resumed state is
+    held to the straight run's); then the same CLI through torchrun at
+    world size 1 over NCCL, its meters against the straight run's."""
+    import contextlib
+    import glob
+    from scenedreamer_tpu_torch.cli import train_spade as ts
+
+    def argv(logs, iters, *extra):
+        return ['--config', yaml_path, '--data-root',
+                os.path.join(root, 'data'), '--logdir',
+                os.path.join(root, logs), '--seed', str(SEED), '--max-iter',
+                str(iters), *extra]
+
+    def run(*a):
+        tee = _Tee(sys.stdout)
+        t0 = time.time()
+        with contextlib.redirect_stdout(tee):
+            tr = ts.main(argv(*a))
+        torch.cuda.synchronize()
+        return tr, tee.text(), time.time() - t0
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight, _, secs = run('straight', SPADE_CLI_ITERS)
+        first, _, _ = run('resumed', 1)
+        del first
+        torch.cuda.empty_cache()
+        time.sleep(1.1)
+        resumed, text, _ = run('resumed', SPADE_CLI_ITERS, '--resume')
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert f'resumed at iteration 1' in text, text[-2000:]
+    (straight_dir,) = glob.glob(os.path.join(root, 'straight', '*'))
+    a, b = straight.state_dict(), resumed.state_dict()
+    worst, exact = 0.0, True
+    for part in ('generator', 'discriminator', 'g_ema'):
+        for k, v in a[part].items():
+            d = float((v.float() - b[part][k].float()).abs().max())
+            worst, exact = max(worst, d), exact and d == 0
+    assert a['step'] == b['step'] == SPADE_CLI_ITERS
+    assert a['g_opt']['count'] == b['g_opt']['count'] == SPADE_CLI_ITERS
+    series = _read_series(straight_dir)
+    snaps = glob.glob(os.path.join(straight_dir, 'images', '*.png'))
+    log(f'[train spade cli] {SPADE_CLI_ITERS} iterations in {secs:.1f} s '
+        f'(set-up included; landscape1m yaml, batch {SPADE_BATCH}, crop '
+        f'{SPADE_CROP}, the yaml\'s augmentations), {len(snaps)} snapshot(s); '
+        f'1 + resume to {SPADE_CLI_ITERS}: state max abs diff from the '
+        f'straight run {worst:.3g} (bit-equal: {exact}; bound 2 lr + 1e-6, '
+        f'lr 4e-4)')
+    assert worst <= 8e-4 + 1e-6, 'the resumed run differs'
+    assert len(snaps) == 1
+    for name, points in series.items():
+        assert all(math.isfinite(v) for _, v in points), name
+    text, (counts,), _, dist_series, dist_secs = torchrun_cli(
+        argv('nccl', SPADE_CLI_ITERS), worker='spade_cli')
+    assert 'rank 0 of 1 (nccl)' in text, 'the SPADE CLI did not run on NCCL'
+    d, name, st = _meter_distance(dist_series, series,
+                                  range(1, SPADE_CLI_ITERS + 1))
+    log(f'[train spade cli] torchrun --nproc_per_node 1 (NCCL, world 1): '
+        f'{dist_secs:.1f} s with process start; meters max rel diff from the '
+        f'one-process run {d:.3g} ({name} at {st}; tolerance {CLI_TOL}); '
+        f'launches {counts}')
+    assert d <= CLI_TOL, 'the NCCL SPADE run differs'
+    assert not any(counts.values()), 'the SPADE CLI launched a K1-K5 kernel'
+    del resumed
+    torch.cuda.empty_cache()
+    return straight, straight_dir, dict(resume_diff=worst, exact=exact,
+                                        nccl_rel=d, cli_s=secs)
+
+
+def spade_fold(torch, kernels, straight, run_dir, loop, dev):
+    """Phase 15 (e): the trained run folded into the frozen oracle of
+    `cli.train` (`_load_spade_oracle`, float32): its image against the
+    trainer's eval `generate` (EMA parameters) with the same random
+    style, within 1e-5; then `cli.train.main --spade-checkpoint <run>`
+    for one iteration on phase 9's xor yaml, cache and pairs."""
+    import argparse
+    from scenedreamer_tpu_torch.cli import train as cli
+    args = argparse.Namespace(spade_checkpoint=run_dir, spade_size=512,
+                              spade_res=SPADE_CROP, spade_filters=128,
+                              spade_oracle_f32=True)
+    oracle = cli._load_spade_oracle(args, dev)
+    rng = torch.Generator().manual_seed(SEED)
+    idx = torch.randint(0, 184, (2, SPADE_CROP, SPADE_CROP), generator=rng)
+    masks = torch.nn.functional.one_hot(idx, 185).float().to(dev)
+    got = oracle(masks, torch.Generator(device=dev).manual_seed(SEED))
+    want = straight.generate({'label': masks[..., :-1]},
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(SEED))
+    err = float((got - want['fake_images']).abs().max())
+    log(f'[train spade fold] the folded oracle against the trainer\'s eval '
+        f'generate (EMA parameters, random style): max abs diff {err:.3g} '
+        f'(tolerance 1e-5)')
+    assert err <= 1e-5, 'the folded oracle differs from generate'
+    del oracle, got, want, masks
+    torch.cuda.empty_cache()
+    lroot = os.path.join(REPO, 'smoke_out', 'loop')
+    text, counts, logdir, series, secs, _ = _run_cli(torch, kernels, [
+        '--config', loop['xor_yaml'], '--data-root',
+        os.path.join(lroot, 'data'), '--terrain-cache',
+        os.path.join(lroot, 'cache'), '--logdir',
+        os.path.join(lroot, 'logs_spade_fold'), '--seed', str(SEED),
+        '--max-iter', '1', '--spade-checkpoint', run_dir])
+    assert 'loaded SPADE oracle weights' in text
+    for name, points in series.items():
+        assert all(math.isfinite(v) for _, v in points), name
+    log(f'[train spade fold] cli.train --spade-checkpoint <train_spade run>: '
+        f'1 iteration in {secs:.1f} s (set-up included), G '
+        f"{series['gen/total'][-1][1]:.4f}")
+    shutil.rmtree(os.path.join(lroot, 'logs_spade_fold'))
+    return err
+
+
+def spade_training(torch, kernels, loop, dev):
+    """Phase 15: SPADE oracle training at the landscape1m width."""
+    t_phase = time.time()
+    root, yaml_path = spade_data()
+    kernels.reset_launch_counts()
+    rank = spade_ranks(torch, yaml_path, root, dev)
+    flag = spade_flagship(torch, yaml_path, root, dev)
+    sync = hold_sync(torch, rank, flag['ref'], flag['batch'])
+    card = spade_card_vs_cpu(torch, yaml_path, dev)
+    straight, run_dir, cli = spade_cli(torch, yaml_path, root, dev)
+    counts = kernels.launch_counts()
+    assert not any(counts.values()), \
+        f'SPADE training launched K1-K5 kernels: {counts}'
+    log(f'[train spade] no K1-K5 launch in the SPADE runs: {counts}')
+    fold = spade_fold(torch, kernels, straight, run_dir, loop, dev)
+    del straight
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    log(f'[train spade] phase 15 in {time.time() - t_phase:.1f} s')
+    return dict(flagship={k: v for k, v in flag.items() if k != 'ref'},
+                sync_rel=sync, card=card, cli=cli, fold_err=fold)
+
+
+def spade_worker(torch, work):
+    """One rank of phase 15 (d): the landscape1m trainer on a data=2 mesh
+    over gloo, one `train_step` on its half of the batch with its rows
+    of the style draws; writes `<work>/rank<r>.pt`."""
+    from scenedreamer_tpu_torch.parallel import mesh as pm
+    rank, _ = pm.init_distributed('cuda', backend='gloo')
+    dev = torch.device('cuda')
+    inp = torch.load(os.path.join(work, 'inputs.pt'), weights_only=False)
+    mesh = pm.make_mesh()
+    tr = spade_trainer(torch, inp['yaml'], dev, mesh=mesh)
+    pm.replicate(tr.gen)
+    pm.replicate(tr.dis)
+    n = inp['batch']['label'].shape[0] // 2
+    rows = slice(rank * n, (rank + 1) * n)
+    batch = {k: v[rows].to(dev) for k, v in inp['batch'].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    metrics = tr.train_step(batch, style_eps=tuple(e[rows].to(dev)
+                                                   for e in inp['eps']))
+    torch.cuda.synchronize()
+    torch.save(dict(metrics=metrics, step_s=time.time() - t0,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    stats={k: v.cpu() for k, v in tr.gen.state_dict().items()
+                           if 'running' in k}),
+               os.path.join(work, f'rank{rank}.pt'))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def worker(args):
-    """A child of phase 14: `cli <argv>` runs `cli.train.main(argv)` (under
-    torchrun) and prints its launch counts; `step dp|rays <dir>` is one
-    rank of two (env:// rendezvous over gloo on this card) taking one
-    `train_step_shared` and writing `<dir>/rank<r>.pt`."""
+    """A child of phase 14 or 15: `cli <argv>` / `spade_cli <argv>` runs
+    `cli.train.main(argv)` / `cli.train_spade.main(argv)` (under torchrun)
+    and prints its launch counts; `step dp|rays|spade <dir>` is one rank
+    of two (env:// rendezvous over gloo on this card) taking one
+    `train_step_shared` (SPADE: `train_step`) and writing
+    `<dir>/rank<r>.pt`."""
     import torch
     sys.path.insert(0, REPO)
     from scenedreamer_tpu_torch import kernels
     float32_exact(torch)
-    if args[0] == 'cli':
-        from scenedreamer_tpu_torch.cli import train as cli
+    if args[0] in ('cli', 'spade_cli'):
+        if args[0] == 'cli':
+            from scenedreamer_tpu_torch.cli import train as cli
+        else:
+            from scenedreamer_tpu_torch.cli import train_spade as cli
+            # as phase 15's one-process runs
+            torch.backends.cudnn.deterministic = True
         kernels.reset_launch_counts()
         cli.main(args[1:])
         torch.cuda.synchronize()
         log('[worker] launches ' + json.dumps(kernels.launch_counts()))
         return 0
+    if args[1] == 'spade':
+        return spade_worker(torch, args[2])
     from scenedreamer_tpu_torch.models.generator import GeneratorConfig
     from scenedreamer_tpu_torch.parallel import mesh as pm
     kind, work = args[1], args[2]
@@ -3238,6 +3700,9 @@ def main():
     multi = multi_gpu(torch, kernels, world, style, ctl[0], padded['img'],
                       loop, rest, dev)
 
+    # 15. SPADE oracle training ------------------------------------------------
+    spade_training(torch, kernels, loop, dev)
+
     table_rows = kernel_rows(serving, k3, k3_split, train, k5, k5_split,
                              k5b, loop) \
         + general_rows(k4, k4_split, (int(chunk_n), *k4c), urender, ustep,
@@ -3258,7 +3723,7 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
-    log(f'[smoke] phases 1-14 in {time.time() - t_start:.1f} s')
+    log(f'[smoke] phases 1-15 in {time.time() - t_start:.1f} s')
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -69,9 +69,11 @@ from scenedreamer_tpu_torch.train.sampling import (CameraBatchSampler,
                                                    PseudoGTGenerator,
                                                    TrainingBatchBuilder)
 from scenedreamer_tpu_torch.train.trainer import (GANTrainer, TrainerConfig,
+                                                  latest_checkpoint,
                                                   load_checkpoint,
                                                   save_checkpoint,
                                                   split_generator)
+from scenedreamer_tpu_torch.utils.convert import spade_frozen_from_trained
 from scenedreamer_tpu_torch.utils.config import Config
 from scenedreamer_tpu_torch.utils.meters import (MetricsWriter,
                                                  make_logging_dir)
@@ -215,16 +217,29 @@ def _load_spade_oracle(args, device):
     (label one-hot [B, R, R, 185], torch generator) -> image [B, R, R, 3].
     184 labels: the pseudo-GT one-hot is 185-ch but the oracle consumes
     label[..., :-1] exactly like the reference
-    (`trainers/gancraft.py:53`). Weights are a state dict of
-    `models/spade.SPADEWrapper` saved with `torch.save`
-    (`--spade-checkpoint`), else a seeded random init. `args` needs
-    spade_checkpoint / spade_size / spade_res / spade_filters /
-    spade_oracle_f32."""
+    (`trainers/gancraft.py:53`). `--spade-checkpoint` is a state dict of
+    the frozen `models/spade.SPADEWrapper` saved with `torch.save`, or a
+    `cli.train_spade` run: its run directory, its checkpoints directory
+    or one of its checkpoints, folded into the frozen layout (the EMA
+    parameters when kept; JAX `cli/train.py:189-227`); without it, a
+    seeded random init. `args` needs spade_checkpoint / spade_size /
+    spade_res / spade_filters / spade_oracle_f32."""
     sd = None
     nf, sf, zd = args.spade_filters, 128, 256
     if args.spade_checkpoint:
-        sd = torch.load(args.spade_checkpoint, map_location='cpu',
-                        weights_only=True)
+        path = args.spade_checkpoint
+        if os.path.isdir(path):
+            # a train_spade run dir (its pointer under checkpoints/) or
+            # the checkpoints dir itself
+            path = (latest_checkpoint(path)
+                    or latest_checkpoint(os.path.join(path, 'checkpoints')))
+            if path is None:
+                raise SystemExit(f'--spade-checkpoint {args.spade_checkpoint}'
+                                 ': no checkpoint found there')
+        sd = torch.load(path, map_location='cpu', weights_only=True)
+        if 'generator' in sd and 'step' in sd:
+            # a cli.train_spade checkpoint: freeze the trained oracle
+            sd = spade_frozen_from_trained(sd)
         head = sd['spade_generator.head_0.layers.conv.weight']
         if head.shape[1] != 184:
             raise SystemExit(

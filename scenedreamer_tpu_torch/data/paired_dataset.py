@@ -18,7 +18,12 @@ label.py:8-41` make_one_hot / concat_labels):
 Host side by design: decode and augment are CPU work that feeds the
 training step; the training CLI moves each batch to the device.
 
-Resizing uses torch on CPU tensors and numpy index maps, not OpenCV:
+The augmentations are written without OpenCV (absent where the port
+runs): `data/image_ops.py` holds the numpy counterparts of its warps,
+filters and JPEG round trip, and the Augmentor draws from its numpy
+generator in exactly the JAX package's order, the draws of an op that
+its probability then skips included. Resizing uses torch on CPU tensors
+and numpy index maps:
 bilinear with half-pixel centres and no antialiasing, rounded to uint8
 (= `cv2.INTER_LINEAR` up to its fixed-point rounding, one uint8 level),
 and nearest with source index floor(dst * in/out) (`cv2.INTER_NEAREST`).
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from scenedreamer_tpu_torch.data import image_ops
 from scenedreamer_tpu_torch.utils.png import read_png
 
 
@@ -104,29 +110,33 @@ def resize_nearest(seg, nh, nw):
     return seg[index(h, nh)][:, index(w, nw)]
 
 
-_OPS = ('resize_smallest_side', 'resize_h_w', 'random_scale_limit',
-        'random_crop_h_w', 'center_crop_h_w', 'horizontal_flip')
+_OPS = ('resize_smallest_side', 'resize_h_w', 'random_resize_h_w_aspect',
+        'rotate', 'random_rotate_90', 'random_scale_limit',
+        'random_crop_h_w', 'center_crop_h_w', 'horizontal_flip', 'contrast',
+        'blur', 'gamma', 'motion_blur', 'compression', 'max_time_step')
 
 
 class Augmentor:
-    """Joint image+mask augmentation pipeline with the ops the shipped
-    configs use (reference `utils/data.py:93-175`): resize_smallest_side,
-    resize_h_w, random_scale_limit (a scalar: factor in [1, 1+limit]),
-    random_crop_h_w, center_crop_h_w, horizontal_flip. Ops apply in dict
-    order like the yaml, jointly to image (linear) and seg (nearest). Any
-    other key, and the per-video-frame dict form of random_scale_limit,
-    raises NotImplementedError."""
+    """Joint image+mask augmentation pipeline (reference
+    `utils/data.py:93-175` `_build_augmentation_ops`), op for op the JAX
+    package's: resize_smallest_side, resize_h_w, random_resize_h_w_aspect,
+    rotate, random_rotate_90, random_scale_limit (a scalar: factor in
+    [1, 1+limit], `utils/data.py:127`; a dict {scale_limit_lb,
+    scale_limit_ub, p}: [1-lb, 1+ub] with probability p, the video-frame
+    variant, `utils/data.py:76-84`), random_crop_h_w, center_crop_h_w,
+    horizontal_flip, and on the image only contrast, blur, gamma,
+    motion_blur and compression; max_time_step is accepted and ignored
+    (video datasets only). Ops apply in dict order like the yaml,
+    geometry jointly to the uint8 image (linear) and seg (nearest). An
+    unknown key raises ValueError."""
 
     def __init__(self, cfg=None):
         cfg = AugmentConfig() if cfg is None else cfg
         self.cfg = cfg
         self.ops = cfg if isinstance(cfg, dict) else cfg.to_ops()
-        for key, value in self.ops.items():
-            if key not in _OPS or (key == 'random_scale_limit'
-                                   and isinstance(value, dict)):
-                raise NotImplementedError(
-                    f'augmentation {key!r}: {value!r} is not ported (have: '
-                    f'{", ".join(_OPS)}, random_scale_limit as a scalar)')
+        for key in self.ops:
+            if key not in _OPS:
+                raise ValueError(f'Unknown augmentation {key}')
         # guarantee a deterministic final shape when a crop is present
         self.crop = None
         for k in ('random_crop_h_w', 'center_crop_h_w'):
@@ -141,38 +151,113 @@ class Augmentor:
 
     def __call__(self, image, seg, rng):
         for key, value in self.ops.items():
-            h, w = image.shape[:2]
-            if key == 'resize_smallest_side':
-                s = value / min(h, w)
-                image, seg = self._resize(image, seg, int(round(h * s)),
-                                          int(round(w * s)))
-            elif key == 'resize_h_w':
-                image, seg = self._resize(image, seg, value[0], value[1])
-            elif key == 'random_scale_limit':
-                if value:
-                    # the JAX package draws the op's probability (always
-                    # 1 for a scalar limit) before the factor
-                    rng.random()
-                    s = 1.0 + rng.uniform(0.0, value)
-                    image, seg = self._resize(image, seg,
-                                              int(round(h * s)),
+            image, seg = self._apply(key, value, image, seg, rng)
+        return np.ascontiguousarray(image), np.ascontiguousarray(seg)
+
+    def _apply(self, key, value, image, seg, rng):
+        h, w = image.shape[:2]
+        if key == 'resize_smallest_side':
+            s = value / min(h, w)
+            return self._resize(image, seg, int(round(h * s)),
+                                int(round(w * s)))
+        if key == 'resize_h_w':
+            return self._resize(image, seg, value[0], value[1])
+        if key == 'rotate':
+            if value:
+                mat = image_ops.rotation_matrix(
+                    (w / 2, h / 2), rng.uniform(-value, value))
+                image = image_ops.warp_affine(image, mat)
+                seg = image_ops.warp_affine(seg, mat, nearest=True)
+        elif key == 'random_rotate_90':
+            if rng.random() < 0.5:
+                k = int(rng.integers(0, 4))
+                image, seg = np.rot90(image, k), np.rot90(seg, k)
+        elif key == 'random_scale_limit':
+            if value:
+                if isinstance(value, dict):
+                    lb, ub = value['scale_limit_lb'], value['scale_limit_ub']
+                    p = value.get('p', 1.0)
+                else:
+                    lb, ub, p = 0.0, value, 1.0
+                if rng.random() < p:
+                    s = 1.0 + rng.uniform(-lb, ub)
+                    image, seg = self._resize(image, seg, int(round(h * s)),
                                               int(round(w * s)))
-            elif key == 'random_crop_h_w':
-                ch, cw = value
+        elif key in ('random_crop_h_w', 'center_crop_h_w'):
+            ch, cw = value
+            if key == 'random_crop_h_w':
                 y0 = rng.integers(0, h - ch + 1)
                 x0 = rng.integers(0, w - cw + 1)
-                image = image[y0:y0 + ch, x0:x0 + cw]
-                seg = seg[y0:y0 + ch, x0:x0 + cw]
-            elif key == 'center_crop_h_w':
-                ch, cw = value
+            else:
                 y0, x0 = (h - ch) // 2, (w - cw) // 2
-                image = image[y0:y0 + ch, x0:x0 + cw]
-                seg = seg[y0:y0 + ch, x0:x0 + cw]
-            elif key == 'horizontal_flip':
-                if value and rng.random() < 0.5:
-                    image = image[:, ::-1]
-                    seg = seg[:, ::-1]
-        return np.ascontiguousarray(image), np.ascontiguousarray(seg)
+            image = image[y0:y0 + ch, x0:x0 + cw]
+            seg = seg[y0:y0 + ch, x0:x0 + cw]
+        elif key == 'horizontal_flip':
+            if value and rng.random() < 0.5:
+                image, seg = image[:, ::-1], seg[:, ::-1]
+        elif key == 'random_resize_h_w_aspect':
+            return self._resized_crop(value, image, seg, rng)
+        elif key != 'max_time_step':
+            image = self._photometric(key, value, image, rng)
+        return image, seg
+
+    def _resized_crop(self, value, image, seg, rng):
+        """alb.RandomResizedCrop(scale=(1, 1), ratio=(lo, hi))
+        (`utils/data.py:111-121`): the largest window of a random aspect
+        ratio, both sides scaled into the image, resized to (h, w)."""
+        h, w = image.shape[:2]
+        lo, hi = value['aspect_min'], value['aspect_max']
+        ratio = np.exp(rng.uniform(np.log(lo), np.log(hi)))
+        cw, ch = np.sqrt(h * w * ratio), np.sqrt(h * w / ratio)
+        s = min(1.0, w / cw, h / ch)
+        cw, ch = max(1, int(round(cw * s))), max(1, int(round(ch * s)))
+        y0 = int(rng.integers(0, h - ch + 1))
+        x0 = int(rng.integers(0, w - cw + 1))
+        return self._resize(image[y0:y0 + ch, x0:x0 + cw],
+                            seg[y0:y0 + ch, x0:x0 + cw],
+                            value['h'], value['w'])
+
+    @staticmethod
+    def _photometric(key, value, image, rng):
+        """contrast, blur, gamma, motion_blur, compression: each drawn
+        with probability `p` (the draw made whatever it decides)."""
+        if not rng.random() < value.get('p', 1.0):
+            return image
+        if key == 'contrast':
+            b = rng.uniform(-value['brightness_limit'],
+                            value['brightness_limit'])
+            ct = rng.uniform(-value['contrast_limit'], value['contrast_limit'])
+            img_f = image.astype(np.float32)
+            mean = img_f.mean()
+            img_f = (img_f - mean) * (1 + ct) + mean + 255 * b
+            return np.clip(img_f, 0, 255).astype(image.dtype)
+        if key == 'blur':
+            k = int(rng.integers(3, max(value['blur_limit'], 3) + 1)) | 1
+            return image_ops.box_blur(image, k)
+        if key == 'gamma':
+            g = rng.uniform(value['gamma_limit_lb'],
+                            value['gamma_limit_ub']) / 100.0
+            img_f = image.astype(np.float32) / 255.0
+            return np.clip(img_f ** g * 255, 0, 255).astype(image.dtype)
+        if key == 'motion_blur':
+            # alb.MotionBlur: a line kernel of odd size in [3, blur_limit]
+            # along a random axis, rotated by a random angle
+            kmax = max(int(value['blur_limit']), 3)
+            k = int(rng.choice(np.arange(3, kmax + 1, 2)))
+            kern = np.zeros((k, k), np.float32)
+            if rng.random() < 0.5:
+                kern[k // 2, :] = 1.0
+            else:
+                kern[:, k // 2] = 1.0
+            mat = image_ops.rotation_matrix((k / 2 - 0.5, k / 2 - 0.5),
+                                            float(rng.uniform(0, 360)))
+            kern = image_ops.warp_affine(kern, mat, border='constant')
+            kern /= max(kern.sum(), 1e-6)
+            return image_ops.filter2d(image, kern)
+        # compression: alb.ImageCompression, a JPEG round trip
+        q = int(rng.integers(value['quality_lower'],
+                             value.get('quality_upper', 100) + 1))
+        return image_ops.jpeg_round_trip(image, q)
 
 
 def _luma(rgb):
@@ -299,9 +384,12 @@ class DataLoader:
         self.num_workers = int(num_workers)
         self.prefetch_batches = max(1, int(prefetch_batches))
         self.epoch = 0
+        self.start_batch = 0
 
-    def set_epoch(self, epoch):
-        self.epoch = epoch
+    def set_epoch(self, epoch, start_batch=0):
+        """Iterate epoch `epoch` from its batch `start_batch` (a resumed
+        run skips the batches it has trained on without loading them)."""
+        self.epoch, self.start_batch = epoch, start_batch
 
     def __len__(self):
         per = len(self.ds) // self.pcount
@@ -323,7 +411,7 @@ class DataLoader:
         return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
     def __iter__(self):
-        batches = self._batch_indices()
+        batches = self._batch_indices()[self.start_batch:]
         epoch = self.epoch
         if self.num_workers <= 0:
             for b in batches:

@@ -42,6 +42,7 @@ renderer always passes as the frame's global mean, takes precedence, as
 in JAX's renderer) and `use_seg`.
 """
 import dataclasses
+import functools
 
 import torch
 import torch.nn as nn
@@ -143,6 +144,14 @@ _DTYPES = (torch.float32, torch.bfloat16)
 SKY_POOL = 31       # the local sky average's window (`sky_global_avgpool=False`)
 
 
+@functools.lru_cache(maxsize=None)
+def _delim(voxel_dims, device):
+    """The voxel dims as a float32 tensor on `device`, made once per
+    (dims, device): a host-to-device copy per call would wait for the
+    device's queue to drain (one per tile in mesh-mode serving)."""
+    return torch.tensor(voxel_dims, dtype=torch.float32, device=device)
+
+
 def _local_sky_avg(sky_c):
     """The SKY_POOL x SKY_POOL moving average of sky_c [B, H, W, 1, C]
     over the image, 'SAME' padded and divided by the in-image count
@@ -234,9 +243,8 @@ class SceneDreamerGenerator(nn.Module):
         code, [B, ..., 5], with the general encode (K4), whose point
         gradient carries the scene code's."""
         spec = self.cfg.hash_spec
-        delim = torch.tensor(voxel_dims, dtype=torch.float32,
-                             device=worldcoord.device)
-        normalized = worldcoord / delim * 2.0 - 1.0
+        normalized = worldcoord / _delim(tuple(float(d) for d in voxel_dims),
+                                         worldcoord.device) * 2.0 - 1.0
         b = normalized.shape[0]
         if foldable(spec, global_enc.shape[-1]):
             if baked is None:

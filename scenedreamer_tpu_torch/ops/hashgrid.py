@@ -159,7 +159,11 @@ def init_hashgrid_table(spec, generator=None, device=None):
     return table.uniform_(-1e-4, 1e-4, generator=generator)
 
 
+@functools.lru_cache(maxsize=None)
 def _scales(spec, device):
+    """The levels' float32 scales on `device`, made once per (spec,
+    device): a host-to-device copy per call would wait for the device's
+    queue to drain (one per tile in mesh-mode serving)."""
     return torch.tensor([spec.level_resolution(lv)[1]
                          for lv in range(spec.num_levels)],
                         dtype=torch.float32, device=device)

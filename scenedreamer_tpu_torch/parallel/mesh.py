@@ -279,6 +279,30 @@ def all_mean_(tensors):
             off += t.numel()
 
 
+def all_mean(x, group):
+    """The mean of `x` over the ranks of `group`, differentiable: the
+    gradient of each rank's `x` is the mean over the group of the
+    gradients of the result (the backward of a mean whose terms live on
+    every rank). Each rank must hold an equal share of the data the
+    mean stands for."""
+    return _AllMean.apply(x, group)
+
+
+class _AllMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.detach().clone()
+        dist.all_reduce(out, group=group)
+        return out / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad / dist.get_world_size(ctx.group), None
+
+
 @dataclasses.dataclass(frozen=True)
 class RowBand:
     """A band of image rows rendered by this rank of a rays group:

@@ -120,6 +120,25 @@ def split_generator(generator, device=None):
                  .manual_seed(s) for s in seeds)
 
 
+def mean_over_ranks(mesh, params, metrics, buffers=()):
+    """Mean the gradients of `params`, the `metrics` and `buffers` over
+    every rank of `mesh` (JAX's `pmean` over 'data'; under rays the ranks
+    of a group agree on all but the bands' gradients, see
+    `parallel/mesh.py`), in one all_reduce; nothing without a mesh.
+    Missing gradients are zeros."""
+    if mesh is None:
+        return
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    names = list(metrics)
+    vals = [torch.as_tensor(metrics[n], dtype=torch.float32,
+                            device=params[0].device).detach().clone()
+            for n in names]
+    all_mean_([p.grad for p in params] + vals + list(buffers))
+    metrics.update(zip(names, vals))
+
+
 def _floats(metrics):
     return {k: float(v.detach()) if torch.is_tensor(v) else float(v)
             for k, v in metrics.items()}
@@ -168,24 +187,6 @@ class GANTrainer:
         return self.gen(batch, self.voxel_dims, random_style=False,
                         generator=generator, style_eps=style_eps,
                         compact_k=compact_k, band=band)
-
-    def _mean_over_ranks(self, params, metrics, buffers=()):
-        """Mean the gradients of `params`, the `metrics` and `buffers`
-        over every rank of the mesh (JAX's `pmean` over 'data'; under
-        rays the ranks of a group agree on all but the bands' gradients,
-        see `parallel/mesh.py`), in one all_reduce. Missing gradients
-        are zeros."""
-        if self.mesh is None:
-            return
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        names = list(metrics)
-        vals = [torch.as_tensor(metrics[n], dtype=torch.float32,
-                                device=params[0].device).detach().clone()
-                for n in names]
-        all_mean_([p.grad for p in params] + vals + list(buffers))
-        metrics.update(zip(names, vals))
 
     def _aug_draws(self, update, name, x, generator):
         """The DiffAugment draws of D input `name` ('images',
@@ -241,7 +242,8 @@ class GANTrainer:
         self.d_opt.zero_grad()
         loss, m = self._dis_loss(batch, fake.detach(), generator)
         loss.backward()
-        self._mean_over_ranks(self.d_opt.params, m, self.dis.buffers())
+        mean_over_ranks(self.mesh, self.d_opt.params, m,
+                        self.dis.buffers())
         ok, m['dis/grad_norm'] = clip_and_validate(self.d_opt.params,
                                                    self.cfg)
         if ok:
@@ -295,7 +297,7 @@ class GANTrainer:
 
     def _gen_update(self, loss, m):
         loss.backward()
-        self._mean_over_ranks(self.g_opt.params, m)
+        mean_over_ranks(self.mesh, self.g_opt.params, m)
         ok, m['gen/grad_norm'] = clip_and_validate(self.g_opt.params,
                                                    self.cfg)
         if ok:

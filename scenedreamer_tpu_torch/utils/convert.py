@@ -19,9 +19,14 @@ names, so the mapping is
 `discriminator_state_dict_from_flax` and `vgg_state_dict_from_flax` map
 the JAX discriminator (with its spectral-norm power-iteration vectors)
 and VGG19 feature extractor onto `models/discriminator.py` and
-`models/vgg.py`; `spade_state_dict_from_flax` maps the frozen SPADE
-oracle's params and stored batch-norm statistics onto `models/spade.py`
-(the inverse of `convert_spade`, `convert.py:232-322` there).
+`models/vgg.py`; `spade_state_dict_from_flax` maps the SPADE generator's
+params and batch-norm statistics, frozen or trainable, with its style
+encoder, onto `models/spade.py` (the inverse of `convert_spade`,
+`convert.py:232-322` there), and
+`multiscale_discriminator_state_dict_from_flax` the SPADE trainer's
+discriminator onto `train/gan_losses.py`. `spade_frozen_from_trained`
+folds a trained port SPADE (`train/spade_trainer.py`) into the frozen
+oracle's state dict (JAX `convert.py:345-382`).
 
 `load_reference_generator_state_dict` reads the reference's own
 generator state dict (`scenedreamer_released.pt`'s `net_G`, or a bare
@@ -226,18 +231,23 @@ def vgg_state_dict_from_flax(params):
 
 
 def spade_state_dict_from_flax(variables):
-    """`SPADEWrapper` variables {'params': ..., 'batch_stats': ...} in the
-    frozen layout (numpy-convertible leaves) -> the state dict of
-    `models/spade.SPADEWrapper`, whose names are the reference's:
+    """`SPADEWrapper` variables {'params': ..., 'batch_stats': ...}
+    (numpy-convertible leaves), frozen or trainable, -> the state dict of
+    `models/spade.SPADEWrapper` of the same `bn_mode`, whose names are the
+    reference's:
       * conv / dense `kernel` -> `<block>.layers.conv.weight` in torch
         layout, `bias` beside it;
       * SpadeNorm `mlp` / `gamma` / `beta` -> `mlps.0.0` / `gammas.0` /
         `betas.0` (`.layers.conv`);
       * res block `conv{0,1,_s}` + `norm{0,1,_s}` -> `conv_block_{0,1,s}
         .layers.{conv,norm}`;
-      * batch_stats mean / var / scale / offset -> `norm.running_mean` /
-        `running_var` / `weight` / `bias`.
-    The style encoder's leaves, if present, are ignored (not ported)."""
+      * batch norm -> `norm.running_mean` / `running_var` / `weight` /
+        `bias`: frozen, all four from batch_stats mean / var / scale /
+        offset; trainable (flax `nn.BatchNorm`), mean / var from
+        batch_stats and scale / bias from params;
+      * the style encoder, when present: `style_encoder.layer<i>` and
+        `fc_mu` / `fc_var` (`.layers.conv`), whose weights' columns are
+        permuted from JAX's NHWC flatten to the port's NCHW."""
     params = variables['params']['spade_generator']
     stats = variables.get('batch_stats', {}).get('spade_generator', {})
     sd = {}
@@ -247,7 +257,10 @@ def spade_state_dict_from_flax(variables):
             name = 'weight' if leaf == 'kernel' else leaf
             sd[f'{prefix}.{name}'] = _tensor(_torch_layout([leaf], v))
 
-    def put_bn(prefix, st):
+    def put_bn(prefix, st, affine):
+        st = dict(st)
+        if affine is not None:             # trainable: scale / bias params
+            st['scale'], st['offset'] = affine['scale'], affine['bias']
         for src, dst in (('mean', 'running_mean'), ('var', 'running_var'),
                          ('scale', 'weight'), ('offset', 'bias')):
             sd[f'{prefix}.{dst}'] = _tensor(np.asarray(st[src], np.float32))
@@ -260,7 +273,8 @@ def spade_state_dict_from_flax(variables):
                 sub['norm']['fc_gamma'])
             put(f'{top}.layers.norm.fc_beta.layers.conv',
                 sub['norm']['fc_beta'])
-            put_bn(f'{top}.layers.norm.norm', stats[name]['norm']['norm'])
+            put_bn(f'{top}.layers.norm.norm', stats[name]['norm']['norm'],
+                   sub['norm'].get('norm'))
         elif 'conv0' in sub:
             for conv, norm, block in (('conv0', 'norm0', 'conv_block_0'),
                                       ('conv1', 'norm1', 'conv_block_1'),
@@ -272,7 +286,63 @@ def spade_state_dict_from_flax(variables):
                 put(f'{nk}.mlps.0.0.layers.conv', sub[norm]['mlp'])
                 put(f'{nk}.gammas.0.layers.conv', sub[norm]['gamma'])
                 put(f'{nk}.betas.0.layers.conv', sub[norm]['beta'])
-                put_bn(f'{nk}.norm', stats[name][norm]['norm'])
+                put_bn(f'{nk}.norm', stats[name][norm]['norm'],
+                       sub[norm].get('norm'))
         else:                       # fc_0, fc_1, head_0, conv_img*
             put(f'{top}.layers.conv', sub)
+    enc = variables['params'].get('style_encoder')
+    if enc is not None:
+        for name, sub in enc.items():
+            put(f'style_encoder.{name}.layers.conv', sub)
+        hw = STYLE_ENC_SPATIAL
+        for name in ('fc_mu', 'fc_var'):
+            key = f'style_encoder.{name}.layers.conv.weight'
+            w = sd[key]
+            sd[key] = w.reshape(w.shape[0], hw, hw, -1).permute(
+                0, 3, 1, 2).reshape(w.shape[0], -1).contiguous()
     return sd
+
+
+def multiscale_discriminator_state_dict_from_flax(params, spectral_stats):
+    """`MultiScaleDiscriminator` variables (params and the
+    `spectral_stats` collection, each with or without its top-level key)
+    -> the state dict of `train/gan_losses.MultiScaleDiscriminator`:
+    `dis<d>.layer<i>.weight` [O, I, kh, kw] and `.bias`, the buffers
+    `weight_u` [1, O] and `weight_sigma` [], and `dis<d>.output`."""
+    params = params.get('params', params)
+    stats = spectral_stats.get('spectral_stats', spectral_stats)
+    sd = {}
+    for d, layers in params.items():
+        for name, sub in layers.items():
+            conv = sub['Conv_0']
+            sd[f'{d}.{name}.weight'] = _tensor(
+                _torch_layout(['kernel'], conv['kernel']))
+            sd[f'{d}.{name}.bias'] = _tensor(np.asarray(conv['bias'],
+                                                        np.float32))
+            sn = stats.get(d, {}).get(name)
+            if sn is not None:
+                sn = sn['SpectralNorm_0']
+                sd[f'{d}.{name}.weight_u'] = _tensor(
+                    np.asarray(sn['Conv_0/kernel/u'], np.float32))
+                sd[f'{d}.{name}.weight_sigma'] = _tensor(
+                    np.asarray(sn['Conv_0/kernel/sigma'], np.float32))
+    return sd
+
+
+def spade_frozen_from_trained(state):
+    """A trained SPADE -> the state dict of the frozen oracle
+    (`SPADEWrapper()`, bn_mode 'frozen', no style encoder), which
+    `cli/train.py --spade-checkpoint` loads (JAX
+    `spade_frozen_from_trained`, `convert.py:345-382`). `state` is a
+    `SpadeTrainer.state_dict()` (or a `train_spade` checkpoint): the
+    generator's parameters (the EMA's when kept, as JAX's CLI folds
+    `g_ema or g_params`) and running statistics. The trainable
+    and the frozen batch norm share their names (`weight`, `bias`,
+    `running_mean`, `running_var`), and their eval maths agree (eps
+    1e-5), so the fold keeps every entry of the SPADE generator and drops
+    the style encoder, which the oracle's random styles do not use."""
+    sd = dict(state['generator'])
+    if state.get('g_ema') is not None:
+        sd.update(state['g_ema'])
+    return {k: v.detach().clone() for k, v in sd.items()
+            if k.startswith('spade_generator.')}

@@ -2,7 +2,8 @@
 """The port on every visible GPU of one host (2 or more; with one, only
 part 3 runs).
 
-    python scripts/torch_multi_gpu.py [--iters 8] [--trace DIR]
+    python scripts/torch_multi_gpu.py [--iters 8] [--trace DIR] [--no_train]
+        [--save_frame PATH]
 
   1. '[multi-gpu train]': `cli.train` through `torch.distributed.run`
      (NCCL, one rank per GPU) on configs/scenedreamer_train.yaml (xor,
@@ -18,14 +19,18 @@ part 3 runs).
      first pose through the padded-tile route (tile 128: 40 tiles) over
      `mesh=[cuda:0 .. cuda:N-1]` against `mesh=[cuda:0]`, at 1 tile per
      call and at 40 / N (each GPU's block in one call): the images
-     equal, s/frame of each (a warm-up frame first);
+     equal, s/frame of each (a warm-up frame first); `--save_frame PATH`
+     writes the N-GPU 1-tile-a-call frame as a float32 .npy (to hold two
+     checkouts' frames bit for bit: this script runs unchanged on a
+     checkout whose `chip_smoke.py` has the same helpers);
   3. with `--trace DIR`, '[multi-gpu trace]': one more frame on every
      GPU at 1 tile a call under `torch.profiler`: each GPU's busy time
      (its kernels and copies summed) and idle share against the frame's
      wall time, and the host's time in each CUDA runtime call; the
      trace goes to DIR/mesh_frame_trace.json.gz.
 
-Prints each card's name and power limit (nvidia-smi)."""
+`--no_train` skips part 1. Prints each card's name and power limit
+(nvidia-smi)."""
 import argparse
 import collections
 import gzip
@@ -71,7 +76,7 @@ def train(root, configs, n, iters):
     return out
 
 
-def mesh_frame(torch, kernels, world, n, trace_dir=None):
+def mesh_frame(torch, kernels, world, n, trace_dir=None, save_frame=None):
     import numpy as np
     from scenedreamer_tpu_torch.models.generator import (
         GeneratorConfig, SceneDreamerGenerator)
@@ -101,6 +106,10 @@ def mesh_frame(torch, kernels, world, n, trace_dir=None):
                    f'{ {k: v for k, v in counts.items() if v} }')
             del r
             torch.cuda.empty_cache()
+    if save_frame:
+        np.save(save_frame, imgs[n, 1].astype(np.float32))
+        cs.log(f'[multi-gpu mesh] {n} GPU(s), 1 tile a call: frame written '
+               f'to {save_frame}')
     for key, img in imgs.items():
         err = float(np.abs(img - imgs[1, 1]).max())
         cs.log(f'[multi-gpu mesh] {key[0]} GPU(s), {key[1]} tile(s) a call, '
@@ -173,6 +182,10 @@ def main():
     p.add_argument('--iters', type=int, default=8)
     p.add_argument('--trace', metavar='DIR',
                    help='trace one 1-tile-a-call frame on every GPU')
+    p.add_argument('--no_train', action='store_true',
+                   help='skip the training CLI runs (part 1)')
+    p.add_argument('--save_frame', metavar='PATH',
+                   help='write the N-GPU 1-tile-a-call frame (.npy)')
     a = p.parse_args()
     import torch
     n = torch.cuda.device_count()
@@ -190,10 +203,10 @@ def main():
     world = build_voxel_world(maps.height_map, maps.semantic_map,
                               maps.tree_map, fill_depth=16, seed=cs.SEED)
     root = None
-    if n > 1:
+    if n > 1 and not a.no_train:
         root, configs = cs.loop_data(world)
         train(root, configs, n, a.iters)
-    mesh_frame(torch, kernels, world, n, a.trace)
+    mesh_frame(torch, kernels, world, n, a.trace, a.save_frame)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)

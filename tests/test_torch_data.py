@@ -92,11 +92,14 @@ def test_single_resize_within_one_level(folder, ops):
 
 
 def test_unported_augmentation_and_lmdb_raise(folder):
-    with pytest.raises(NotImplementedError, match='rotate'):
-        tds.Augmentor({'rotate': 10})
-    with pytest.raises(NotImplementedError, match='random_scale_limit'):
-        tds.Augmentor({'random_scale_limit': {'scale_limit_lb': 0.2,
-                                              'scale_limit_ub': 0.3}})
+    """Every augmentation of the JAX package is ported (held against it
+    in `test_torch_augment.py`); an unknown one raises ValueError as
+    there, and the lmdb backend is not ported."""
+    tds.Augmentor({'rotate': 10})
+    tds.Augmentor({'random_scale_limit': {'scale_limit_lb': 0.2,
+                                          'scale_limit_ub': 0.3}})
+    with pytest.raises(ValueError, match='Unknown augmentation'):
+        tds.Augmentor({'swirl': 1})
     with pytest.raises(NotImplementedError, match='lmdb'):
         tds.PairedImageDataset(folder, dataset_type='lmdb')
     with pytest.raises(ValueError):

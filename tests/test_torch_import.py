@@ -153,3 +153,27 @@ def test_training_cli_defaults_to_cuda(tmp_path):
         train.main(argv)
     with pytest.raises(FileNotFoundError):      # past the device check
         train.main(argv + ['--device', 'cpu'])
+
+
+@pytest.mark.parametrize('module', ['cli.train_spade', 'train.gan_losses',
+                                    'train.spade_trainer', 'data.image_ops'])
+def test_spade_training_modules_are_in_the_walk(module):
+    """Each module of the SPADE training slice exists in the package, so
+    the walks above cover it (it imports without JAX and names nothing of
+    the JAX package)."""
+    path = os.path.join(PKG, *module.split('.')) + '.py'
+    assert path in _port_files()
+
+
+def test_spade_training_cli_defaults_to_cuda(tmp_path):
+    """`cli.train_spade.main` resolves its device before it touches the
+    data: without a GPU it raises unless `--device cpu` is given."""
+    if torch.cuda.is_available():
+        pytest.skip('CUDA present: the default device is usable')
+    from scenedreamer_tpu_torch.cli import train_spade
+    argv = ['--data-root', str(tmp_path), '--config',
+            os.path.join(REPO, 'configs', 'landscape1m.yaml')]
+    with pytest.raises(RuntimeError, match='CUDA'):
+        train_spade.main(argv)
+    with pytest.raises(FileNotFoundError):      # past the device check
+        train_spade.main(argv + ['--device', 'cpu'])

@@ -116,7 +116,9 @@ def test_random_style_draws_from_the_generator():
     assert torch.equal(a['fake_images'], b['fake_images'])
     assert not torch.equal(a['fake_images'], c['fake_images'])
     assert a['mu'] is None and a['logvar'] is None
-    with pytest.raises(NotImplementedError):
+    # an encoded style needs the style encoder, which the frozen oracle
+    # is built without (`test_torch_spade_train.py` holds the encoder)
+    with pytest.raises(ValueError, match='style_encoder'):
         model({'label': data['label'], 'images': data['label'][..., :3]},
               random_style=False)
 
