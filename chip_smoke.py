@@ -197,11 +197,35 @@ of the repository. Phases, each fatal on failure:
      `generate`, and `cli.train.main --spade-checkpoint <run>` for one
      iteration on phase 9's xor yaml.
 
+ 16. the legacy GANcraft path, evaluation and the scene CLIs
+     ('[legacy ...]', '[eval]', '[scene]' lines): (a) `GANcraftGenerator`
+     at the flagship training width (`GeneratorConfig()`, blk_feats 64
+     wide, PE 4 levels, 40 channels passed through) over the scene-1024
+     world's corner table (one row per voxel corner), on phase 6's
+     training batch shape (262x262 rays, 24 samples; K1 once in its
+     build, its top quarter forced to sky): forward and the gradient of
+     mean(img^2) with compaction on and off (images within 1e-5), s per
+     fwd + bwd and peak GB, no K1-K5 launch in the steps, no hash-table
+     gradient; `sp_trilinear_worldcoord` on the batch's points against
+     float64 sums (forward 1e-6; the blk_feats gradient on 4096 rows
+     within 1e-5 of each element's absolute sum + 1e-7) and its forward
+     and backward ms; a TINY-width step on the card against the CPU;
+     (b) `ray_voxel_intersection_perspective` on phase 2's frame equal
+     to K1's own output; (c) `cli.evaluate.main --checkpoint random` at
+     its defaults (flagship width, 270x480, 24 samples, tile 128, pad 30,
+     scene 1024, 8 frames) against 16 synthetic PNG reals with `vgg19`
+     and `pixel` (finite scores, 8 fakes, K1, K2a and K2b launched each
+     frame, s/frame), then `--fake-dir` on those frames written as PNG;
+     (d) `terrain_gen --size 1024` -> `pcg_cache` -> `load_world_cache`
+     and `build_db` -> an lmdb-backed loader batch, with host seconds.
+
 Then the total time, one `kernels` JSON line covering K1-K5 (K4a also
 at the serving chunk, under `at_serving_chunk`; K5b's whole launch there
 under `serving_chunk_ms`; every row with its launches per padded-tile
 frame at 1 and 4 tiles per batch and per AMP step), the card's name and
 power limit (nvidia-smi), and last the line {"ok": true, "device": {...}}.
+Every row also gives its launches per GANcraft step (phase 16 (a): the
+batch build's K1) and per evaluation frame (phase 16 (c)).
 Float32 everywhere but phase 12's bf16 frame and phase 13's AMP: TF32
 is switched off for matmuls and convolutions.
 """
@@ -3225,6 +3249,374 @@ def worker(args):
     return 0
 
 
+# phase 16: the legacy GANcraft path, evaluation, the scene CLIs -----------
+EVAL_REALS = 16     # synthetic 256x256 PNG reals of the evaluation
+EVAL_FRAMES = 8     # the evaluate CLI's --cam_maxstep default
+SP_ROWS = 4096      # blk_feats rows held to their float64 sums
+# the card's TINY GANcraft step against the CPU's, TF32 off: float32
+# GEMMs and convs summed in another order (cuBLAS / cuDNN against the
+# CPU's) through the RenderMLP, the RenderCNN and their backward
+TINY_IMG_TOL, TINY_GRAD_REL = 1e-4, 1e-4
+
+
+class _SavedCtx:
+    """What `_SpTrilinear.backward` reads of its autograd context."""
+
+    def __init__(self, ids, w, rows):
+        self.saved_tensors, self.rows = (ids, w), rows
+
+
+def sp_trilinear_check(torch, sp, feats, lut, wc, dev):
+    """Phase 16 (a): `sp_trilinear_worldcoord` on the training batch's
+    points against the float64 sums of the same terms (forward on a
+    sample of points within 1e-6; the blk_feats gradient of a seeded
+    normal cotangent on SP_ROWS rows within 1e-5 of each element's
+    absolute sum + 1e-7: `index_add_`'s atomics add in no fixed order),
+    and its forward and backward times (CUDA events)."""
+    ids, w = sp.corner_weights(lut, wc, feats.shape[0], ign_zero=True)
+    n, c = wc.shape[0], feats.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.randn((n, c), generator=gen, device=dev)
+    out = sp.sp_trilinear_worldcoord(feats, lut, wc, ign_zero=True)
+    grad = sp._SpTrilinear.backward(_SavedCtx(ids, w, feats.shape[0]), g)[0]
+    pick = torch.randperm(n, generator=gen, device=dev)[:SP_ROWS]
+    want = sum(w[pick, k:k + 1].double() * feats[ids[pick, k]].double()
+               for k in range(8))
+    fwd_err = float((out[pick].double() - want).abs().max())
+    touched = torch.unique(ids[w != 0])
+    rows = touched[torch.randperm(touched.numel(), generator=gen,
+                                  device=dev)[:SP_ROWS]]
+    pos = torch.full((feats.shape[0],), -1, dtype=torch.int64, device=dev)
+    pos[rows] = torch.arange(rows.numel(), device=dev)
+    exact = torch.zeros((rows.numel(), c), dtype=torch.float64, device=dev)
+    absum = torch.zeros_like(exact)
+    for k in range(8):
+        at = pos[ids[:, k]]
+        m = at >= 0
+        wk, gk = w[m, k:k + 1].double(), g[m].double()
+        exact.index_add_(0, at[m], wk * gk)
+        absum.index_add_(0, at[m], wk.abs() * gk.abs())
+    err = (grad[rows].double() - exact).abs()
+    margin = float((err / (1e-5 * absum + 1e-7)).max())
+    fwd_ms = median_ms(lambda: sp.sp_trilinear_worldcoord(feats, lut, wc,
+                                                          ign_zero=True))
+    ctx = _SavedCtx(ids, w, feats.shape[0])
+    bwd_ms = median_ms(lambda: sp._SpTrilinear.backward(ctx, g))
+    log(f'[legacy sp_trilinear] {n} points x {c} channels, '
+        f'{int(touched.numel())} table rows read: forward {fwd_ms:.3f} ms, '
+        f'backward {bwd_ms:.3f} ms (the table gradient zeroed, 8 '
+        f'index_add_); forward on {SP_ROWS} points max abs diff from the '
+        f'float64 sum {fwd_err:.3g} (tolerance 1e-6); gradient on '
+        f'{rows.numel()} rows: largest error / (1e-5 |terms| + 1e-7) '
+        f'{margin:.3g} (must be <= 1)')
+    assert fwd_err <= 1e-6, 'sp_trilinear forward differs from float64'
+    assert margin <= 1.0, 'the blk_feats gradient differs from float64'
+    return dict(points=n, rows_read=int(touched.numel()), fwd_ms=fwd_ms,
+                bwd_ms=bwd_ms, fwd_err=fwd_err, grad_margin=margin)
+
+
+def legacy_flagship(torch, kernels, world, dev):
+    """Phase 16 (a): `GANcraftGenerator` at the flagship training width
+    (`GeneratorConfig()`, blk_feats 64 wide, PE 4 levels on 24 channels,
+    40 passed through) over the scene's corner table, on a training batch
+    as phase 7 builds it (K1 once, in `make_batch`) with its top quarter
+    of rows forced to sky, blk_feats drawn uniform in [-1, 1]: forward
+    and the gradient of mean(img^2),
+    compaction on (warm-up, then 2 timed) and off; images within 1e-5;
+    no K1-K5 launch in the steps; the hash table gets no gradient; then
+    `sp_trilinear_check` on the batch's points."""
+    from scenedreamer_tpu_torch.data.synthetic import make_batch
+    from scenedreamer_tpu_torch.models.gancraft import GANcraftGenerator
+    from scenedreamer_tpu_torch.models.generator import GeneratorConfig
+    from scenedreamer_tpu_torch.ops import sp_trilinear as sp
+    from scenedreamer_tpu_torch.render.pipeline import COMPACT_GRANULE
+    t0 = time.time()
+    lut_np, n = sp.build_corner_lut(world.voxel)
+    lut = torch.from_numpy(lut_np).to(dev)
+    del lut_np
+    cfg = GeneratorConfig()
+    model = GANcraftGenerator(cfg, num_corners=n, seed=SEED)
+    # features of order 1, as the CPU tests draw them: at the init's
+    # 0.01 the encoding is near constant and the random RenderMLP's
+    # density can be negative at every point (no gradient reaches the
+    # table)
+    with torch.no_grad():
+        model.blk_feats.uniform_(-1, 1, generator=torch.Generator()
+                                 .manual_seed(SEED))
+    model = model.to(dev)
+    log(f'[legacy] corner LUT {tuple(lut.shape)} ({lut.numel() * 4 / 1e9:.2f}'
+        f' GB), {n} corners; blk_feats {tuple(model.blk_feats.shape)} '
+        f'({model.blk_feats.numel() * 4 / 1e9:.2f} GB), RenderMLP input '
+        f'{model.field_in_dim}; built in {time.time() - t0:.1f} s')
+    voxel = torch.from_numpy(world.voxel).to(dev)
+    hw = TRAIN_CROP + cfg.pad
+    kernels.reset_launch_counts()
+    batch = make_batch(world, batch_size=1, height=hw, width=hw,
+                       max_samples=cfg.num_blocks_early_stop, pad=cfg.pad,
+                       seed=SEED, device=dev, voxel=voxel)
+    torch.cuda.synchronize()
+    build = kernels.launch_counts()
+    assert build['dda'] == 1 and sum(build.values()) == 1, build
+    del voxel
+    batch['hit_mask'] = batch['hit_mask'].clone()
+    batch['hit_mask'][:, :hw // 4] = False
+    n_hit = int(batch['hit_mask'][..., 0].sum())
+    k = -(-n_hit // COMPACT_GRANULE) * COMPACT_GRANULE
+    assert k < hw * hw, 'no ray to drop'
+    extra = {'corner_lut': lut}
+
+    def fwd_bwd(ck):
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.synchronize()
+        t = time.time()
+        img = model(batch, world.dims, random_style=True, generator=gen,
+                    field_extra=extra, compact_k=ck)['fake_images']
+        (img ** 2).mean().backward()
+        torch.cuda.synchronize()
+        return time.time() - t, img.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    fwd_bwd(k)
+    on = [fwd_bwd(k) for _ in range(2)]
+    steps = kernels.launch_counts()
+    assert not any(steps.values()), f'the GANcraft steps launched {steps}'
+    grad = model.blk_feats.grad
+    assert model.hash_encoder.embeddings.grad is None, \
+        'the hash table got a gradient in GANcraft mode'
+    assert bool(torch.isfinite(grad).all()), 'non-finite blk_feats grad'
+    rows_hit = int((grad.abs().sum(dim=1) > 0).sum())
+    assert rows_hit > 0, 'no gradient reached blk_feats'
+    off_s, img_off = fwd_bwd(None)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    img_on = on[-1][1]
+    assert bool(torch.isfinite(img_on).all()), 'non-finite GANcraft image'
+    err = float((img_on - img_off).abs().max())
+    spi = statistics.median(s for s, _ in on)
+    log(f'[legacy] GANcraftGenerator fwd + bwd of mean(img^2), {hw}x{hw} '
+        f'rays x {cfg.num_samples} samples, {n_hit} rays with a hit: '
+        f'{spi:.3f} s (compact_k {k}; {[round(s, 4) for s, _ in on]}), '
+        f'{off_s:.3f} s without compaction; peak {peak:.1f} GB; image '
+        f'max abs diff compaction on / off {err:.3g} (tolerance 1e-5); '
+        f'blk_feats rows with a gradient {rows_hit}; launches: the batch '
+        f'build {build}, the steps none')
+    assert err <= 1e-5, 'the compacted GANcraft image differs'
+    dims_t = torch.tensor(world.dims, dtype=torch.float32, device=dev)
+    wc = ((sample_points(batch, cfg, world.dims) + 1.0) * 0.5 * dims_t)
+    del batch
+    model.zero_grad(set_to_none=True)
+    check = sp_trilinear_check(torch, sp, model.blk_feats.detach(), lut,
+                               wc.contiguous(), dev)
+    del model, lut, wc
+    torch.cuda.empty_cache()
+    return dict(corners=n, s_per_step=spi, s_per_step_no_compact=off_s,
+                peak_gb=peak, compact_err=err, counts=build,
+                sp_trilinear=check)
+
+
+def legacy_tiny(torch, dev):
+    """Phase 16 (a): one TINY-width GANcraft forward and backward (the
+    CPU tests' config, deterministic depths, a seeded style) on the card
+    against the CPU, on one batch built on the CPU: image within
+    TINY_IMG_TOL, the blk_feats gradient within TINY_GRAD_REL of its
+    largest element."""
+    import copy
+    from scenedreamer_tpu_torch.data.synthetic import make_batch, make_world
+    from scenedreamer_tpu_torch.models.gancraft import GANcraftGenerator
+    from scenedreamer_tpu_torch.models.generator import GeneratorConfig
+    from scenedreamer_tpu_torch.ops.sp_trilinear import build_corner_lut
+    cfg = GeneratorConfig(
+        style_dims=16, interm_style_dims=32, final_feat_dim=8, pad=2,
+        num_blocks_early_stop=4, num_samples=6, mlp_hidden=32,
+        style_enc_num_filters=8, coarse_deterministic_sampling=True)
+    world = make_world(size=64, seed=7, n_voronoi=20, boundary_detect=4)
+    lut, n = build_corner_lut(world.voxel)
+    batch = make_batch(world, batch_size=1, height=18, width=18,
+                       max_samples=4, pad=cfg.pad, include_gan_data=False)
+    cpu = GANcraftGenerator(cfg, num_corners=n, blk_feat_dim=48,
+                            pe_no_pe_feat_dim=40, seed=SEED)
+    with torch.no_grad():
+        cpu.blk_feats.uniform_(-1, 1, generator=torch.Generator()
+                               .manual_seed(SEED))
+    card = copy.deepcopy(cpu).to(dev)
+    eps = torch.randn((1, cfg.style_dims),
+                      generator=torch.Generator().manual_seed(SEED))
+
+    def run(model, d):
+        data = {key: v.to(d) for key, v in batch.items()}
+        img = model(data, world.dims, random_style=True, style_eps=eps.to(d),
+                    field_extra={'corner_lut': torch.from_numpy(lut).to(d)}
+                    )['fake_images']
+        (img ** 2).mean().backward()
+        return img.detach().cpu(), model.blk_feats.grad.cpu()
+
+    img_c, g_c = run(cpu, 'cpu')
+    img_d, g_d = run(card, dev)
+    img_err = float((img_d - img_c).abs().max())
+    grad_rel = float((g_d - g_c).abs().max() / g_c.abs().max())
+    log(f'[legacy tiny] card against CPU, {tuple(img_c.shape)} image: max '
+        f'abs diff {img_err:.3g} (tolerance {TINY_IMG_TOL}); blk_feats '
+        f'gradient max diff / its largest element {grad_rel:.3g} '
+        f'(tolerance {TINY_GRAD_REL})')
+    assert img_err <= TINY_IMG_TOL, 'the TINY GANcraft image differs'
+    assert grad_rel <= TINY_GRAD_REL, 'the TINY blk_feats gradient differs'
+    return dict(img_err=img_err, grad_rel=grad_rel)
+
+
+def legacy_perspective(torch, kernels, world, ctl, dev):
+    """Phase 16 (b): `ray_voxel_intersection_perspective` on phase 2's
+    570x990 frame (camera pattern 4, pose 0) equal to K1's own output on
+    the same rays, in the reference layout; K1 launched once by it."""
+    from scenedreamer_tpu_torch.ops.ray_voxel import (
+        build_occupancy_bits, camera_rays, ray_voxel_intersection_perspective)
+    voxel = torch.from_numpy(world.voxel).to(dev)
+    ori, cdir, up, f_ratio = ctl[0]
+    h, w = RES[0] + PAD, RES[1] + PAD
+    cam_f, cam_c = f_ratio * (RES[1] - 1), ((h - 1) / 2.0, (w - 1) / 2.0)
+    kernels.reset_launch_counts()
+    vid, dep, rd, hit = ray_voxel_intersection_perspective(
+        voxel, ori, cdir, up, cam_f, cam_c, (h, w), M)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts['dda'] == 1 and sum(counts.values()) == 1, counts
+    rays = camera_rays(cdir, up, cam_f, cam_c, (h, w), device=dev)
+    k_vid, k_dep, k_hit = kernels.dda(
+        voxel, torch.as_tensor(ori, dtype=torch.float32, device=dev),
+        rays.reshape(-1, 3), M, sum(world.dims) + 2,
+        occupancy=build_occupancy_bits(voxel), image_width=w)
+    assert tuple(vid.shape) == (h, w, M, 1) and tuple(dep.shape) == \
+        (2, h, w, M, 1) and tuple(rd.shape) == (h, w, 1, 3), \
+        (vid.shape, dep.shape, rd.shape)
+    assert torch.equal(vid.reshape(-1, M), k_vid), 'ids differ from K1'
+    assert torch.equal(hit.reshape(-1, M), k_hit), 'hits differ from K1'
+    assert torch.equal(dep[..., 0].permute(1, 2, 3, 0).reshape(-1, M, 2),
+                       k_dep), 'depths differ from K1'
+    assert torch.equal(rd.reshape(-1, 3), rays.reshape(-1, 3))
+    log(f'[legacy perspective] {h}x{w} rays, M={M}: voxel ids, depths, hits '
+        f'and rays equal to K1 on the same rays; rays with a hit '
+        f'{float(hit[..., 0].float().mean()):.3f}; launches {counts}')
+
+
+def eval_path(torch, kernels, dev):
+    """Phase 16 (c): `cli.evaluate.main --checkpoint random` at the CLI's
+    own defaults (flagship width, 270x480, 24 samples, tile 128, pad 30,
+    scene 1024, 8 frames of camera pattern 4) against EVAL_REALS
+    synthetic PNG reals, with `vgg19` (random init) and `pixel`: finite
+    scores, 8 fakes, K1, K2a and K2b launched each frame and no backward
+    kernel; the frames' seconds (the first includes the warm-up). Then
+    `--fake-dir` on the 8 frames the first run wrote as PNG, with either
+    extractor, launching no kernel."""
+    from scenedreamer_tpu_torch.cli import evaluate
+    from scenedreamer_tpu_torch.data.synthetic import make_paired_folder
+    root = os.path.join(REPO, 'smoke_out', 'eval')
+    shutil.rmtree(root, ignore_errors=True)
+    reals = make_paired_folder(os.path.join(root, 'reals'), n=EVAL_REALS,
+                               size=256, seed=SEED)
+    frames = os.path.join(root, 'frames')
+    base = ['--real-dir', reals, '--scene_size', str(SCENE),
+            '--cam_maxstep', str(EVAL_FRAMES)]
+    out = {}
+    for ex in ('vgg19', 'pixel'):
+        argv = base + ['--checkpoint', 'random', '--extractor', ex]
+        if ex == 'vgg19':
+            argv += ['--save-frames', frames]
+        kernels.reset_launch_counts()
+        timings = []
+        t0 = time.time()
+        res = evaluate.main(argv, timings=timings)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kernels.launch_counts()
+        assert res['num_fake'] == EVAL_FRAMES, res
+        assert res['num_real'] == EVAL_REALS, res
+        assert all(math.isfinite(res[k]) for k in ('fid', 'kid', 'kid_std'))
+        assert counts['dda'] == EVAL_FRAMES, counts
+        assert counts['hash_bake'] == EVAL_FRAMES, counts
+        assert counts['hash_encode'] > 0, counts
+        for name in ('hash_encode_bwd', 'hash_bake_bwd', 'hash_bake_dw'):
+            assert counts[name] == 0, counts
+        spf = statistics.median(timings[1:])
+        log(f'[eval] --checkpoint random --extractor {ex}: {res}; '
+            f'{len(timings)} frames, {spf:.3f} s/frame (median after the '
+            f'first; all {[round(t, 3) for t in timings]}), {wall:.1f} s '
+            f'with terrain, world and set-up; launches {counts}')
+        out[ex] = dict(result=res, s_per_frame=spf, counts=counts,
+                       wall_s=wall)
+    assert len(os.listdir(frames)) == EVAL_FRAMES
+    for ex in ('vgg19', 'pixel'):
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        res = evaluate.main(base + ['--fake-dir', frames, '--extractor', ex])
+        counts = kernels.launch_counts()
+        assert res['num_fake'] == EVAL_FRAMES and not any(counts.values())
+        assert all(math.isfinite(res[k]) for k in ('fid', 'kid', 'kid_std'))
+        log(f'[eval] --fake-dir (the frames as PNG) --extractor {ex}: {res} '
+            f'in {time.time() - t0:.1f} s')
+    out['reals'] = reals
+    return out
+
+
+def scene_clis(torch, reals):
+    """Phase 16 (d): `terrain_gen --size 1024` -> `pcg_cache` (no crop at
+    1024) -> `load_world_cache`, and `build_db` on the evaluation's reals
+    -> a batch of 4 from an lmdb-backed `DataLoader`, equal to the
+    folder dataset's items; the host seconds of each."""
+    import numpy as np
+    from scenedreamer_tpu_torch.cli import build_db, pcg_cache, terrain_gen
+    from scenedreamer_tpu_torch.data.paired_dataset import (
+        DataLoader, PairedImageDataset)
+    from scenedreamer_tpu_torch.scene.voxel_world import load_world_cache
+    root = os.path.join(REPO, 'smoke_out', 'scene')
+    shutil.rmtree(root, ignore_errors=True)
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.time()
+        res = fn()
+        secs[name] = time.time() - t0
+        return res
+
+    terrain = os.path.join(root, 'terrain')
+    timed('terrain_gen', lambda: terrain_gen.main(
+        ['--size', str(SCENE), '--seed', str(SEED), '--outdir', terrain]))
+    timed('pcg_cache', lambda: pcg_cache.main(
+        ['--terrain-dir', terrain, '--outdir', os.path.join(root, 'cache')]))
+    world = timed('load_world_cache', lambda: load_world_cache(
+        os.path.join(root, 'cache', 'terrain')))
+    assert world.voxel.shape[1:] == (SCENE, SCENE) and world.voxel.any()
+    db = os.path.join(root, 'db')
+    timed('build_db', lambda: build_db.main(['--data_root', reals,
+                                             '--output_root', db]))
+    ds = PairedImageDataset(db, dataset_type='lmdb')
+    batch = timed('lmdb_batch', lambda: next(iter(DataLoader(
+        ds, 4, shuffle=False, num_workers=2))))
+    ref = PairedImageDataset(reals)
+    for i in range(4):
+        assert np.array_equal(batch['images'][i], ref[i]['images'])
+    log(f'[scene] terrain_gen {SCENE} -> pcg_cache -> load_world_cache: '
+        f'voxels {world.voxel.shape}, {int((world.voxel != 0).sum())} '
+        f'solid; build_db {len(ds)} pairs -> lmdb loader batch '
+        f'{tuple(batch["images"].shape)} equal to the folder items; host '
+        f's: {", ".join(f"{k} {v:.2f}" for k, v in secs.items())}')
+    shutil.rmtree(root)
+    return secs
+
+
+def legacy_eval_scene(torch, kernels, world, ctl, dev):
+    """Phase 16: the legacy GANcraft path, evaluation, the scene CLIs."""
+    t_phase = time.time()
+    flag = legacy_flagship(torch, kernels, world, dev)
+    tiny = legacy_tiny(torch, dev)
+    legacy_perspective(torch, kernels, world, ctl, dev)
+    torch.cuda.empty_cache()
+    ev = eval_path(torch, kernels, dev)
+    scene = scene_clis(torch, ev['reals'])
+    shutil.rmtree(os.path.join(REPO, 'smoke_out', 'eval'))
+    log(f'[legacy] phase 16 in {time.time() - t_phase:.1f} s')
+    return dict(flagship=flag, tiny=tiny, eval=ev, scene=scene)
+
+
 def split_extra(split):
     """The `kernels` row fields of a scatter's per-level split: the whole
     launch with every level direct (before the coarse path) in ray order,
@@ -3703,6 +4095,9 @@ def main():
     # 15. SPADE oracle training ------------------------------------------------
     spade_training(torch, kernels, loop, dev)
 
+    # 16. the legacy GANcraft path, evaluation, the scene CLIs -----------------
+    legacy = legacy_eval_scene(torch, kernels, world, ctl, dev)
+
     table_rows = kernel_rows(serving, k3, k3_split, train, k5, k5_split,
                              k5b, loop) \
         + general_rows(k4, k4_split, (int(chunk_n), *k4c), urender, ustep,
@@ -3717,13 +4112,17 @@ def main():
         row['launches_per_amp_step'] = amp_counts[row['name']]
         row['launches_per_dp_step'] = multi['dp_counts'][row['name']]
         row['launches_per_rays_step'] = multi['rays_counts'][row['name']]
+        row['launches_per_gancraft_step'] = \
+            legacy['flagship']['counts'][row['name']]
+        row['launches_per_eval_frame'] = \
+            legacy['eval']['vgg19']['counts'][row['name']] / EVAL_FRAMES
     log(json.dumps({'kernels': table_rows}))
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
-    log(f'[smoke] phases 1-15 in {time.time() - t_start:.1f} s')
+    log(f'[smoke] phases 1-16 in {time.time() - t_start:.1f} s')
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -335,3 +335,111 @@ def jpeg_round_trip(img, quality):
     g = y_out + ((-fix(0.34414) * cb + one_half - fix(0.71414) * cr) >> 16)
     b = y_out + ((fix(1.77200) * cb + one_half) >> 16)
     return np.clip(np.stack([b, g, r], axis=-1), 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# area resize (cv2.INTER_AREA)
+# ---------------------------------------------------------------------------
+
+
+def _area_weights(n_in, n_out, scale):
+    """[n_out, n_in] weights of OpenCV's `computeResizeAreaTab`: each
+    output cell covers `scale` inputs, partial ones by their overlap,
+    normalised by the cell's width (cut at the image's edge)."""
+    w = np.zeros((n_out, n_in))
+    for d in range(n_out):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s2 = min(math.floor(f2), n_in - 1)
+        s1 = min(math.ceil(f1), s2)
+        if s1 - f1 > 1e-3:
+            w[d, s1 - 1] += np.float32((s1 - f1) / cell)
+        w[d, s1:s2] += np.float32(1.0 / cell)
+        if f2 - s2 > 1e-3:
+            w[d, s2] += np.float32(min(f2 - s2, 1.0, cell) / cell)
+    return w
+
+
+def _area_linear_taps(n_in, n_out, scale):
+    """OpenCV's INTER_AREA enlargement taps: source index sx = floor(d *
+    scale) and its right neighbour, weights (1 - fx, fx) with
+    fx = frac((d + 1) - (sx + 1) / scale) (0 when that is <= 0), the
+    second tap dropped at the last input."""
+    inv = n_out / n_in
+    d = np.arange(n_out)
+    sx = np.floor(d * scale).astype(np.int64)
+    fx = ((d + 1) - (sx + 1) * inv).astype(np.float32)
+    fx = np.where(fx <= 0, np.float32(0), fx - np.floor(fx))
+    last = sx >= n_in - 1
+    fx = np.where(last, np.float32(0), fx).astype(np.float32)
+    sx = np.minimum(sx, n_in - 1)
+    return sx, np.minimum(sx + 1, n_in - 1), fx
+
+
+def resize_area(img, size_hw):
+    """`cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)` of a uint8
+    or float32 [H, W] or [H, W, C] image, by OpenCV's three branches:
+      * an integer shrink on both axes: the block mean (`resizeAreaFast`;
+        uint8 2x2 blocks (sum + 2) >> 2, other blocks the float32 sum
+        times float32 1 / area, rounded half to even);
+      * any other shrink on both axes: area-weighted (`resizeArea`),
+        weights as OpenCV tabulates them, summed here in float64;
+      * an enlargement on either axis: OpenCV's linear resize with the
+        area taps (`_area_linear_taps`), horizontal then vertical; uint8
+        in its 11-bit fixed point and its rounding, float32 in float32.
+    The weighted branches round otherwise than OpenCV's float sums: up to
+    one uint8 level, ~1e-6 in float32 (`tests/test_torch_evaluate.py`)."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    oh, ow = (int(s) for s in size_hw)
+    if (oh, ow) == (h, w):
+        return img.copy()
+    is_u8 = img.dtype == np.uint8
+    if not is_u8:
+        img = img.astype(np.float32)
+    sy, sx = 1.0 / (oh / h), 1.0 / (ow / w)
+    squeeze = img.ndim == 2
+    src = img[..., None] if squeeze else img
+    if sx >= 1 and sy >= 1:
+        iy, ix = int(round(sy)), int(round(sx))
+        if abs(sy - iy) < 2.2e-16 and abs(sx - ix) < 2.2e-16:
+            blocks = src[:oh * iy, :ow * ix].reshape(oh, iy, ow, ix, -1)
+            if is_u8:
+                total = blocks.astype(np.int64).sum(axis=(1, 3))
+                if iy == ix == 2:
+                    out = (total + 2) >> 2
+                else:
+                    out = np.rint(total.astype(np.float32)
+                                  * np.float32(1.0 / (iy * ix)))
+            else:
+                total = blocks.transpose(0, 2, 1, 3, 4).reshape(
+                    oh, ow, iy * ix, -1).sum(axis=2, dtype=np.float32)
+                out = total * np.float32(1.0 / (iy * ix))
+        else:
+            wy, wx = _area_weights(h, oh, sy), _area_weights(w, ow, sx)
+            out = np.einsum('yh,hwc,xw->yxc', wy, src.astype(np.float64),
+                            wx, optimize=True)
+            if is_u8:
+                out = np.rint(out)
+    else:
+        y0, y1, fy = _area_linear_taps(h, oh, sy)
+        x0, x1, fx = _area_linear_taps(w, ow, sx)
+        if is_u8:
+            one = 1 << 11
+            ax0 = np.rint((1 - fx) * one).astype(np.int64)[None, :, None]
+            ax1 = np.rint(fx * one).astype(np.int64)[None, :, None]
+            by0 = np.rint((1 - fy) * one).astype(np.int64)[:, None, None]
+            by1 = np.rint(fy * one).astype(np.int64)[:, None, None]
+            s = src.astype(np.int64)
+            rows = s[:, x0] * ax0 + s[:, x1] * ax1          # [H, OW, C]
+            out = ((((rows[y0] >> 4) * by0) >> 16)
+                   + (((rows[y1] >> 4) * by1) >> 16) + 2) >> 2
+        else:
+            rows = src[:, x0] * (1 - fx)[None, :, None] \
+                + src[:, x1] * fx[None, :, None]
+            out = rows[y0] * (1 - fy)[:, None, None] \
+                + rows[y1] * fy[:, None, None]
+    out = np.clip(out, 0, 255).astype(np.uint8) if is_u8 \
+        else out.astype(np.float32)
+    return out[..., 0] if squeeze else out

@@ -7,7 +7,10 @@ random_scale_limit 0.2, hflip, random_crop 256x256,
 label.py:8-41` make_one_hot / concat_labels):
 
   * folder backend: `root/images/*` + `root/seg_maps/*` paired by stem;
-    the LMDB backend raises (the `lmdb` package is not installed)
+    LMDB backend: the raw-bytes databases `root/images` and
+    `root/seg_maps` of `data/lmdb_utils.py` (the real LMDB format where
+    the `lmdb` package is installed, else its sqlite substitute), paired
+    by the stems of their keys
   * joint augmentations applied identically to image (linear) and mask
     (nearest), seeded per item by (seed, epoch, index), with the JAX
     package's order of random draws
@@ -322,6 +325,30 @@ class _FolderBackend:
         return img_buf, seg_buf
 
 
+class _LMDBBackend:
+    """Two raw-bytes databases (images, seg_maps) sharing their keys'
+    stems (reference `utils/lmdb.py:43-74`)."""
+
+    def __init__(self, root, image_dir='images', seg_dir='seg_maps'):
+        from scenedreamer_tpu_torch.data.lmdb_utils import LMDBReader
+        self.images = LMDBReader(os.path.join(root, image_dir))
+        self.segs = LMDBReader(os.path.join(root, seg_dir))
+        img_stems = {os.path.splitext(k)[0]: k for k in self.images.keys}
+        seg_stems = {os.path.splitext(k)[0]: k for k in self.segs.keys}
+        self.stems = sorted(set(img_stems) & set(seg_stems))
+        if not self.stems:
+            raise FileNotFoundError(f'no paired entries under {root}')
+        self._imap, self._smap = img_stems, seg_stems
+
+    def __len__(self):
+        return len(self.stems)
+
+    def read(self, i):
+        stem = self.stems[i]
+        return (self.images.get(self._imap[stem]),
+                self.segs.get(self._smap[stem]))
+
+
 class PairedImageDataset:
     """images + seg_maps -> {'images': [-1,1] float32 HWC,
     'label': one-hot 184ch HWC} (numpy)."""
@@ -332,9 +359,7 @@ class PairedImageDataset:
         if dataset_type == 'folder':
             self.backend = _FolderBackend(root)
         elif dataset_type == 'lmdb':
-            raise NotImplementedError(
-                "dataset_type 'lmdb' is not ported: the lmdb package is "
-                "not installed; use a folder dataset")
+            self.backend = _LMDBBackend(root)
         else:
             raise ValueError(f'unknown dataset_type {dataset_type}')
         self.augmentor = Augmentor(augment) if augment else None

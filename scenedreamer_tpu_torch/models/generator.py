@@ -262,22 +262,31 @@ class SceneDreamerGenerator(nn.Module):
             pts = torch.cat([normalized, genc], dim=-1)
             feat = hashgrid_encode(spec, self.hash_encoder.embeddings, pts)
             feat = feat.reshape(b, -1, spec.output_dim)
+        return self.field_mlp(feat, normalized.shape[:-1], z,
+                              mc_masks_onehot, raydirs_in)
+
+    def field_mlp(self, feat, point_shape, z, mc_masks_onehot,
+                  raydirs_in=None):
+        """The RenderMLP on field features feat [B, N, C_in] of the
+        points of `point_shape` ([B, ...]) -> (sigma, feature) shaped
+        `point_shape` + (channels,)."""
+        b = point_shape[0]
         m_flat = mc_masks_onehot.reshape(b, -1, mc_masks_onehot.shape[-1])
         rd_flat = None
         if raydirs_in is not None:
             rd_flat = raydirs_in.expand(
-                normalized.shape[:-1] + (raydirs_in.shape[-1],)).reshape(
+                tuple(point_shape) + (raydirs_in.shape[-1],)).reshape(
                 b, -1, raydirs_in.shape[-1])
         sigma, feat_c = self.render_net(feat, z, m_flat, rd_flat)
-        out_shape = normalized.shape[:-1]
-        return (sigma.reshape(out_shape + (sigma.shape[-1],)),
-                feat_c.reshape(out_shape + (feat_c.shape[-1],)))
+        return (sigma.reshape(tuple(point_shape) + (sigma.shape[-1],)),
+                feat_c.reshape(tuple(point_shape) + (feat_c.shape[-1],)))
 
     def render_pixels(self, voxel_id, depth, hit_mask, raydirs, cam_ori, z,
                       global_enc, voxel_dims, num_samples=None,
                       sample_depth_clip=None, deterministic=None,
                       sky_avg=None, sky_only=False, baked=None,
-                      generator=None, compact_k=None, rows=None):
+                      generator=None, compact_k=None, rows=None,
+                      field_extra=None):
         """Per-pixel rendering pass (`scenedreamer.py:313-430`).
 
         `compact_k`: evaluate the hash field and the RenderMLP on only the
@@ -302,6 +311,9 @@ class SceneDreamerGenerator(nn.Module):
             compact_k: see above;
             baked: `bake_hash(global_enc)`, reused across calls (None
             for a spec that is not foldable);
+            field_extra: keyword arguments passed on to every
+            `field_features` call (the GANcraft generator's
+            `corner_lut`, JAX `models/generator.py:348,385`);
             generator: `torch.Generator` of the stratified draws when
             not deterministic.
 
@@ -368,7 +380,7 @@ class SceneDreamerGenerator(nn.Module):
             weights, sigma, total_w, terrain_sum = self._compact_field(
                 int(compact_k), worldcoord, mc_masks, new_dists,
                 hit_mask, voxel_dims, global_enc, z, baked, raydirs_in,
-                generator)
+                generator, field_extra)
         else:
             if sky_only:
                 # zeros in the compute dtype, so the compositing promotes
@@ -382,7 +394,8 @@ class SceneDreamerGenerator(nn.Module):
                     torch.float32)
                 sigma, feat_c = self.field_features(
                     worldcoord, voxel_dims, global_enc, z, mc_onehot,
-                    baked=baked, raydirs_in=raydirs_in)
+                    baked=baked, raydirs_in=raydirs_in,
+                    **(field_extra or {}))
             if c.raw_noise_std > 0:
                 shape = sigma.shape if rows is None else \
                     (b, raydirs_all.shape[1]) + sigma.shape[2:]
@@ -474,7 +487,7 @@ class SceneDreamerGenerator(nn.Module):
 
     def _compact_field(self, k, worldcoord, mc_masks, new_dists, hit_mask,
                        voxel_dims, global_enc, z, baked, raydirs_in=None,
-                       generator=None):
+                       generator=None, field_extra=None):
         """`render_pixels`' field on the first `k` rays of each batch item
         after a stable hits-first sort (the JAX package's compact_k
         branch): the field, the compositing weights, the total weight and
@@ -509,7 +522,8 @@ class SceneDreamerGenerator(nn.Module):
             raydirs_in.reshape(b, r_all, 1, raydirs_in.shape[-1]))
         sigma_c, feat_c = self.field_features(
             take(worldcoord.reshape(b, r_all, s, 3)), voxel_dims,
-            global_enc, z, mc_c, baked=baked, raydirs_in=rd_c)
+            global_enc, z, mc_c, baked=baked, raydirs_in=rd_c,
+            **(field_extra or {}))
         if c.raw_noise_std > 0:
             sigma_c = sigma_c + self.sigma_noise(
                 sigma_c.shape, sigma_c.dtype, sigma_c.device,
@@ -530,7 +544,8 @@ class SceneDreamerGenerator(nn.Module):
         return torch.tanh(raw), raw
 
     def forward(self, data, voxel_dims, random_style=False, pad=None,
-                generator=None, style_eps=None, compact_k=None, band=None):
+                generator=None, style_eps=None, compact_k=None, band=None,
+                field_extra=None):
         """The training forward (`scenedreamer.py:432-476`).
 
         data (NHWC): voxel_id [B,H,W,M] int; depth [B,H,W,M,2];
@@ -544,6 +559,7 @@ class SceneDreamerGenerator(nn.Module):
         band: a `parallel.mesh.RowBand`: render its rows alone
         (`render_pixels(rows=...)`) and put the whole feature map
         together with `band.gather` before the RenderCNN.
+        field_extra: `render_pixels`' (JAX `models/generator.py:491`).
 
         Returns dict with fake_images [B, H-pad, W-pad, 3] in [-1, 1],
         fake_images_raw, mu, logvar (None with a random style) and the
@@ -568,7 +584,8 @@ class SceneDreamerGenerator(nn.Module):
             data['voxel_id'], data['depth'], data['hit_mask'],
             data['raydirs'], data['cam_ori'], z, global_enc, voxel_dims,
             generator=generator, compact_k=compact_k,
-            rows=None if band is None else band.rows)
+            rows=None if band is None else band.rows,
+            field_extra=field_extra)
         net_out = out['net_out'] if band is None else \
             band.gather(out['net_out'])
         fake, fake_raw = self.refine(net_out, z)

@@ -83,3 +83,27 @@ class VGG19Features(nn.Module):
             if name in self.layers:
                 taps[name] = y.permute(0, 2, 3, 1)
         return taps
+
+
+def convert_torch_vgg19(state_dict):
+    """torchvision `vgg19().features` state dict -> this module's state
+    dict (`conv{i}.weight` / `.bias`, the torchvision OIHW layout kept).
+
+    Counterpart of JAX `models/vgg.py:convert_torch_vgg19`: the keys are
+    `features.{idx}.weight/bias` in torchvision's layer order (a ReLU
+    after each conv, a max pool before each stage), numpy arrays (an
+    `.npz`) or tensors (a `.pt`); the convs stop at the first one
+    missing. Load with `strict=False` when the module builds fewer."""
+    sd, idx = {}, 0
+    for i, (_, _, pool) in enumerate(VGG19_CFG):
+        idx += 1 if pool else 0          # the max pool's slot
+        w = state_dict.get(f'features.{idx}.weight')
+        if w is None:
+            break
+        for name, v in (('weight', w),
+                        ('bias', state_dict[f'features.{idx}.bias'])):
+            v = v.detach().cpu() if isinstance(v, torch.Tensor) \
+                else torch.from_numpy(np.asarray(v))
+            sd[f'conv{i}.{name}'] = v.to(torch.float32).contiguous()
+        idx += 2                         # conv, ReLU
+    return sd

@@ -184,3 +184,31 @@ def dda_plain(voxel, cam_ori, raydirs, max_samples, max_steps=None,
     if with_steps:
         return out_id, out_t, hit_mask, steps
     return out_id, out_t, hit_mask
+
+
+def ray_voxel_intersection_perspective(voxel, cam_ori, cam_dir, cam_up,
+                                       cam_f, cam_c, img_dims, max_samples,
+                                       max_steps=None, occupancy=None):
+    """Reference-layout wrapper (`voxlib.ray_voxel_intersection_perspective`,
+    JAX `ops/ray_voxel.py:564-586`): `camera_rays` on the grid's device,
+    then `ray_voxel_intersection` (K1 on CUDA, 8x4 pixel tiles).
+
+    Returns:
+        voxel_id: [H, W, M, 1] int32
+        depth: [2, H, W, M, 1] float32 (0 where miss; see hit_mask)
+        raydirs: [H, W, 1, 3] float32
+        hit_mask: [H, W, M] bool (the JAX package's addition; the
+            reference marks misses with NaN)
+    """
+    h, w = img_dims
+    raydirs = camera_rays(cam_dir, cam_up, cam_f, cam_c, img_dims,
+                          device=voxel.device)
+    vid, dep, hit = ray_voxel_intersection(
+        voxel, torch.as_tensor(cam_ori, dtype=torch.float32,
+                               device=voxel.device),
+        raydirs.reshape(-1, 3), max_samples, max_steps,
+        occupancy=occupancy, image_width=w)
+    voxel_id = vid.reshape(h, w, max_samples, 1)
+    depth = dep.reshape(h, w, max_samples, 2).permute(3, 0, 1, 2)[..., None]
+    return voxel_id, depth, raydirs.reshape(h, w, 1, 3), \
+        hit.reshape(h, w, max_samples)

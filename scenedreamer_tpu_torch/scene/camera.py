@@ -190,6 +190,29 @@ class EvalCameraController:
         return iter(self.camera_poses)
 
 
+class TourCameraController:
+    """Four-phase tour: orbit -> orbit+zoom -> spiral-in -> rise
+    (reference `camctl.py:334-442`): `maxstep // 4` poses each of
+    `EvalCameraController` patterns 0, 1, 2 and 6 at 73 degrees."""
+
+    def __init__(self, world, maxstep=128):
+        q = maxstep // 4
+        self.camera_poses = []
+        for pattern in (0, 1, 2, 6):
+            ctl = EvalCameraController(world, maxstep=q, pattern=pattern,
+                                       cam_ang=73)
+            self.camera_poses.extend(ctl.camera_poses)
+
+    def __len__(self):
+        return len(self.camera_poses)
+
+    def __getitem__(self, i):
+        return self.camera_poses[i]
+
+    def __iter__(self):
+        return iter(self.camera_poses)
+
+
 # --------------------------------------------------------------------------
 # Random training-pose samplers
 # --------------------------------------------------------------------------
@@ -318,4 +341,5 @@ def rand_camera_pose_insideout(world, rng):
     ori = world.world2local(near)
     f = _fov_focal(73 * (rnd[5] * 0.75 + 0.25))
     return ori, far - near, _tilted_up(rng), f
+
 

@@ -258,3 +258,18 @@ def generate_terrain(size=1024, seed=3407, n_voronoi=514, relax_iters=12):
                        semantic_map=semantic,
                        tree_map=tree_map,
                        color_map=color.astype(np.uint8))
+
+
+def save_terrain(maps, outdir):
+    """Write the reference's on-disk contract (`terrain_generator.py:370-383`
+    + `save_height_map`): heightmap.npy/.png, semanticmap.png, treemap.png,
+    colormap.png, as PNG by `utils/png.py` (no image library)."""
+    from scenedreamer_tpu_torch.utils.png import write_png
+    os.makedirs(outdir, exist_ok=True)
+    h = maps.height_map
+    h_norm = ((h - h.min()) / max(h.max() - h.min(), 1e-9) * 255)
+    write_png(os.path.join(outdir, 'heightmap.png'), h_norm.astype(np.uint8))
+    np.save(os.path.join(outdir, 'heightmap.npy'), h)
+    write_png(os.path.join(outdir, 'semanticmap.png'), maps.semantic_map)
+    write_png(os.path.join(outdir, 'treemap.png'), maps.tree_map)
+    write_png(os.path.join(outdir, 'colormap.png'), maps.color_map)

@@ -1,9 +1,14 @@
-"""Phase timing for `--speed-benchmark`.
+"""Tracing and phase timing.
 
 Counterpart of `scenedreamer_tpu/utils/profiling.py` (reference
-`trainers/base.py:876-940`: per-phase wall timers with an explicit
-device barrier). The barrier is `torch.cuda.synchronize`; on the CPU
-there is nothing to wait for.
+`train.py:129-151`, `trainers/base.py:876-940`):
+  * `trace(logdir)`: a region profiled by `torch.profiler` (CPU and,
+    where present, CUDA activity), written as a Chrome trace
+    `trace.json` under `logdir` (JAX's `jax.profiler` trace);
+  * `annotate(name)`: a named span inside it (`record_function`);
+  * `PhaseTimer`: per-phase wall timers for `--speed-benchmark`, each
+    phase ending with a device barrier (`torch.cuda.synchronize`; on the
+    CPU there is nothing to wait for).
 """
 import contextlib
 import time
@@ -18,6 +23,28 @@ def host_sync(device=None):
             torch.cuda.synchronize()
     elif torch.device(device).type == 'cuda':
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def trace(logdir):
+    """Profile a code region to `<logdir>/trace.json` (Chrome trace;
+    view in Perfetto or chrome://tracing)."""
+    import os
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, 'trace.json'))
+
+
+@contextlib.contextmanager
+def annotate(name):
+    """Named sub-span inside an active trace."""
+    with torch.profiler.record_function(name):
+        yield
 
 
 class PhaseTimer:

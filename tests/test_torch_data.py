@@ -91,17 +91,27 @@ def test_single_resize_within_one_level(folder, ops):
                                    atol=LEVEL + 1e-6, rtol=0)
 
 
-def test_unported_augmentation_and_lmdb_raise(folder):
+def test_unported_augmentation_and_lmdb_raise(folder, tmp_path):
     """Every augmentation of the JAX package is ported (held against it
     in `test_torch_augment.py`); an unknown one raises ValueError as
-    there, and the lmdb backend is not ported."""
+    there, and so does an unknown dataset type. The lmdb backend is
+    ported: a folder that holds no database raises, one built by
+    `data/lmdb_utils.py` reads the folder dataset's items
+    (`test_torch_scene_cli.py` holds it against the JAX package)."""
+    from scenedreamer_tpu_torch.data.lmdb_utils import build_paired_lmdbs
     tds.Augmentor({'rotate': 10})
     tds.Augmentor({'random_scale_limit': {'scale_limit_lb': 0.2,
                                           'scale_limit_ub': 0.3}})
     with pytest.raises(ValueError, match='Unknown augmentation'):
         tds.Augmentor({'swirl': 1})
-    with pytest.raises(NotImplementedError, match='lmdb'):
-        tds.PairedImageDataset(folder, dataset_type='lmdb')
+    with pytest.raises((ImportError, FileNotFoundError)):
+        tds.PairedImageDataset(str(tmp_path), dataset_type='lmdb')
+    build_paired_lmdbs(folder, str(tmp_path / 'db'))
+    db = tds.PairedImageDataset(str(tmp_path / 'db'), dataset_type='lmdb')
+    ref = tds.PairedImageDataset(folder)
+    assert len(db) == len(ref)
+    for key in ('images', 'label'):
+        np.testing.assert_array_equal(db[1][key], ref[1][key])
     with pytest.raises(ValueError):
         tds.PairedImageDataset(folder, dataset_type='zip')
 

@@ -250,10 +250,28 @@ def test_amp_diff_aug_and_profile(setup, capsys):
 
 
 def test_lmdb_raises(setup):
+    """`--dataset-type lmdb` on a data root that holds no database
+    raises; on the databases `cli.build_db` makes of the data folder, one
+    iteration gives the folder run's meters (the same items, read by the
+    loader's threads)."""
+    from scenedreamer_tpu_torch.cli import build_db
     root, configs = setup
-    with pytest.raises(NotImplementedError, match='lmdb'):
+    with pytest.raises((ImportError, FileNotFoundError)):
         cli.main(_argv(root, configs['xor'], 'logs_lmdb', '--max-iter', '1',
                        '--dataset-type', 'lmdb'))
+    build_db.main(['--data_root', str(root / 'data'), '--output_root',
+                   str(root / 'data_lmdb')])
+    argv = _argv(root, configs['xor'], 'logs_lmdb', '--max-iter', '1',
+                 '--dataset-type', 'lmdb')
+    argv[argv.index('--data-root') + 1] = str(root / 'data_lmdb')
+    cli.main(argv)
+    cli.main(_argv(root, configs['xor'], 'logs_lmdb_folder', '--max-iter',
+                   '1'))
+    got, want = (
+        {k: v for k, v in _series(_newest(root, logs)).items()
+         if not k.startswith('perf/')}        # timings
+        for logs in ('logs_lmdb', 'logs_lmdb_folder'))
+    assert 'gen/l2' in got and got == want
 
 
 def test_spade_checkpoint_sets_the_oracle_widths(setup, tmp_path, capsys):
