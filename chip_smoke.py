@@ -218,6 +218,15 @@ of the repository. Phases, each fatal on failure:
      frame, s/frame), then `--fake-dir` on those frames written as PNG;
      (d) `terrain_gen --size 1024` -> `pcg_cache` -> `load_world_cache`
      and `build_db` -> an lmdb-backed loader batch, with host seconds.
+ 17. the layer library ('[layers]', '[layers time]' lines): every class
+     of `models/blocks.py`, `models/blocks_ext.py` and `models/spade.py:
+     DualAdaptiveNorm` (no hand-written kernel: cuDNN convs and plain
+     PyTorch) at 64 channels, 32x32 maps (1-D 1024, 3-D 16^3), batch 2,
+     forward and backward on the card against a CPU copy with the same
+     state dict and cotangents, at the CPU tests' tolerances (forward
+     1e-5 of the largest value + 1e-6, each gradient 1e-4 + 1e-7); then
+     each class's forward and forward + backward ms at 256 channels,
+     64x64 (1-D 4096; 3-D 64 channels at 32^3); K1-K5 launched 0 times.
 
 Then the total time, one `kernels` JSON line covering K1-K5 (K4a also
 at the serving chunk, under `at_serving_chunk`; K5b's whole launch there
@@ -3617,6 +3626,279 @@ def legacy_eval_scene(torch, kernels, world, ctl, dev):
     return dict(flagship=flag, tiny=tiny, eval=ev, scene=scene)
 
 
+# phase 17: the layer library -----------------------------------------------
+# held: every class at 64 channels, 32x32 maps (1-D 1024, 3-D 16^3),
+# batch 2, the card against a CPU copy at the CPU tests' tolerances
+# (`tests/_torch_blocks_parity.py`); timed: 256 channels, 64x64 (1-D
+# 4096; 3-D 64 channels at 32^3), batch 2, on the card alone
+LAYER_HELD = dict(w=64, hw=32, d=16, w3=64)
+LAYER_TIMED = dict(w=256, hw=64, d=32, w3=64)
+LAYER_FWD_REL, LAYER_FWD_ABS = 1e-5, 1e-6
+LAYER_GRAD_REL, LAYER_GRAD_ABS = 1e-4, 1e-7
+# parameters whose gradient is 0 but for rounding (phi's bias shifts a
+# whole softmax row): held within 1e-5 of the largest parameter gradient
+LAYER_ZERO_GRADS = {'NonLocal2dBlock': ('phi.bias',)}
+# the held blocks' activation after a conv or norm: smooth, since at a
+# leaky ReLU's kink an element within rounding of 0 takes one branch on
+# the CPU and the other on the card (seen: one element of 131,072, |y|
+# 1e-8, its gradient 0.8x off, spread by the conv below it), which no
+# tolerance on the other elements measures; `ScaledLeakyReLU` holds the
+# leaky branches themselves on identical inputs. Timed with the defaults.
+LAYER_HELD_NL = 'tanh'
+
+
+def layer_cases(torch, w, hw, d, w3, nl='leakyrelu', seed=SEED):
+    """(name, module, inputs) per class of `models/blocks.py`,
+    `models/blocks_ext.py` and `models/spade.py:DualAdaptiveNorm`, built
+    on the CPU with every parameter and buffer drawn from `seed` (weights
+    N(0, 1/fan_in), vectors N(0, 0.25), batch-norm variances U(0.5,
+    1.5)); 2-D inputs [2, w, hw, hw], 1-D [2, w, hw^2], 3-D [2, w3, d, d,
+    d]; `nl` the blocks' nonlinearity ('fused_' + it for the bias_act
+    blocks that take one)."""
+    from scenedreamer_tpu_torch.models import blocks as B
+    from scenedreamer_tpu_torch.models import blocks_ext as X
+    from scenedreamer_tpu_torch.models.spade import DualAdaptiveNorm
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g)
+
+    x, x1, x3 = rnd(2, w, hw, hw), rnd(2, w, hw * hw), rnd(2, w3, d, d, d)
+    v, z = rnd(2, w), rnd(2, 64)
+    mask = (torch.rand((2, 1, hw, hw), generator=g) > 0.3).float()
+    mask3 = (torch.rand((2, 1, d, d, d), generator=g) > 0.3).float()
+    noise = rnd(2, 1, hw, hw)
+    ids = torch.randint(0, 20, (2, hw, hw), generator=g)
+    hyper = (rnd(2, w, w, 3, 3) / math.sqrt(9 * w), rnd(2, w))
+    half = w // 2
+    fused = 'fused_lrelu' if nl == 'leakyrelu' else nl
+    cases = [
+        ('Blur', B.Blur(), (x,)),
+        ('BlurUpsample', B.BlurUpsample(), (x,)),
+        ('BlurDownsample', B.BlurDownsample(), (x,)),
+        ('_FrozenBatchNorm2d', B._FrozenBatchNorm2d(w), (x,)),
+        ('Conv2dBlock', B.Conv2dBlock(
+            w, w, stride=2, blur=True, weight_norm_type='spectral',
+            activation_norm_type='group', nonlinearity=fused), (x,)),
+        ('LinearBlock', B.LinearBlock(w, w, nonlinearity=fused,
+                                      order='CA'), (v,)),
+        ('Res2dBlock', B.Res2dBlock(w, half, order='NACNAC',
+                                    activation_norm_type='layer_2d',
+                                    weight_norm_type='weight',
+                                    nonlinearity=nl), (x,)),
+        ('ApplyNoise', B.ApplyNoise(), (x, noise)),
+        ('EqualizedDense', B.EqualizedDense(w, w, lr_mul=0.5), (v,)),
+        ('NonLocal2dBlock', B.NonLocal2dBlock(w), (x,)),
+        ('Res2dBlockDown', B.Res2dBlockDown(w, w, nonlinearity=nl), (x,)),
+        ('PartialConv2d', B.PartialConv2d(w, w), (x, mask)),
+        ('HyperConv2dBlock', B.HyperConv2dBlock(
+            w, w, activation_norm_type='batch', nonlinearity=nl),
+         (x, hyper)),
+        ('ViT2dBlock', B.ViT2dBlock(
+            w, w, stride=0.5, blur=True, apply_noise=True,
+            weight_norm_type='spectral', output_scale=0.7,
+            nonlinearity=nl),
+         (x, False, rnd(2, 1, 2 * hw + 1, 2 * hw + 1))),
+        ('ConstantInput', B.ConstantInput(w), (2,)),
+        ('ScaledLeakyReLU', X.ScaledLeakyReLU(), (x,)),
+        ('LayerNorm2d', X.LayerNorm2d(w), (x,)),
+        ('ScaleNorm', X.ScaleNorm(), (x,)),
+        ('PixelNorm', X.PixelNorm(), (x,)),
+        ('PixelLayerNorm', X.PixelLayerNorm(w), (x,)),
+        ('SplitMeanStd', X.SplitMeanStd(), (x,)),
+        ('Conv1dBlock', X.Conv1dBlock(w, w, activation_norm_type='batch',
+                                      order='NAC', nonlinearity=nl), (x1,)),
+        ('Conv3dBlock', X.Conv3dBlock(w3, w3, activation_norm_type='group',
+                                      weight_norm_type='weight',
+                                      nonlinearity=nl), (x3,)),
+        ('Res1dBlock', X.Res1dBlock(w, half, output_scale=0.5,
+                                    nonlinearity=nl), (x1,)),
+        ('Res3dBlock', X.Res3dBlock(w3, w3, order='NACNAC',
+                                    activation_norm_type='batch',
+                                    nonlinearity=nl), (x3,)),
+        ('ResLinearBlock', X.ResLinearBlock(w, half, nl), (v,)),
+        ('UpRes2dBlock', X.UpRes2dBlock(w, half, order='NACNAC', blur=True,
+                                        activation_norm_type='batch',
+                                        nonlinearity=nl), (x,)),
+        ('DeepRes2dBlock', X.DeepRes2dBlock(w, 2 * w, stride=2,
+                                            activation_norm_type='batch',
+                                            nonlinearity=nl), (x,)),
+        ('ModulatedConv2d', X.ModulatedConv2d(w, w, stride=0.5),
+         (x, v + 1.0)),
+        ('ModulatedConv2dBlock', X.ModulatedConv2dBlock(
+            w, w, 64, apply_noise=True, nonlinearity=nl), (x, z, noise)),
+        ('ModulatedRes2dBlock', X.ModulatedRes2dBlock(w, half, 64,
+                                                      nonlinearity=nl),
+         (x, z, noise)),
+        ('MultiOutConv2dBlock', X.MultiOutConv2dBlock(
+            w, w, activation_norm_type='split_mean_std', nonlinearity=nl),
+         (x,)),
+        ('MultiOutRes2dBlock', X.MultiOutRes2dBlock(
+            w, half, activation_norm_type='split_mean_std',
+            nonlinearity=nl), (x,)),
+        ('PartialConv3d', X.PartialConv3d(w3, w3, multi_channel=True),
+         (x3, None)),
+        ('PartialConv2dBlock', X.PartialConv2dBlock(
+            w, w, activation_norm_type='batch', nonlinearity=nl), (x, mask)),
+        ('PartialConv3dBlock', X.PartialConv3dBlock(w3, w3, nonlinearity=nl),
+         (x3, mask3)),
+        ('PartialRes2dBlock', X.PartialRes2dBlock(w, half, nonlinearity=nl),
+         (x, mask)),
+        ('PartialRes3dBlock', X.PartialRes3dBlock(w3, w3, nonlinearity=nl),
+         (x3, mask3)),
+        ('HyperRes2dBlock', X.HyperRes2dBlock(w, w, nonlinearity=nl,
+                                              hyper=(True, False, False)),
+         (x, (hyper, None, None))),
+        # its hidden conv's ReLU is fixed: held without it (num_filters 0;
+        # that Conv2dBlock is held above), timed with it
+        ('HyperSpatiallyAdaptiveNorm', X.HyperSpatiallyAdaptiveNorm(
+            w, (16, 8), num_filters=0 if nl == LAYER_HELD_NL else 32),
+         (x, [(rnd(2, 16, hw // 2, hw // 2), mask[:, :, ::2, ::2]),
+              rnd(2, 8, 2 * hw, 2 * hw)],
+          (rnd(2, 2 * w, 16, 3, 3) / 12.0, rnd(2, 2 * w)))),
+        ('Embedding2d', X.Embedding2d(20, w), (ids,)),
+        ('EmbeddingBlock', X.EmbeddingBlock(20, w, 'tanh'), (ids[:, 0],)),
+        ('Embedding2dBlock', X.Embedding2dBlock(20, w, 'sigmoid'),
+         (ids[:, None],)),
+        ('DualAdaptiveNorm', DualAdaptiveNorm(w, (16, 8), (True, False)),
+         (x, rnd(2, 16, hw // 2, hw // 2), rnd(2, 8))),
+    ]
+    for _, module, _ in cases:
+        with torch.no_grad():
+            for name, t in module.state_dict(keep_vars=True).items():
+                if name.endswith('var'):
+                    t.uniform_(0.5, 1.5, generator=g)
+                elif t.dim() >= 2 and not name.endswith('weight_u'):
+                    t.normal_(0.0, 1.0 / math.sqrt(t[0].numel()),
+                              generator=g)
+                elif t.is_floating_point():
+                    t.normal_(0.0, 0.5, generator=g)
+    return cases
+
+
+def _to(torch, tree, dev):
+    if torch.is_tensor(tree):
+        return tree.to(dev)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(torch, t, dev) for t in tree)
+    return tree
+
+
+def _layer_run(torch, module, inputs, cots=None):
+    """(float outputs, first float input or None) of module(*inputs);
+    with `cots`, sum(out * cot) is back-propagated."""
+    x = inputs[0]
+    if torch.is_tensor(x) and x.is_floating_point():
+        x = x.clone().requires_grad_(cots is not None)
+    out = module(x, *inputs[1:])
+    outs = [o for o in (out if isinstance(out, tuple) else (out,))
+            if torch.is_tensor(o)]
+    if cots is not None:
+        sum((o * c).sum() for o, c in zip(outs, cots)).backward()
+    return outs, (x if torch.is_tensor(x) and x.requires_grad else None)
+
+
+def _layer_err(got, want, rel, abs_):
+    err = float((got.detach().cpu() - want.detach()).abs().max())
+    return err, rel * float(want.detach().abs().max()) + abs_
+
+
+def layers_held(torch, dev):
+    """Phase 17 (a): each class forward and backward on the card against
+    its CPU copy (same state dict, same inputs and cotangents), with
+    LAYER_HELD_NL as the blocks' nonlinearity."""
+    import copy
+    cases = layer_cases(torch, **LAYER_HELD, nl=LAYER_HELD_NL)
+    g = torch.Generator().manual_seed(SEED + 1)
+    worst = 0.0
+    for name, cpu, inputs in cases:
+        card = copy.deepcopy(cpu).to(dev)
+        c_outs, _ = _layer_run(torch, cpu, inputs)
+        cots = [torch.randn(o.shape, generator=g) for o in c_outs]
+        cpu.zero_grad(set_to_none=True)
+        c_outs, c_x = _layer_run(torch, cpu, inputs, cots)
+        d_outs, d_x = _layer_run(torch, card, _to(torch, inputs, dev),
+                                 _to(torch, cots, dev))
+        fwd = [_layer_err(d, c, LAYER_FWD_REL, LAYER_FWD_ABS)
+               for d, c in zip(d_outs, c_outs)]
+        grads = [] if c_x is None else [
+            ('input', *_layer_err(d_x.grad, c_x.grad, LAYER_GRAD_REL,
+                                  LAYER_GRAD_ABS))]
+        dparams = dict(card.named_parameters())
+        cgrads = {k: p.grad for k, p in cpu.named_parameters()}
+        scale = max((float(t.abs().max()) for t in cgrads.values()
+                     if t is not None), default=0.0)
+        for k, cg in cgrads.items():
+            dg = dparams[k].grad
+            if cg is None:
+                cg, dg = (torch.zeros_like(dparams[k]).cpu(),
+                          torch.zeros_like(dparams[k]) if dg is None else dg)
+            if k in LAYER_ZERO_GRADS.get(name, ()):
+                grads.append((k, max(float(cg.abs().max()),
+                                     float(dg.abs().max())), 1e-5 * scale))
+            else:
+                grads.append((k, *_layer_err(dg, cg, LAYER_GRAD_REL,
+                                             LAYER_GRAD_ABS)))
+        f_err, f_lim = max(fwd, key=lambda e: e[0] / e[1])
+        g_name, g_err, g_lim = max(grads, key=lambda e: e[1] / e[2])
+        log(f'[layers] {name}: forward max abs diff {f_err:.3g} (limit '
+            f'{f_lim:.3g}); gradients {len(grads)}, worst {g_name} '
+            f'{g_err:.3g} (limit {g_lim:.3g})')
+        for e, lim in fwd:
+            assert e <= lim, f'{name}: the card\'s output differs'
+        for k, e, lim in grads:
+            assert e <= lim, f'{name}: the card\'s gradient of {k} differs'
+        worst = max(worst, f_err / f_lim, g_err / g_lim)
+        del card
+    return len(cases), worst
+
+
+def layers_timed(torch, dev):
+    """Phase 17 (b): each class forward and forward + backward on the
+    card alone at LAYER_TIMED's widths (`median_ms`)."""
+    times = {}
+    for name, module, inputs in layer_cases(torch, **LAYER_TIMED):
+        module = module.to(dev)
+        inputs = _to(torch, inputs, dev)
+        with torch.no_grad():
+            outs, _ = _layer_run(torch, module, inputs)
+        cots = [torch.randn_like(o) for o in outs]
+
+        def fwd():
+            with torch.no_grad():
+                _layer_run(torch, module, inputs)
+
+        def fwd_bwd():
+            module.zero_grad(set_to_none=True)
+            _layer_run(torch, module, inputs, cots)
+
+        times[name] = (median_ms(fwd, reps=3), median_ms(fwd_bwd, reps=3))
+        log(f'[layers time] {name}: forward {times[name][0]:.3f} ms, '
+            f'forward + backward {times[name][1]:.3f} ms')
+        del module, inputs, outs, cots
+    torch.cuda.empty_cache()
+    return times
+
+
+def layer_library(torch, kernels, dev):
+    """Phase 17: the layer library on the card; K1-K5 never launched."""
+    t_phase = time.time()
+    kernels.reset_launch_counts()
+    n, worst = layers_held(torch, dev)
+    s = LAYER_TIMED
+    log(f'[layers] {n} classes held at {LAYER_HELD["w"]} channels, '
+        f'{LAYER_HELD["hw"]}x{LAYER_HELD["hw"]} (3-D {LAYER_HELD["d"]}^3), '
+        f'batch 2: worst error / limit {worst:.3g}; timing at {s["w"]} '
+        f'channels, {s["hw"]}x{s["hw"]} (3-D {s["w3"]} channels at '
+        f'{s["d"]}^3)')
+    times = layers_timed(torch, dev)
+    counts = kernels.launch_counts()
+    log(f'[layers] K1-K5 launches in the phase: {counts}')
+    assert not any(counts.values()), 'the layer library launched K1-K5'
+    log(f'[layers] phase 17 in {time.time() - t_phase:.1f} s')
+    return times
+
+
 def split_extra(split):
     """The `kernels` row fields of a scatter's per-level split: the whole
     launch with every level direct (before the coarse path) in ray order,
@@ -4098,6 +4380,9 @@ def main():
     # 16. the legacy GANcraft path, evaluation, the scene CLIs -----------------
     legacy = legacy_eval_scene(torch, kernels, world, ctl, dev)
 
+    # 17. the layer library --------------------------------------------------
+    layer_library(torch, kernels, dev)
+
     table_rows = kernel_rows(serving, k3, k3_split, train, k5, k5_split,
                              k5b, loop) \
         + general_rows(k4, k4_split, (int(chunk_n), *k4c), urender, ustep,
@@ -4122,7 +4407,7 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
-    log(f'[smoke] phases 1-16 in {time.time() - t_start:.1f} s')
+    log(f'[smoke] phases 1-17 in {time.time() - t_start:.1f} s')
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

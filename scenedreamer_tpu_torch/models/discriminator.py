@@ -42,6 +42,23 @@ def _l2_normalize(x):
     return x * torch.rsqrt((x * x).sum() + SN_EPS)
 
 
+def spectral_normalize(mod, w, wm, update_stats=False):
+    """flax's `SpectralNorm` of the weight `w`, whose matrix view is wm
+    [O, K]: one power-iteration step from the buffer `mod.weight_u` [1, O]
+    (held constant, so the gradient flows through sigma = v W u^T only),
+    then w / sigma; `update_stats` writes the new u and sigma to
+    `mod.weight_u` and `mod.weight_sigma`."""
+    with torch.no_grad():
+        v = _l2_normalize(mod.weight_u @ wm)            # [1, K]
+        u = _l2_normalize(v @ wm.t())                   # [1, O]
+    sigma = (v @ wm.t() @ u.t())[0, 0]
+    if update_stats:
+        # new tensors, not in-place writes: autograd may hold the old
+        mod.weight_u = u
+        mod.weight_sigma = sigma.detach()
+    return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+
+
 class SNConv(nn.Module):
     """Conv2d (zero bias, xavier_normal(gain 0.02) weight), optionally
     spectrally normalised, then leaky ReLU(0.2) unless `act=False`
@@ -75,16 +92,8 @@ class SNConv(nn.Module):
     def normalized_weight(self, update_stats=False):
         """W / sigma after one power-iteration step from `weight_u`."""
         w = self.weight
-        wm = w.reshape(w.shape[0], -1)                  # [O, I*kh*kw]
-        with torch.no_grad():
-            v = _l2_normalize(self.weight_u @ wm)       # [1, I*kh*kw]
-            u = _l2_normalize(v @ wm.t())               # [1, O]
-        sigma = (v @ wm.t() @ u.t())[0, 0]
-        if update_stats:
-            # new tensors, not in-place writes: autograd may hold the old
-            self.weight_u = u
-            self.weight_sigma = sigma.detach()
-        return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+        return spectral_normalize(self, w, w.reshape(w.shape[0], -1),
+                                  update_stats)
 
     def forward(self, x, update_stats=False):
         """x [B, C, H, W] (NCHW inside the discriminator)."""

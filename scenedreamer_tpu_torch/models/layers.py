@@ -48,8 +48,8 @@ class _LeakyReLU(torch.autograd.Function):
         return torch.where(y < 0, g * ctx.slope, g), None
 
 
-def leaky_relu(x, grad_one_at_zero=False):
-    """Leaky ReLU as JAX computes it: slope 0.2 in x's dtype (JAX
+def leaky_relu(x, grad_one_at_zero=False, slope=0.2):
+    """Leaky ReLU as JAX computes it: `slope` (0.2) in x's dtype (JAX
     multiplies a bf16 x by 0.2 rounded to bf16, 0.2001953125, not by the
     float32 0.2). `grad_one_at_zero` also takes JAX's gradient at exactly
     0 (1, where torch's fused backward passes the slope), at the price of
@@ -61,8 +61,8 @@ def leaky_relu(x, grad_one_at_zero=False):
     width, where the three kernels cost ~20 ms of device time a step on
     an H100 (`scripts/torch_profile_train.py`), and no exact zeros reach
     them in the tests held against JAX."""
-    slope = 0.2 if x.dtype == torch.float32 else \
-        float(torch.tensor(0.2, dtype=x.dtype))
+    slope = slope if x.dtype == torch.float32 else \
+        float(torch.tensor(slope, dtype=x.dtype))
     if grad_one_at_zero and torch.is_grad_enabled() and x.requires_grad:
         return _LeakyReLU.apply(x, slope)
     return F.leaky_relu(x, slope)

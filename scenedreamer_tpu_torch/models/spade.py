@@ -222,6 +222,52 @@ class AdaptiveNorm(nn.Module):
         return self.norm(x) * (1.0 + gamma) + beta
 
 
+class DualAdaptiveNorm(nn.Module):
+    """Normalize, then modulate by a list of conditions
+    (`activation_norm.py:266-331` DualAdaptiveNorm; no shipped reference
+    config builds it): the norm of `models/blocks.make_norm(norm_type)`
+    (`norm`), then per condition i, unless it is None, `gamma_{i}` /
+    `beta_{i}`: 1x1 convs of a spatial condition [N, C_i, h, w], resized
+    to x's size as `jax.image.resize(..., 'bilinear')` does when the
+    sizes differ, or linears of a vector condition [N, C_i]; out * (1 +
+    gamma) + beta, or out + beta with `bias_only`."""
+
+    def __init__(self, num_features, cond_dims, is_spatial=(False,),
+                 bias_only=False, norm_type='instance'):
+        super().__init__()
+        from scenedreamer_tpu_torch.models.blocks import make_norm
+        assert len(cond_dims) == len(is_spatial)
+        self.is_spatial, self.bias_only = tuple(is_spatial), bias_only
+        self.norm = make_norm(norm_type, num_features)
+        for i, (c, spatial) in enumerate(zip(cond_dims, is_spatial)):
+            for name in (f'gamma_{i}', f'beta_{i}'):
+                layer = nn.Conv2d(c, num_features, 1) if spatial \
+                    else nn.Linear(c, num_features)
+                xavier_gain_(layer.weight)
+                nn.init.zeros_(layer.bias)
+                self.add_module(name, layer)
+
+    def forward(self, x, *cond_inputs):
+        assert len(cond_inputs) == len(self.is_spatial)
+        out = x if self.norm is None else self.norm(x)
+        for i, (cond, spatial) in enumerate(zip(cond_inputs,
+                                                self.is_spatial)):
+            if cond is None:
+                continue
+            gamma = getattr(self, f'gamma_{i}')(cond)
+            beta = getattr(self, f'beta_{i}')(cond)
+            if spatial:
+                if gamma.shape[2:] != x.shape[2:]:
+                    gamma, beta = (resize_bilinear(
+                        t.permute(0, 2, 3, 1), x.shape[2:]).permute(
+                            0, 3, 1, 2) for t in (gamma, beta))
+            else:
+                gamma, beta = gamma[:, :, None, None], beta[:, :, None, None]
+            out = out + beta if self.bias_only \
+                else out * (1.0 + gamma) + beta
+        return out
+
+
 class SpadeRes2dBlock(nn.Module):
     """Res2dBlock order NACNAC with SPADE norms and learned shortcut
     (`generators/spade.py:272-282`, `layers/residual.py`)."""

@@ -24,7 +24,9 @@ params and batch-norm statistics, frozen or trainable, with its style
 encoder, onto `models/spade.py` (the inverse of `convert_spade`,
 `convert.py:232-322` there), and
 `multiscale_discriminator_state_dict_from_flax` the SPADE trainer's
-discriminator onto `train/gan_losses.py`. `spade_frozen_from_trained`
+discriminator onto `train/gan_losses.py`, and `blocks_state_dict_from_flax`
+any module of the layer library onto `models/blocks.py` /
+`models/blocks_ext.py`. `spade_frozen_from_trained`
 folds a trained port SPADE (`train/spade_trainer.py`) into the frozen
 oracle's state dict (JAX `convert.py:345-382`).
 
@@ -196,6 +198,15 @@ def _tensor(arr):
     return torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
 
 
+def _sn_buffers(prefix, sn, conv):
+    """flax `SpectralNorm` state of its wrapped module `conv` (leaves
+    `<conv>/kernel/u` [1, O] and `<conv>/kernel/sigma` []) -> the port's
+    buffers `<prefix>.weight_u` and `<prefix>.weight_sigma`."""
+    return {f'{prefix}.weight_{w}': _tensor(
+        np.asarray(sn[f'{conv}/kernel/{w}'], np.float32))
+        for w in ('u', 'sigma')}
+
+
 def discriminator_state_dict_from_flax(params, spectral_stats):
     """`GANcraftDiscriminator` variables (params and the `spectral_stats`
     collection, each with or without its top-level key) -> the state dict
@@ -213,11 +224,8 @@ def discriminator_state_dict_from_flax(params, spectral_stats):
                                                      np.float32))
         sn = stats.get('fpse', {}).get(name)
         if sn is not None:
-            sn = sn['SpectralNorm_0']
-            sd[f'fpse.{name}.weight_u'] = _tensor(
-                np.asarray(sn['Conv_0/kernel/u'], np.float32))
-            sd[f'fpse.{name}.weight_sigma'] = _tensor(
-                np.asarray(sn['Conv_0/kernel/sigma'], np.float32))
+            sd.update(_sn_buffers(f'fpse.{name}', sn['SpectralNorm_0'],
+                                  'Conv_0'))
     return sd
 
 
@@ -321,12 +329,75 @@ def multiscale_discriminator_state_dict_from_flax(params, spectral_stats):
                                                         np.float32))
             sn = stats.get(d, {}).get(name)
             if sn is not None:
-                sn = sn['SpectralNorm_0']
-                sd[f'{d}.{name}.weight_u'] = _tensor(
-                    np.asarray(sn['Conv_0/kernel/u'], np.float32))
-                sd[f'{d}.{name}.weight_sigma'] = _tensor(
-                    np.asarray(sn['Conv_0/kernel/sigma'], np.float32))
+                sd.update(_sn_buffers(f'{d}.{name}', sn['SpectralNorm_0'],
+                                      'Conv_0'))
     return sd
+
+
+# flax's auto-named norms of `make_norm`, `norm` / `norm_<i>` in the port
+_AUTO_NORM = re.compile(r'(GroupNorm|LayerNorm|_FrozenBatchNorm2d)_(\d+)')
+
+
+def _blocks_key(path):
+    out = []
+    for p in path:
+        m = _AUTO_NORM.fullmatch(p)
+        out.append(p if m is None else
+                   'norm' if m.group(2) == '0' else f'norm_{m.group(2)}')
+    return '.'.join(out)
+
+
+def blocks_state_dict_from_flax(variables, transposed=()):
+    """Variables of a layer-library module of the JAX package
+    (`models/blocks.py`, `models/blocks_ext.py`, `models/spade.py:
+    DualAdaptiveNorm`): {'params': ..., 'batch_stats': ...,
+    'spectral_stats': ...} of numpy-convertible leaves -> the state dict
+    of the matching port module (`scenedreamer_tpu_torch/models/blocks*.py`),
+    whose names are flax's with `kernel` / `embedding` -> `weight` and the
+    auto-named norms (`GroupNorm_0`, `LayerNorm_0`, `_FrozenBatchNorm2d_0`)
+    -> `norm`. Leaves:
+      * conv kernels of rank 1-3 (*k, I, O) and `wn_v` -> (O, I, *k); a
+        4-D `weight` (ModulatedConv2d, HWIO) likewise; dense kernels
+        (I, O) -> (O, I); EqualizedDense's 2-D `weight` [O, I] as it is;
+      * the kernels of the flax `nn.ConvTranspose` modules at the paths
+        in `transposed` ('/'-joined, e.g. 'conv'): flax does not flip
+        the kernel, torch's `conv_transpose2d` does, so (kh, kw, I, O) ->
+        [I, O, kh, kw] flipped spatially;
+      * `const` (1, s, s, C) -> (1, C, s, s); everything else (norm scale
+        and bias, embeddings, scalars, `batch_stats` mean / var) as it is;
+      * `spectral_stats` `.../SpectralNorm_<i>/<conv>/kernel/u` and
+        `sigma` -> `<conv>.weight_u` / `.weight_sigma`.
+    The same mapping carries a gradient tree of the params."""
+    sd = {}
+    for path, leaf in _leaves(variables.get('params', {})):
+        *mod, name = path
+        arr = np.asarray(leaf, np.float32)
+        if name in ('kernel', 'wn_v') or (name == 'weight' and arr.ndim > 2):
+            if '/'.join(mod) in transposed:
+                arr = np.flip(np.moveaxis(arr, (-2, -1), (0, 1)),
+                              tuple(range(2, arr.ndim)))
+            else:
+                arr = np.moveaxis(arr, (-1, -2), (0, 1))
+        elif name == 'const':
+            arr = np.moveaxis(arr, -1, 1)
+        name = 'weight' if name in ('kernel', 'embedding') else name
+        sd[_blocks_key(mod + [name])] = _tensor(arr)
+    for path, leaf in _leaves(variables.get('batch_stats', {})):
+        sd[_blocks_key(path)] = _tensor(np.asarray(leaf, np.float32))
+    for path, sn in _sn_modules(variables.get('spectral_stats', {})):
+        for conv in {k.split('/')[0] for k in sn}:
+            sd.update(_sn_buffers(_blocks_key(path + [conv]), sn, conv))
+    return sd
+
+
+def _sn_modules(tree, path=()):
+    """(path of the parent module, state dict) of each `SpectralNorm_<i>`
+    in a `spectral_stats` tree."""
+    for k, v in tree.items():
+        if re.fullmatch(r'SpectralNorm_\d+', k):
+            yield list(path), v
+        else:
+            yield from _sn_modules(v, path + (k,))
 
 
 def spade_frozen_from_trained(state):
