@@ -227,6 +227,17 @@ of the repository. Phases, each fatal on failure:
      1e-5 of the largest value + 1e-6, each gradient 1e-4 + 1e-7); then
      each class's forward and forward + backward ms at 256 channels,
      64x64 (1-D 4096; 3-D 64 channels at 32^3); K1-K5 launched 0 times.
+ 18. the exported tile program ('[export]' lines): for the xor, paired and
+     log2-21 specs at the flagship inference width (seeded weights),
+     `TiledRenderer.export_tile` (tile 128 + pad 30, batch 1) on the card
+     with the caches of device tensors cleared first, saved and loaded
+     back (`load_exported`); the loaded program on two tiles of phase
+     12's frame, one with a hit and one without, held against the live
+     tile (`render_tile`: image within 1e-5, depth within 1e-4 where
+     finite, inf on the same rays), with exactly K2a + K2b, K5a + K5b
+     or K4a launched, once each per call; the export, save and load
+     seconds, the artifact's MB, and the loaded and live tile's ms
+     (median of 5, CUDA events) beside the card's name and power limit.
 
 Then the total time, one `kernels` JSON line covering K1-K5 (K4a also
 at the serving chunk, under `at_serving_chunk`; K5b's whole launch there
@@ -234,7 +245,8 @@ under `serving_chunk_ms`; every row with its launches per padded-tile
 frame at 1 and 4 tiles per batch and per AMP step), the card's name and
 power limit (nvidia-smi), and last the line {"ok": true, "device": {...}}.
 Every row also gives its launches per GANcraft step (phase 16 (a): the
-batch build's K1) and per evaluation frame (phase 16 (c)).
+batch build's K1), per evaluation frame (phase 16 (c)) and per call of
+each exported tile program (phase 18, by spec).
 Float32 everywhere but phase 12's bf16 frame and phase 13's AMP: TF32
 is switched off for matmuls and convolutions.
 """
@@ -3899,6 +3911,132 @@ def layer_library(torch, kernels, dev):
     return times
 
 
+# phase 18: the exported tile program --------------------------------------
+
+# the specs of phase 18 and the kernels their tile program launches
+EXPORT_SPECS = (
+    ('xor', {}, ('hash_bake', 'hash_encode')),
+    ('paired', dict(hash_variant='paired'),
+     ('hash_shift_bake', 'hash_encode_paired')),
+    (f'log2-{LOG2_UNFOLDED}', dict(hash_log2_size=LOG2_UNFOLDED),
+     ('hash_encode_general',)),
+)
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _held_tile(torch, got, want):
+    """(image max abs diff, depth max abs diff where finite, inf on the
+    same rays) of a tile program's output against another's."""
+    img = float((got[0] - want[0]).abs().max())
+    fin = torch.isfinite(want[1])
+    same = bool(torch.equal(torch.isfinite(got[1]), fin))
+    dep = float((got[1][fin] - want[1][fin]).abs().max()) if fin.any() \
+        else 0.0
+    return img, dep, same
+
+
+def tile_export(torch, kernels, world, style, pose, dev):
+    """Phase 18: for each of EXPORT_SPECS at the flagship inference width
+    (seeded weights, tile 128 + pad 30, batch 1), the caches of device
+    tensors cleared, `export_tile` on the card, saved to disk and loaded
+    back; the loaded program called on two tiles of phase 12's frame
+    (phase 4's first pose), the first with a hit and the first without,
+    each held against the live tile (`render_tile`): image within 1e-5,
+    depth within 1e-4 where finite, inf on the same rays; exactly its
+    kernels launched, once each per call. Returns {spec: launches per
+    loaded call by kernel}."""
+    import numpy as np
+    from scenedreamer_tpu_torch.models import generator as gen_mod
+    from scenedreamer_tpu_torch.models.generator import (
+        GeneratorConfig, SceneDreamerGenerator)
+    from scenedreamer_tpu_torch.ops import hashgrid as hg
+    from scenedreamer_tpu_torch.render.pipeline import TiledRenderer
+    from scenedreamer_tpu_torch.scene import labels
+    t_phase = time.time()
+    card = card_line()
+    out_dir = os.path.join(REPO, 'smoke_out', 'export')
+    os.makedirs(out_dir, exist_ok=True)
+    t = TILE + PAD
+    per_call = {}
+    for name, extra, launched in EXPORT_SPECS:
+        cfg = GeneratorConfig(num_samples=SAMPLES, num_blocks_early_stop=M,
+                              **extra)
+        model = SceneDreamerGenerator(cfg, seed=SEED).to(dev).eval()
+        r = TiledRenderer(model, world, num_samples=SAMPLES,
+                          num_blocks_early_stop=M, pad=PAD,
+                          resolution_hw=RES, tile_size=TILE,
+                          split_refine=False, device=dev)
+        z = r.style_z(style.numpy())
+        f = r.rays(pose)
+        h, w = r.cam_res
+        hit_any = f['hit'][0].any(dim=-1)
+        coords = [(min(y0, h - t), min(x0, w - t))
+                  for y0 in range(0, RES[0], TILE)
+                  for x0 in range(0, RES[1], TILE)]
+        flags = [bool(hit_any[y:y + t, x:x + t].any()) for y, x in coords]
+        picks = {'hits': coords[flags.index(True)],
+                 'sky': coords[flags.index(False)]}
+        sky = r.sky_avg(f['raydirs'], z)
+
+        def tile_args(y, x):
+            return tuple(f[k][:, y:y + t, x:x + t].contiguous()
+                         for k in ('vid', 'dep', 'hit', 'raydirs')) \
+                + (f['cam_ori'], z, r.global_enc, sky)
+        args = {k: tile_args(*yx) for k, yx in picks.items()}
+        # the export is the first call to reach these caches
+        for fn in (gen_mod._delim, hg._scales, hg.general_meta,
+                   labels.get_label_translator):
+            fn.cache_clear()
+        path = os.path.join(out_dir, f'tile_{name}.pt2')
+        torch.cuda.synchronize()
+        r.export_tile(z, path=path)
+        ex = r.last_export
+        t0 = time.time()
+        program = TiledRenderer.load_exported(path)
+        load_s = time.time() - t0
+        kernels.reset_launch_counts()
+        got = {k: program(*a) for k, a in args.items()}
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        held = {k: _held_tile(torch, got[k], r.render_tile(*a))
+                for k, a in args.items()}
+        loaded_ms = median_ms(lambda: program(*args['hits']))
+        live_ms = median_ms(lambda: r.render_tile(*args['hits']))
+        log(f'[export] {name}: export {ex["export_s"]:.2f} s, save '
+            f'{ex["save_s"]:.2f} s, load {load_s:.2f} s, artifact '
+            f'{ex["bytes"] / 1e6:.1f} MB; tile {t}x{t}, batch 1: loaded '
+            f'{loaded_ms:.3f} ms, live {live_ms:.3f} ms (median of 5, CUDA '
+            f'events, L2 flushed); {card}')
+        for k, (img, dep, same) in held.items():
+            log(f'[export] {name}: tile at {picks[k]} ({k}) loaded against '
+                f'live: image max abs diff {img:.3g} (tolerance 1e-5), depth '
+                f'where finite {dep:.3g} (tolerance 1e-4), inf on the same '
+                f'rays: {same}')
+            assert np.isfinite(img) and img <= 1e-5, \
+                f'the loaded {name} program\'s image differs from the live tile'
+            assert same and dep <= 1e-4, \
+                f'the loaded {name} program\'s depth differs from the live tile'
+        log(f'[export] {name}: launches in {len(args)} loaded calls {counts}')
+        for kname, n in counts.items():
+            want = len(args) if kname in launched else 0
+            assert n == want, f'the loaded {name} program launched {kname} ' \
+                f'{n} times, not {want}'
+        per_call[name] = {k: n / len(args) for k, n in counts.items()}
+        os.remove(path)
+        del r, model, program, got, args, f
+        torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f'[export] phase 18 in {time.time() - t_phase:.1f} s')
+    return per_call
+
+
 def split_extra(split):
     """The `kernels` row fields of a scatter's per-level split: the whole
     launch with every level direct (before the coarse path) in ray order,
@@ -4383,6 +4521,9 @@ def main():
     # 17. the layer library --------------------------------------------------
     layer_library(torch, kernels, dev)
 
+    # 18. the exported tile program ------------------------------------------
+    exported = tile_export(torch, kernels, world, style, ctl[0], dev)
+
     table_rows = kernel_rows(serving, k3, k3_split, train, k5, k5_split,
                              k5b, loop) \
         + general_rows(k4, k4_split, (int(chunk_n), *k4c), urender, ustep,
@@ -4401,13 +4542,12 @@ def main():
             legacy['flagship']['counts'][row['name']]
         row['launches_per_eval_frame'] = \
             legacy['eval']['vgg19']['counts'][row['name']] / EVAL_FRAMES
+        row['launches_per_exported_tile_call'] = {
+            spec: counts[row['name']] for spec, counts in exported.items()}
     log(json.dumps({'kernels': table_rows}))
 
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, timeout=60, check=True)
-    log(smi.stdout.strip().splitlines()[0])
-    log(f'[smoke] phases 1-17 in {time.time() - t_start:.1f} s')
+    log(card_line())
+    log(f'[smoke] phases 1-18 in {time.time() - t_start:.1f} s')
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

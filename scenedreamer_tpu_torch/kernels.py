@@ -19,8 +19,9 @@ where the JAX op's compiled code does, so the kernels round as their
 plain PyTorch versions do (see the notes in each source and
 `ops/rounding.py`).
 
-Nothing here is imported or built by the CPU path; the op modules call
-these wrappers only for CUDA tensors.
+Importing this module builds nothing. The op modules, and the `sd::`
+ops that `ops/hash_ops.py` registers for the forward kernels on the
+tile path, call these wrappers only for CUDA tensors.
 """
 import ctypes
 import os

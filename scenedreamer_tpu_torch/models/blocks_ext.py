@@ -61,9 +61,13 @@ class ScaledLeakyReLU(nn.Module):
         return scaled_leaky_relu(x, self.negative_slope, self.scale)
 
 
-def get_nonlinearity(nonlinearity_type):
+def get_nonlinearity(nonlinearity_type, channel_last=False):
     """A callable activation or None (`nonlinearity.py:31-67`
-    get_nonlinearity_layer; 'fused_*' is `bias_act` with its gain)."""
+    get_nonlinearity_layer; 'fused_*' is `bias_act` with its gain).
+    'softmax,<d>' names an NCHW dim, 'softmax' alone the channel dim 1.
+    `channel_last`, for blocks whose features are the last axis, maps it
+    as JAX's `get_nonlinearity` does: the channel dim 1 (and 'softmax'
+    alone) -> -1, a spatial dim d > 1 -> d - 1, the batch dim 0 -> 0."""
     t = nonlinearity_type or 'none'
     if t.startswith('fused_'):
         return functools.partial(bias_act, act=t[6:])
@@ -79,6 +83,8 @@ def get_nonlinearity(nonlinearity_type):
         return torch.sigmoid
     if t.startswith('softmax'):
         dim = int(t.split(',')[1]) if ',' in t else 1
+        if channel_last:
+            dim = {0: 0, 1: -1}.get(dim, dim - 1)
         return functools.partial(torch.softmax, dim=dim)
     if t in ('none', ''):
         return None
@@ -257,7 +263,7 @@ class ResLinearBlock(nn.Module):
     def __init__(self, in_features, out_features, nonlinearity='leakyrelu',
                  output_scale=1.0):
         super().__init__()
-        self.act = get_nonlinearity(nonlinearity)
+        self.act = get_nonlinearity(nonlinearity, channel_last=True)
         self.fc0 = _Dense(in_features, out_features)
         self.fc1 = _Dense(out_features, out_features)
         self.fc_s = _Dense(in_features, out_features, bias=False) \
@@ -822,7 +828,8 @@ class EmbeddingBlock(nn.Module):
     def __init__(self, num_classes, features, nonlinearity='none',
                  order='CNA'):
         super().__init__()
-        self.order, self.act = order.upper(), get_nonlinearity(nonlinearity)
+        self.order = order.upper()
+        self.act = get_nonlinearity(nonlinearity, channel_last=True)
         self.embed = nn.Embedding(num_classes, features)
         nn.init.normal_(self.embed.weight, std=1.0 / math.sqrt(features))
 

@@ -42,12 +42,12 @@ renderer always passes as the frame's global mean, takes precedence, as
 in JAX's renderer) and `use_seg`.
 """
 import dataclasses
-import functools
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from scenedreamer_tpu_torch.device import tensor_cache
 from scenedreamer_tpu_torch.models.layers import (ConditionalHashGrid,
                                                   RenderCNN, RenderMLP,
                                                   SKYMLP, StyleEncoder,
@@ -144,11 +144,12 @@ _DTYPES = (torch.float32, torch.bfloat16)
 SKY_POOL = 31       # the local sky average's window (`sky_global_avgpool=False`)
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache()
 def _delim(voxel_dims, device):
     """The voxel dims as a float32 tensor on `device`, made once per
-    (dims, device): a host-to-device copy per call would wait for the
-    device's queue to drain (one per tile in mesh-mode serving)."""
+    (dims, device) outside a trace: a host-to-device copy per call would
+    wait for the device's queue to drain (one per tile in mesh-mode
+    serving)."""
     return torch.tensor(voxel_dims, dtype=torch.float32, device=device)
 
 

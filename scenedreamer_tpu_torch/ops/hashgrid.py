@@ -27,7 +27,15 @@ gradient with the bake itself (K3 (b): xor is its own inverse) and into
 the fold-weight gradient (K3 (c)). For CUDA tensors every step launches
 the kernels of `csrc/hashgrid_fwd.cu` and `csrc/hashgrid_bwd.cu`; for
 CPU tensors it runs the plain PyTorch versions below (index arithmetic,
-gathers and `index_add_`, the same float operations).
+gathers and `index_add_`, the same float operations). The forwards go
+through the `torch.library` ops of `ops/hash_ops.py` (`sd::hash_bake`,
+`sd::hash_encode`, and below `sd::hash_shift_bake`,
+`sd::hash_encode_paired`, `sd::hash_encode_general`), which pick the
+kernel or the plain version by device and let `torch.export` trace the
+forward; the backwards call the kernel wrappers directly. The scene
+code's out-of-bounds flag stays a 0-d bool tensor on the device, never
+read on the host for CUDA tensors: when it is set, the encode and its
+backward move every point out of bounds.
 
 `hash_variant='paired'` (K5) combines the per-dimension prime products
 with a wrapping uint32 ADD instead of xor. Dimension 0 has prime 1, so
@@ -62,6 +70,8 @@ import numpy as np
 import torch
 
 from scenedreamer_tpu_torch import kernels
+from scenedreamer_tpu_torch.device import tensor_cache
+from scenedreamer_tpu_torch.ops import hash_ops
 from scenedreamer_tpu_torch.ops.rounding import fma
 
 # Instant-NGP / reference primes (cu:42); prime 1 keeps dim 0 coherent.
@@ -159,11 +169,12 @@ def init_hashgrid_table(spec, generator=None, device=None):
     return table.uniform_(-1e-4, 1e-4, generator=generator)
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache()
 def _scales(spec, device):
     """The levels' float32 scales on `device`, made once per (spec,
-    device): a host-to-device copy per call would wait for the device's
-    queue to drain (one per tile in mesh-mode serving)."""
+    device) outside a trace: a host-to-device copy per call would wait
+    for the device's queue to drain (one per tile in mesh-mode
+    serving)."""
     return torch.tensor([spec.level_resolution(lv)[1]
                          for lv in range(spec.num_levels)],
                         dtype=torch.float32, device=device)
@@ -190,14 +201,15 @@ def _fold_src(variant, j, m):
 
 
 # a baked table [L, S, C] and whether the scene code lies out of bounds
-# (then every point encodes to zero)
+# (then every point encodes to zero), a 0-d bool tensor on its device
 FoldedTable = collections.namedtuple('FoldedTable', ['baked', 'scene_oob'])
 
 
 def scene_fold_weights(spec, scene, bound=1.0):
     """Scene code [Ds] -> per-level fold masks [L, 2^Ds] int64 (xor
     masks, or cyclic shifts for the 'paired' variant), blend weights
-    [L, 2^Ds] float32 and the out-of-bounds flag (the math of `bake` in
+    [L, 2^Ds] float32 and the out-of-bounds flag, a 0-d bool tensor on
+    the scene code's device, never read here (the math of `bake` in
     `hashgrid_encode_folded`). The paired masks are
     (sum_d corner_d * P_{3+d}) mod 2^32 & (S-1); S divides 2^32 and the
     int64 sum of two products of a corner (< 2^12) and a prime (< 2^32)
@@ -212,7 +224,7 @@ def scene_fold_weights(spec, scene, bound=1.0):
     # in the scene code's dtype (a bf16 code rounds here, as JAX's does),
     # float32 from the cell position on
     s01 = ((scene + bound) / (2.0 * bound)).to(torch.float32)
-    scene_oob = bool(((s01 < 0.0) | (s01 > 1.0)).any())
+    scene_oob = ((s01 < 0.0) | (s01 > 1.0)).any()
     spos = fma(s01[None, :], _scales(spec, scene.device)[:, None],
                _offset(spec))                                # [L, Ds]
     sgrid = torch.floor(spos)
@@ -241,19 +253,23 @@ def fold_scene(spec, table, scene, bound=1.0):
 
 
 def _bake(table3, masks, weights, variant='xor', backward=False):
-    """The fold, or (`backward`) its adjoint applied to the baked table's
-    gradient: xor is its own inverse, a shift by m is undone by S - m."""
-    if variant == 'paired' and backward:
+    """The fold (the op `sd::hash_bake` or `sd::hash_shift_bake`), or
+    (`backward`) its adjoint applied to the baked table's gradient: xor
+    is its own inverse, a shift by m is undone by S - m."""
+    if not backward:
+        op = hash_ops.hash_shift_bake if variant == 'paired' \
+            else hash_ops.hash_bake
+        return op(table3, masks, weights)
+    if variant == 'paired':
         masks = (table3.shape[1] - masks) & (table3.shape[1] - 1)
     if table3.is_cuda:
         masks32 = masks.to(torch.int32).contiguous()
         if variant == 'paired':
             return kernels.hash_shift_bake(
                 table3.contiguous(), masks32, weights.contiguous(),
-                'hash_shift_bake_bwd' if backward else 'hash_shift_bake')
-        return kernels.hash_bake(
-            table3.contiguous(), masks32, weights.contiguous(),
-            'hash_bake_bwd' if backward else 'hash_bake')
+                'hash_shift_bake_bwd')
+        return kernels.hash_bake(table3.contiguous(), masks32,
+                                 weights.contiguous(), 'hash_bake_bwd')
     return bake_plain(table3, masks, weights, variant)
 
 
@@ -332,13 +348,10 @@ class HashEncode(torch.autograd.Function):
         ctx.geom = (offset, bound, scene_oob, baked.shape[1], variant)
         keep = baked if ctx.needs_input_grad[1] else None
         ctx.save_for_backward(xyz, scales, keep)
-        if xyz.is_cuda:
-            fwd = kernels.hash_encode_paired if variant == 'paired' \
-                else kernels.hash_encode
-            return fwd(baked.detach().contiguous(), xyz.contiguous(), scales,
-                       offset, bound, scene_oob)
-        return encode_plain(baked.detach(), xyz.detach(), scales, offset,
-                            bound, scene_oob, variant)
+        op = hash_ops.hash_encode_paired if variant == 'paired' \
+            else hash_ops.hash_encode
+        return op(baked.detach(), xyz.detach(), scales, offset, bound,
+                  scene_oob)
 
     @staticmethod
     def backward(ctx, g):
@@ -349,9 +362,11 @@ class HashEncode(torch.autograd.Function):
         if g.is_cuda:
             bwd = kernels.hash_encode_paired_bwd if variant == 'paired' \
                 else kernels.hash_encode_bwd
-            d_baked, d_xyz = bwd(g.contiguous(), xyz.detach().contiguous(),
-                                 scales, offset, bound, scene_oob, slots,
-                                 baked)
+            # as the forward op: every point out of bounds (the kernel
+            # skips it) rather than the flag read on the host
+            xyz = torch.where(scene_oob, float('inf'), xyz.detach())
+            d_baked, d_xyz = bwd(g.contiguous(), xyz.contiguous(), scales,
+                                 offset, bound, False, slots, baked)
         else:
             d_baked, d_xyz = encode_bwd_plain(g, xyz.detach(), scales,
                                               offset, bound, scene_oob,
@@ -366,10 +381,12 @@ def encode_plain(baked, xyz, scales, offset, bound, scene_oob,
     op's compiled encode and the kernel round it; a separate rounding
     moves the fractional position by up to one float32 step of the
     position, ~1e-4 at the finest levels), the 8 corner rows and weights
-    of `_corners`, and sum_k w_k * baked[idx_k] in ascending k."""
+    of `_corners`, and sum_k w_k * baked[idx_k] in ascending k; zero
+    rows for points out of bounds and, when `scene_oob` (a 0-d bool
+    tensor or a bool) is set, for every point."""
     lv, s, c = baked.shape
     x01 = (xyz.to(torch.float32) + bound) / (2.0 * bound)    # [N, 3]
-    oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1, keepdim=True)
+    oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1, keepdim=True) | scene_oob
     outs = []
     for level in range(lv):
         rows, ws, _ = _corners(x01, scales[level], offset, s, variant)
@@ -379,8 +396,6 @@ def encode_plain(baked, xyz, scales, offset, bound, scene_oob,
             acc = acc + w[:, None] * baked[level][idx]
         outs.append(acc)
     out = torch.cat(outs, dim=-1)
-    if scene_oob:
-        return torch.zeros_like(out)
     return torch.where(oob, torch.zeros_like(out), out)
 
 
@@ -430,7 +445,8 @@ def encode_bwd_plain(g, xyz, scales, offset, bound, scene_oob, slots,
     is the gradient through frac: per level
     dfrac_d = sum_k gv_k * sign_{k,d} * prod_{d' != d} t_{k,d'} with
     gv_k = sum_c g_c * baked[idx_k, c], and dxyz = sum_l scale_l *
-    dfrac / (2 bound). Out-of-bounds points give zeros."""
+    dfrac / (2 bound). Out-of-bounds points give zeros, every point when
+    `scene_oob` (a 0-d bool tensor, read here, or a bool) is set."""
     lv = scales.shape[0]
     n, c = xyz.shape[0], g.shape[1] // lv
     grad = torch.zeros((lv, slots, c), dtype=torch.float32, device=g.device)
@@ -557,11 +573,11 @@ def mod_magic(size):
     return 0 if size & (size - 1) == 0 else (2 ** 64 - 1) // size + 1
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def general_meta(spec):
     """`general_levels` packed for K4: [L, 11] int64 (offset, size,
     hashed, strides padded to 7 dims, `mod_magic(size)`) and [L] float32
-    scales, on the CPU."""
+    scales, on the CPU (made once per spec outside a trace)."""
     rows = [[lv.offset, lv.size, int(lv.hashed)]
             + list(lv.strides) + [0] * (7 - len(lv.strides))
             + [mod_magic(lv.size)]
@@ -607,17 +623,31 @@ def _inside(x, bound):
     return x01, ~((x01 < 0.0) | (x01 > 1.0)).any(dim=-1)
 
 
+def meta_levels(meta, scales, dims):
+    """`general_levels` back from `general_meta`'s packing, for points
+    of `dims` dimensions (the op `sd::hash_encode_general` takes the
+    packing, not the spec)."""
+    return tuple(GeneralLevel(int(row[0]), int(row[1]), float(scale),
+                              bool(row[2]), tuple(row[3:3 + dims]))
+                 for row, scale in zip(meta.tolist(), scales.tolist()))
+
+
 def encode_general_plain(spec, table, x, bound=1.0):
     """Plain version of K4 (a): x [N, D] -> [N, L*C], per level
     sum_k w_k * table[offset_l + idx_k] in ascending k, zeros for points
     with any coordinate outside [-bound, bound]."""
+    return encode_levels_plain(general_levels(spec), table, x,
+                               _offset(spec), bound, spec.hash_variant)
+
+
+def encode_levels_plain(levels, table, x, offset, bound, variant):
+    """`encode_general_plain` on the levels' metadata."""
     x01, inb = _inside(x, bound)
-    c = spec.level_dim
+    c = table.shape[1]
     outs = []
-    for level in general_levels(spec):
+    for level in levels:
         tl = table[level.offset:level.offset + level.size]
-        rows, ws, _ = _general_corners(x01, level, _offset(spec),
-                                       spec.hash_variant)
+        rows, ws, _ = _general_corners(x01, level, offset, variant)
         acc = torch.zeros((x.shape[0], c), dtype=torch.float32,
                           device=x.device)
         for idx, w in zip(rows, ws):
@@ -686,12 +716,9 @@ class HashEncodeGeneral(torch.autograd.Function):
         ctx.geom = (spec, bound, table.shape[0])
         keep = table if ctx.needs_input_grad[1] else None
         ctx.save_for_backward(x, keep)
-        if x.is_cuda:
-            meta, scales = general_meta(spec)
-            return kernels.hash_encode_general(
-                table.detach().contiguous(), x.detach().contiguous(), meta,
-                scales, _offset(spec), bound, spec.hash_variant == 'xor')
-        return encode_general_plain(spec, table.detach(), x.detach(), bound)
+        return hash_ops.hash_encode_general(
+            table.detach(), x.detach(), *general_meta(spec), _offset(spec),
+            bound, spec.hash_variant == 'xor')
 
     @staticmethod
     def backward(ctx, g):

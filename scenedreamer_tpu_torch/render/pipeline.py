@@ -60,14 +60,23 @@ call, and the tiles come back to the first device, which holds the
 frame. The DDA, the sky average and the bake run once per frame on the
 first device. Split refine is off in mesh mode, as in JAX.
 
-Not here: `export_tile` (a `torch.export` artifact needs the forward
-kernels registered as `torch.library` ops). JAX's `field_tiles_per_batch`
-and `ray_voxel_intersection(chunk='auto')` have no counterpart: they cut
-dispatches over a remote TPU link and programs that would run for
-minutes; the split path here runs image-row chunks and K1 runs a frame
-in one launch.
+The serving artifact (`export_tile`, `load_exported`,
+`pipeline.py:543-615`): JAX's padded-tile program, `TileProgram` (the
+hash table baked from the scene code inside, `render_pixels` with
+deterministic sampling, the RenderCNN, the expected depth, the pad // 2
+crop), exported with `torch.export` at the renderer's fixed shapes and
+saved with its weights. A serving process loads it and calls it with no
+model code: it imports only the registration of the hash ops
+(`ops/hash_ops.py`, through this module), whose kernels the program
+names and launches on CUDA. `render_tile` runs the same program live.
+
+JAX's `field_tiles_per_batch` and `ray_voxel_intersection(chunk='auto')`
+have no counterpart: they cut dispatches over a remote TPU link and
+programs that would run for minutes; the split path here runs image-row
+chunks and K1 runs a frame in one launch.
 """
 import copy
+import io
 import os
 import time
 
@@ -75,6 +84,7 @@ import numpy as np
 import torch
 
 from scenedreamer_tpu_torch.device import resolve_device
+from scenedreamer_tpu_torch.ops import hash_ops  # noqa: F401  the sd:: ops
 from scenedreamer_tpu_torch.ops.ray_voxel import (build_occupancy_bits,
                                                   camera_rays,
                                                   ray_voxel_intersection)
@@ -102,6 +112,9 @@ CHUNK_RAYS = 32768
 COMPACT_GRANULE = 32
 # rows of halo above and below a RenderCNN strip (>= its 4-row reach)
 STRIP_HALO = 8
+# the generator's modules that the tile program runs; its weights are
+# theirs (not the world or style encoder's, nor the style MLP's)
+TILE_MODULES = ('hash_encoder', 'render_net', 'sky_net', 'denoiser')
 
 
 def to_uint8(img):
@@ -128,6 +141,44 @@ def expected_depth(out):
     return torch.where(tw > 1e-6,
                        (wts * t).sum(dim=-1) / torch.clamp(tw, min=1e-6),
                        torch.full_like(tw, float('inf')))
+
+
+class TileProgram(torch.nn.Module):
+    """JAX's `tile_fn` (`pipeline.py:171-193`) for one batch of padded
+    tiles: `render_pixels(deterministic=True, sky_avg=...)` with the
+    hash table baked from `global_enc` inside (K2 (a) or K5 (a); none
+    for a spec that is not foldable, which encodes unfolded, K4), the
+    RenderCNN, the expected depth and the pad // 2 crop. Holds the
+    generator with only TILE_MODULES (sharing their parameters), so an
+    export carries only the weights the tile runs.
+
+    forward(voxel_id [b, t, t, M] int32, depth [b, t, t, M, 2], hit
+    [b, t, t, M] bool, raydirs [b, t, t, 3], cam_ori [b, 3], z [b, S],
+    global_enc [b, 2], sky_avg [b, 1, 1, 1, C]) -> (img [b, t', t', 3],
+    depth [b, t', t']), t' = t - 2 (pad // 2)."""
+
+    def __init__(self, model, voxel_dims, num_samples, sample_depth, pad):
+        super().__init__()
+        gen = copy.copy(model)
+        gen._modules = {k: v for k, v in model._modules.items()
+                        if k in TILE_MODULES}
+        self.gen = gen
+        self.voxel_dims = tuple(int(d) for d in voxel_dims)
+        self.num_samples, self.sample_depth = num_samples, sample_depth
+        self.pad = pad
+
+    def forward(self, voxel_id, depth, hit, raydirs, cam_ori, z, global_enc,
+                sky_avg):
+        out = self.gen.render_pixels(
+            voxel_id, depth, hit, raydirs, cam_ori, z, global_enc,
+            self.voxel_dims, num_samples=self.num_samples,
+            sample_depth_clip=self.sample_depth, deterministic=True,
+            sky_avg=sky_avg)
+        img, _ = self.gen.refine(out['net_out'], z)
+        p0 = self.pad // 2
+        h, w = img.shape[1:3]
+        return (img[:, p0:h - p0, p0:w - p0],
+                expected_depth(out)[:, p0:h - p0, p0:w - p0])
 
 
 class VideoWriter:
@@ -227,6 +278,9 @@ class TiledRenderer:
             sf = torch.from_numpy(
                 world.semantic_field.transpose(0, 2, 3, 1)).to(self.device)
             self.global_enc = self.model.world_code(hf, sf)
+        self.tile_program = TileProgram(self.model, world.dims, num_samples,
+                                        sample_depth, pad)
+        self.last_export = None
 
     @torch.no_grad()
     def style_z(self, style):
@@ -242,30 +296,117 @@ class TiledRenderer:
         return self.frame_async(cam_pose, z, generator, return_aux)()
 
     @torch.no_grad()
+    def rays(self, cam_pose):
+        """One padded frame's camera rays and their DDA (K1 on CUDA), as
+        a dict of vid [1, h, w, M] int32, dep [1, h, w, M, 2], hit
+        [1, h, w, M] bool, raydirs [1, h, w, 3] and cam_ori [1, 3]."""
+        ori, cdir, up, f_ratio = cam_pose
+        h, w = self.cam_res
+        # the view must not depend on the padding (`scenedreamer.py:579`)
+        cam_f = f_ratio * (self.res[1] - 1)
+        cam_c = ((h - 1) / 2.0, (w - 1) / 2.0)
+        raydirs = camera_rays(cdir, up, cam_f, cam_c, (h, w),
+                              device=self.device)
+        cam_ori = torch.as_tensor(ori, dtype=torch.float32,
+                                  device=self.device)
+        vid, dep, hit = ray_voxel_intersection(
+            self.voxel, cam_ori, raydirs.reshape(-1, 3), self.m,
+            occupancy=self.occupancy, image_width=w)
+        return dict(vid=vid.reshape(1, h, w, self.m),
+                    dep=dep.reshape(1, h, w, self.m, 2),
+                    hit=hit.reshape(1, h, w, self.m),
+                    raydirs=raydirs.reshape(1, h, w, 3),
+                    cam_ori=cam_ori[None])
+
+    @torch.no_grad()
+    def sky_avg(self, raydirs, z):
+        """The frame-global sky average [B, 1, 1, 1, C] of rays
+        raydirs [B, H, W, 3] (`pipeline.py:165-169`), in the model's
+        dtype: the tile program's `sky_avg`."""
+        return self.model.sky_color(raydirs, z).mean(dim=(1, 2),
+                                                     keepdim=True)
+
+    @torch.no_grad()
+    def render_tile(self, voxel_id, depth, hit, raydirs, cam_ori, z,
+                    global_enc, sky_avg):
+        """The padded-tile program (`TileProgram`, JAX's `tile_fn`) run
+        live on the renderer's device -> (img, depth)."""
+        return self.tile_program(voxel_id, depth, hit, raydirs, cam_ori, z,
+                                 global_enc, sky_avg)
+
+    def export_tile(self, z, path=None, batch=None):
+        """Serialize the padded-tile program with `torch.export` at this
+        renderer's fixed shapes, on its device, with the weights it runs.
+        `z` is an example intermediate style (`style_z`'s output), which
+        fixes the style's shape and dtype; `batch` the tiles per call,
+        else `tiles_per_batch` when the renderer is tiled (tile + pad
+        below the padded frame's longer side), else 1 for the full frame.
+        The program takes JAX's inputs in JAX's order (`TileProgram`;
+        `global_enc` in the world code's dtype, `sky_avg` in the model's)
+        and bakes the hash table from `global_enc` inside. Returns the
+        bytes of `torch.export.save`, also written to `path` when given;
+        `last_export` holds the export and save seconds and the size.
+        JAX's `params` and `key` arguments have no counterpart: the
+        weights ride in the artifact and deterministic sampling draws
+        nothing. JAX's `platforms` has none either: the program is for
+        this renderer's device (its kernels on CUDA)."""
+        t = self.tile + self.pad if self.tile else None
+        tiled = t is not None and t < max(self.cam_res)
+        h, w = (t, t) if tiled else self.cam_res
+        b = batch or (self.tiles_per_batch if tiled else 1)
+        dev, m = self.device, self.m
+
+        def rows(x):
+            return x[:1].expand((b,) + x.shape[1:]).contiguous()
+        raydirs = torch.zeros((b, h, w, 3), device=dev)
+        args = (torch.zeros((b, h, w, m), dtype=torch.int32, device=dev),
+                torch.zeros((b, h, w, m, 2), device=dev),
+                torch.zeros((b, h, w, m), dtype=torch.bool, device=dev),
+                raydirs, torch.zeros((b, 3), device=dev), rows(z),
+                rows(self.global_enc),
+                rows(self.sky_avg(raydirs[:1], z[:1])))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            program = torch.export.export(self.tile_program, args,
+                                          strict=False)
+        t1 = time.perf_counter()
+        buf = io.BytesIO()
+        torch.export.save(program, buf)
+        blob = buf.getvalue()
+        self.last_export = dict(export_s=t1 - t0,
+                                save_s=time.perf_counter() - t1,
+                                bytes=len(blob))
+        if path:
+            with open(path, 'wb') as f:
+                f.write(blob)
+        return blob
+
+    @staticmethod
+    def load_exported(blob_or_path):
+        """An `export_tile` artifact (bytes or a path) -> the tile program
+        as a callable of its inputs giving (img, depth), its weights on
+        the device it was exported for. Needs the `sd::` hash ops, which
+        importing this module registers, and no model code."""
+        blob = blob_or_path
+        if isinstance(blob, (str, os.PathLike)):
+            with open(blob, 'rb') as f:
+                blob = f.read()
+        module = torch.export.load(io.BytesIO(blob)).module()
+        for p in module.parameters():
+            p.requires_grad_(False)
+        return module
+
+    @torch.no_grad()
     def frame_async(self, cam_pose, z, generator=None, return_aux=False):
         """Queue all of one frame's device work; returns a zero-argument
         materializer giving `frame`'s result. `generator` is the
         `torch.Generator` of the frame's stratified draws (none are drawn
         here: the renderer samples deterministically)."""
-        ori, cdir, up, f_ratio = cam_pose
         h, w = self.cam_res
-        model, dev = self.model, self.device
-        # the view must not depend on the padding (`scenedreamer.py:579`)
-        cam_f = f_ratio * (self.res[1] - 1)
-        cam_c = ((h - 1) / 2.0, (w - 1) / 2.0)
-        raydirs = camera_rays(cdir, up, cam_f, cam_c, (h, w), device=dev)
-        cam_ori = torch.as_tensor(ori, dtype=torch.float32, device=dev)
-        vid, dep, hit = ray_voxel_intersection(
-            self.voxel, cam_ori, raydirs.reshape(-1, 3), self.m,
-            occupancy=self.occupancy, image_width=w)
-        f = dict(vid=vid.reshape(1, h, w, self.m),
-                 dep=dep.reshape(1, h, w, self.m, 2),
-                 hit=hit.reshape(1, h, w, self.m),
-                 raydirs=raydirs.reshape(1, h, w, 3), cam_ori=cam_ori[None],
-                 z=z, generator=generator, model=model,
+        model = self.model
+        f = dict(self.rays(cam_pose), z=z, generator=generator, model=model,
                  global_enc=self.global_enc)
-        f['sky_avg'] = model.sky_color(f['raydirs'], z).mean(
-            dim=(1, 2), keepdim=True)
+        f['sky_avg'] = self.sky_avg(f['raydirs'], z)
         f['baked'] = model.bake_hash(self.global_enc)
 
         tile_in = self.tile + self.pad if self.tile else None

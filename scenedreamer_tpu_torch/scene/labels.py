@@ -14,6 +14,8 @@ import os
 import numpy as np
 import torch
 
+from scenedreamer_tpu_torch.device import tensor_cache
+
 _ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'assets')
 
@@ -53,7 +55,10 @@ class LabelTranslator:
         self._on = {}
 
     def _lut(self, name, device):
-        """The named LUT on `device` (moved there once)."""
+        """The named LUT on `device` (moved there once, outside a trace:
+        while `torch.export` traces, the copy would be a fake tensor)."""
+        if torch.compiler.is_compiling():
+            return getattr(self, name).to(device)
         key = (name, str(device))
         if key not in self._on:
             self._on[key] = getattr(self, name).to(device)
@@ -87,8 +92,10 @@ class LabelTranslator:
         return rgb_packed.view(dt)['bytes'][..., :3]
 
 
-@functools.lru_cache(maxsize=1)
+@tensor_cache(maxsize=1)
 def get_label_translator():
+    """The process's `LabelTranslator` (a new one while `torch.export`
+    traces: its tables would be fake tensors)."""
     return LabelTranslator()
 
 

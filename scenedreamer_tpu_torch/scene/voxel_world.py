@@ -111,6 +111,24 @@ class VoxelWorld:
         v[..., 0] -= self.y_offset
         return v
 
+    def local2world(self, v):
+        """Cropped-voxel coordinates -> world point (adds the y offset
+        back)."""
+        v = np.asarray(v, np.float32).copy()
+        v[..., 0] += self.y_offset
+        return v
+
+    def is_sea(self, loc):
+        """Whether the column under local point [y, x, z] is water at the
+        heightmap's surface; a point outside the map counts as sea."""
+        x, z = int(loc[1]), int(loc[2])
+        hm = self.heightmap
+        if x < 0 or x >= hm.shape[0] or z < 0 or z >= hm.shape[1]:
+            return True
+        y = int(np.clip(int(hm[x, z]) - self.y_offset, 0,
+                        self.voxel.shape[0] - 1))
+        return int(self.voxel[y, x, z]) == MC_WATER
+
 
 def quantize_height(height_map, sample_height=SAMPLE_HEIGHT):
     """Reference height quantization (`pcg_cache.py:53-54`): clamp water

@@ -157,6 +157,15 @@ def test_res_linear_block(cout, nonlinearity):
     parity(j, [_x(shape=(N, 5))], t)
 
 
+@pytest.mark.parametrize('nonlinearity', ['softmax', 'softmax,2'])
+def test_res_linear_block_rank3(nonlinearity):
+    """A [N, L, features] input: the softmax axes are JAX's channel-last
+    ones (the features, then L)."""
+    j, t = _pair('ResLinearBlock', 5, 7, nonlinearity=nonlinearity)
+    x = _x(shape=(N, 3, 5))
+    parity(j, [x], t, tin=(torch.from_numpy(x),), out_layout=False)
+
+
 # ---------------------------------------------------------------------------
 # UpRes2dBlock, DeepRes2dBlock
 # ---------------------------------------------------------------------------
@@ -381,10 +390,12 @@ def test_embedding2d(shape):
 
 
 @pytest.mark.parametrize('nonlinearity,shape', [
-    ('none', (N, 7)), ('tanh', (N, 7)), ('softmax', (N * 7,))])
+    ('none', (N, 7)), ('tanh', (N, 7)), ('softmax', (N * 7,)),
+    ('softmax', (N, 7)), ('softmax,1', (N, 7)), ('softmax,2', (N, 7))])
 def test_embedding_block(nonlinearity, shape):
-    """ids of any shape -> [..., features]; 'softmax' alone takes dim 1,
-    the reference's, which is JAX's last axis only for 1-D ids."""
+    """ids of any shape -> [..., features]; the softmax takes JAX's
+    channel-last axis: the features for 'softmax' and 'softmax,1', the
+    ids' last axis for 'softmax,2'."""
     ids = np.random.default_rng(2).integers(0, 5, shape).astype(np.int32)
     parity(jbx.EmbeddingBlock(5, 6, nonlinearity), [ids],
            tbx.EmbeddingBlock(5, 6, nonlinearity),

@@ -13,7 +13,8 @@ forward and backward). The three table scatters' coarse path (K3a, K4b
 and K5c through `csrc/scatter_accum.cuh`) is forced onto every level and
 held to the same tolerances where a block's shared-memory table
 overflows, where every point lies in one cell, and in ray order or
-shuffled."""
+shuffled. The forward kernels' `sd::` ops (`ops/hash_ops.py`) launch
+them, each once, with the same result as the wrappers."""
 import math
 
 import numpy as np
@@ -457,6 +458,65 @@ def test_folded_encode_edges_match_plain(cuda, channels, scene_oob):
     oob = (xyz.abs() > 1.0).any(-1)
     assert (got[oob] == 0).all() and oob.any()
     assert (got == 0).all() if scene_oob else got.abs().max() > 0.1
+
+
+@pytest.mark.parametrize('variant', ['xor', 'paired'])
+@pytest.mark.parametrize('scene_oob', [False, True])
+def test_hash_ops_launch_the_kernels(cuda, variant, scene_oob):
+    """The `sd::` ops on CUDA tensors: the bake and the encode (the
+    out-of-bounds flag a 0-d bool tensor on the card) equal the kernel
+    wrappers with the flag on the host, bit for bit, and each op adds
+    one launch to its kernel's count; K4 (a)'s op equals its wrapper."""
+    from scenedreamer_tpu_torch.ops import hash_ops
+    spec = hg.HashGridSpec.create(input_dim=5, num_levels=5, level_dim=8,
+                                  log2_hashmap_size=12,
+                                  desired_resolution=512,
+                                  hash_variant=variant)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    table3 = torch.rand((spec.num_levels, 2 ** 12, 8), generator=gen,
+                        device=cuda) * 2 - 1
+    masks, weights, _ = hg.scene_fold_weights(
+        spec, torch.tensor([0.3, -0.6], device=cuda))
+    xyz = torch.rand((4099, 3), generator=gen, device=cuda) * 2.2 - 1.1
+    scales, off = hg._scales(spec, cuda), hg._offset(spec)
+    oob = torch.tensor(scene_oob, device=cuda)
+    paired = variant == 'paired'
+    bake_op = hash_ops.hash_shift_bake if paired else hash_ops.hash_bake
+    enc_op = hash_ops.hash_encode_paired if paired else hash_ops.hash_encode
+    bake = kernels.hash_shift_bake if paired else kernels.hash_bake
+    enc = kernels.hash_encode_paired if paired else kernels.hash_encode
+    kernels.reset_launch_counts()
+    baked = bake_op(table3, masks, weights)
+    got = enc_op(baked, xyz, scales, off, 1.0, oob)
+    counts = kernels.launch_counts()
+    assert counts[bake.__name__] == 1 and counts[enc.__name__] == 1, counts
+    assert sum(counts.values()) == 2, counts
+    assert torch.equal(baked, bake(table3, masks.to(torch.int32), weights))
+    assert torch.equal(got, enc(baked, xyz, scales, off, 1.0, scene_oob))
+    assert (got == 0).all() if scene_oob else got.abs().max() > 0.1
+    # the encode's backward takes the flag tensor too, without a host read
+    b = baked.clone().requires_grad_(True)
+    p = xyz.clone().requires_grad_(True)
+    out = hg.HashEncode.apply(b, p, scales, off, 1.0, oob, variant)
+    g = torch.randn(out.shape, generator=gen, device=cuda)
+    d_b, d_p = torch.autograd.grad(out, (b, p), g)
+    bwd = kernels.hash_encode_paired_bwd if paired \
+        else kernels.hash_encode_bwd
+    w_b, w_p = bwd(g, xyz, scales, off, 1.0, scene_oob, 2 ** 12, baked)
+    assert torch.equal(d_b, w_b) if scene_oob else \
+        ((d_b - w_b).abs().max() <= 1e-4 * w_b.abs().max())
+    assert torch.equal(d_p, w_p) if scene_oob else \
+        ((d_p - w_p).abs().max() <= 1e-4 * w_p.abs().max())
+    assert (d_b == 0).all() == scene_oob
+    gspec = hg.HashGridSpec.create(input_dim=5, num_levels=4, level_dim=8,
+                                   log2_hashmap_size=14,
+                                   base_resolution=4, hash_variant=variant)
+    table = torch.rand((gspec.table_size, 8), generator=gen,
+                       device=cuda) * 2 - 1
+    x = torch.rand((4099, 5), generator=gen, device=cuda) * 2.2 - 1.1
+    args = (*hg.general_meta(gspec), hg._offset(gspec), 1.0, not paired)
+    assert torch.equal(hash_ops.hash_encode_general(table, x, *args),
+                       kernels.hash_encode_general(table, x, *args))
 
 
 def _scatter_points(case, n, dims, scales, gen, dev):

@@ -54,3 +54,24 @@ def test_eval_camera_poses_equal(worlds, pattern):
     for a, b in zip(tp, jp):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_local2world_and_is_sea_equal(worlds):
+    """`local2world` undoes `world2local`, and `is_sea` gives JAX's
+    answer on points inside the map (sea and land columns), on its edges
+    and outside it (sea)."""
+    (_, jw), (_, tw) = worlds
+    pts = np.array([[3.0, 5.5, 7.25], [-2.0, 0.0, 63.0], [40.0, 31.0, 2.0]],
+                   np.float32)
+    np.testing.assert_array_equal(tw.local2world(pts), jw.local2world(pts))
+    np.testing.assert_array_equal(tw.local2world(tw.world2local(pts)), pts)
+    s = tw.heightmap.shape[0]
+    sea = np.array([[jw.is_sea((0, x, z)) for z in range(s)]
+                    for x in range(s)])
+    (sx, sz), (lx, lz) = np.argwhere(sea)[0], np.argwhere(~sea)[0]
+    locs = [(0, sx, sz), (5, lx, lz), (0, 0, 0), (0, s - 1, s - 1),
+            (0, 0, s - 1), (0, s - 1, 0), (3, s - 1, 17), (0, 17.9, 0.5),
+            (0, -1, 5), (0, 5, -1), (0, s, 5), (0, 5, s), (0, -3, s + 2)]
+    got = [tw.is_sea(loc) for loc in locs]
+    assert got == [jw.is_sea(loc) for loc in locs]
+    assert got[0] and not got[1] and all(got[-5:])
