@@ -91,8 +91,9 @@ of the repository. Phases, each fatal on failure:
      configs/scenedreamer_train.yaml with `gen.hash_variant: paired`
      (crop 256, 24 samples, hash 16 x 2^19 x 8, MLP 256, D 128, SPADE
      512 with 128 filters in bf16 from seeded random weights, batch 1)
-     for 6 iterations, again with `--resume` to 8, then 3 iterations
-     with the unmodified (xor) yaml, then 3 with `--speed-benchmark`.
+     for 6 iterations, again with `--resume` to 8, then 4 iterations
+     with the unmodified (xor) yaml (its checkpoints at 3 and 4 kept for
+     phases 12 and 19), then 3 with `--speed-benchmark`.
      Every meter must be finite, the checkpoints and
      `latest_checkpoint.txt` must exist, the second run must resume at
      iteration 6, the hash table must move, the paired run must launch
@@ -195,7 +196,8 @@ of the repository. Phases, each fatal on failure:
      K1-K5 launch in any of it; the straight run folded into
      `cli.train`'s oracle, its image within 1e-5 of the trainer's eval
      `generate`, and `cli.train.main --spade-checkpoint <run>` for one
-     iteration on phase 9's xor yaml.
+     iteration on phase 9's xor yaml; the folded oracle is kept for
+     phase 19.
 
  16. the legacy GANcraft path, evaluation and the scene CLIs
      ('[legacy ...]', '[eval]', '[scene]' lines): (a) `GANcraftGenerator`
@@ -238,6 +240,18 @@ of the repository. Phases, each fatal on failure:
      or K4a launched, once each per call; the export, save and load
      seconds, the artifact's MB, and the loaded and live tile's ms
      (median of 5, CUDA events) beside the card's name and power limit.
+ 19. the training-campaign path ('[campaign]' lines, `cli/campaign.py`):
+     (a) phase 15's oracle written in the reference's checkpoint layout
+     (`net_G`, `module.`, spectral-norm triplets, `num_batches_tracked`,
+     optimizer and scheduler beside), loaded by `cli.train`'s loader
+     (phase 15's weights back within 1e-5), its float32 image on the
+     card within CARD_CPU_RTOL of the CPU's largest value; (b)
+     `make_training_assets` (2 scenes, 8 pairs); (c) 8 pseudo-GT images
+     on phase 9's cache through (a)'s file at `cli.train`'s defaults
+     (spade size and res 512); (d) `campaign_eval` over phase 9's xor
+     run (checkpoints 3 and 4, 8 images each, vgg19 and pixel): finite
+     FID / KID, K1, K2a and K2b launched, no backward kernel; (e)
+     `smoke_render` for 2 frames.
 
 Then the total time, one `kernels` JSON line covering K1-K5 (K4a also
 at the serving chunk, under `at_serving_chunk`; K5b's whole launch there
@@ -246,7 +260,8 @@ frame at 1 and 4 tiles per batch and per AMP step), the card's name and
 power limit (nvidia-smi), and last the line {"ok": true, "device": {...}}.
 Every row also gives its launches per GANcraft step (phase 16 (a): the
 batch build's K1), per evaluation frame (phase 16 (c)) and per call of
-each exported tile program (phase 18, by spec).
+each exported tile program (phase 18, by spec), per pseudo-GT image
+(phase 19 (c)) and per fake image (phase 19 (d)).
 Float32 everywhere but phase 12's bf16 frame and phase 13's AMP: TF32
 is switched off for matmuls and convolutions.
 """
@@ -1524,16 +1539,16 @@ def loop_path(torch, kernels, world, dev):
                            'latest_checkpoint.txt')) as f:
         assert f.read().strip() == 'step_00000008.pt'
 
-    # xor: 3 iterations ----------------------------------------------------
+    # xor: 4 iterations (checkpoints at 3 and 4) -----------------------------
     text, counts, xlogdir, series, secs, xpeak = _run_cli(
-        torch, kernels, argv('xor', 'logs_xor', '--max-iter', '3'))
-    _check_counts(counts, XOR, PAIRED, 'xor, 3 iterations')
+        torch, kernels, argv('xor', 'logs_xor', '--max-iter', '4'))
+    _check_counts(counts, XOR, PAIRED, 'xor, 4 iterations')
     finite(series, 'xor')
     ips = [v for _, v in series['perf/iters_per_s']]
     xor_spi = statistics.median(1.0 / v for v in ips[1:])
-    log(f'[loop] xor: {xor_spi:.3f} s/iteration (median of iterations 2-3; '
+    log(f'[loop] xor: {xor_spi:.3f} s/iteration (median of iterations 2-4; '
         f'all {[round(1 / v, 3) for v in ips]}), peak memory {xpeak:.1f} GB')
-    loop.update(xor_counts=counts, xor_iterations=3, xor_s_per_iter=xor_spi,
+    loop.update(xor_counts=counts, xor_iterations=4, xor_s_per_iter=xor_spi,
                 xor_series=series)
 
     # paired with --speed-benchmark: 3 iterations ---------------------------
@@ -1562,13 +1577,11 @@ def loop_path(torch, kernels, world, dev):
     for logs in ('logs_paired', 'logs_speed'):
         shutil.rmtree(os.path.join(root, logs))     # ~4 GB of checkpoints
     # phase 12's inference CLI loads the xor run's checkpoint directory
-    # (the CLI's generator is the xor spec, as JAX's): keep its latest
+    # (the CLI's generator is the xor spec, as JAX's); phase 19's campaign
+    # scores both of its checkpoints, then deletes the run
     ckpts = os.path.join(xlogdir, 'checkpoints')
-    with open(os.path.join(ckpts, 'latest_checkpoint.txt')) as f:
-        latest = f.read().strip()
-    for name in os.listdir(ckpts):
-        if name.endswith('.pt') and name != latest:
-            os.remove(os.path.join(ckpts, name))
+    assert sorted(n for n in os.listdir(ckpts) if n.endswith('.pt')) == [
+        'step_00000003.pt', 'step_00000004.pt']
     loop.update(xor_checkpoints=ckpts, xor_yaml=configs['xor'])
     return loop
 
@@ -2073,7 +2086,6 @@ def serve_rest(torch, kernels, world, style, pose, split_img, ckpts, dev):
     log(f'[serve demo] headless, 2 frames: BEV PNGs and {path} '
         f'({len(shapes)} frames) in {time.time() - t0:.1f} s with terrain')
     log(f'[serve] phase 12 in {time.time() - t_phase:.1f} s')
-    shutil.rmtree(os.path.dirname(os.path.dirname(ckpts)))
     return dict(counts=tiles, img=tile_img)
 
 
@@ -3151,12 +3163,17 @@ def spade_training(torch, kernels, loop, dev):
         f'SPADE training launched K1-K5 kernels: {counts}'
     log(f'[train spade] no K1-K5 launch in the SPADE runs: {counts}')
     fold = spade_fold(torch, kernels, straight, run_dir, loop, dev)
+    # the trained landscape1m oracle, frozen (EMA parameters), for phase 19
+    from scenedreamer_tpu_torch.utils.convert import spade_frozen_from_trained
+    oracle = {k: v.cpu() for k, v in
+              spade_frozen_from_trained(straight.state_dict()).items()}
     del straight
     torch.cuda.empty_cache()
     shutil.rmtree(root)
     log(f'[train spade] phase 15 in {time.time() - t_phase:.1f} s')
     return dict(flagship={k: v for k, v in flag.items() if k != 'ref'},
-                sync_rel=sync, card=card, cli=cli, fold_err=fold)
+                sync_rel=sync, card=card, cli=cli, fold_err=fold,
+                oracle=oracle)
 
 
 def spade_worker(torch, work):
@@ -4037,6 +4054,226 @@ def tile_export(torch, kernels, world, style, pose, dev):
     return per_call
 
 
+# phase 19: the training-campaign path --------------------------------------
+CAMPAIGN_IMAGES = 8     # pseudo-GT images, and fake images per checkpoint
+ORACLE_RES = 64         # the card-against-CPU oracle image's label map
+BWD = ('hash_encode_bwd', 'hash_bake_bwd', 'hash_bake_dw',
+       'hash_encode_paired_bwd', 'hash_shift_bake_bwd', 'hash_shift_bake_dw',
+       'hash_encode_general_bwd')
+
+
+def reference_spade_file(torch, sd, path, seed=SEED):
+    """A frozen oracle's state dict `sd` written as the reference stores
+    its landscape1m checkpoint: `net_G` with `module.` prefixes, every
+    weight of rank >= 2 spectral-normed (`weight_orig` = the weight, a
+    unit `weight_v` and `weight_u` = W v / |W v|^2, so that the stored
+    sigma u . (W v) is 1 and the fold gives the weight back: folding
+    divides by sigma, so a trained weight whose sigma is not 1 has no
+    other exact spectral-norm form), each batch norm with
+    `num_batches_tracked`, and optimizer and scheduler state beside (a
+    pickled object: the file needs `weights_only=False`)."""
+    import argparse
+    g = torch.Generator().manual_seed(seed)
+    net = {}
+    for k, v in sd.items():
+        v = v.detach().float().cpu()
+        if v.ndim >= 2:
+            d = torch.randn(v[0].numel(), generator=g)
+            d /= d.norm()
+            wv = v.reshape(v.shape[0], -1) @ d
+            net[f'module.{k}_orig'] = v
+            net[f'module.{k}_u'] = wv / wv.dot(wv)
+            net[f'module.{k}_v'] = d
+        else:
+            net[f'module.{k}'] = v
+            if k.endswith('.running_mean'):
+                net[f'module.{k[:-len("running_mean")]}num_batches_tracked'] \
+                    = torch.tensor(2)
+    torch.save({'net_G': net,
+                'opt_G': {'state': {}, 'param_groups': [{'lr': 1e-4}]},
+                'sch_G': argparse.Namespace(last_epoch=2),
+                'current_iteration': 2}, path)
+
+
+def _tee_run(fn, argv):
+    """`fn(argv)` with its printed output kept: (result, text)."""
+    import contextlib
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = fn(argv)
+    return out, tee.text()
+
+
+def campaign_path(torch, kernels, loop, oracle, dev):
+    """Phase 19, the training-campaign path (`cli/campaign.py`): (a)
+    phase 15's landscape1m oracle written in the reference's layout,
+    loaded by `cli.train`'s loader on the CPU (its weights within 1e-5 of
+    phase 15's) and moved to the card as `_load_spade_oracle` moves it,
+    one float32 image at a 64x64 label map on each, held within
+    CARD_CPU_RTOL of the CPU's largest value; (b)
+    `make_training_assets` (2 scenes of 512, 8 pairs of 320); (c) 8
+    pseudo-GT images on phase 9's cache through (a)'s file at
+    `cli.train`'s defaults (spade size and res 512, bf16); (d)
+    `campaign_eval` over phase 9's xor run (checkpoints 3 and 4, 8 fake
+    images each, vgg19 and pixel): finite FID / KID, K1, K2a and K2b
+    launched, no backward kernel; (e) `smoke_render` at its defaults
+    (scene 1024, 270x480, 8 samples) for 2 frames. Returns the launch
+    counts per pseudo-GT image and per fake image."""
+    import argparse
+    import re
+    import numpy as np
+    from scenedreamer_tpu_torch.cli import campaign
+    from scenedreamer_tpu_torch.cli import train as cli
+    from scenedreamer_tpu_torch.data.paired_dataset import PairedImageDataset
+    from scenedreamer_tpu_torch.scene.voxel_world import WorldCache
+    from scenedreamer_tpu_torch.utils.png import read_png
+    t_phase = time.time()
+    root = os.path.join(REPO, 'smoke_out', 'campaign')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cache = os.path.join(REPO, 'smoke_out', 'loop', 'cache')
+    n = CAMPAIGN_IMAGES
+
+    # (a) the reference oracle checkpoint --------------------------------
+    ref = os.path.join(root, 'landscape1m_reference.pt')
+    t0 = time.time()
+    reference_spade_file(torch, oracle, ref)
+    write_s, mb = time.time() - t0, os.path.getsize(ref) / 2 ** 20
+    args = argparse.Namespace(spade_checkpoint=ref, spade_size=512,
+                              spade_res=512, spade_filters=128,
+                              spade_oracle_f32=True)
+    t0 = time.time()
+    spade, text = _tee_run(cli.build_spade_oracle, args)
+    load_s = time.time() - t0
+    assert 'loaded SPADE oracle weights' in text
+    # the fold gives phase 15's weights back, but for the rounding of u
+    # (sigma = 1 within float32) and of the float64 quotient
+    loaded = spade.state_dict()
+    assert loaded.keys() == oracle.keys()
+    w_err = max(float((loaded[k] - v).abs().max())
+                / max(float(v.abs().max()), 1e-30) for k, v in oracle.items())
+    g = torch.Generator().manual_seed(SEED)
+    masks = torch.nn.functional.one_hot(torch.randint(
+        0, 184, (1, ORACLE_RES, ORACLE_RES), generator=g), 184).float()
+    z = torch.randn((1, spade.style_dims), generator=g)
+    with torch.no_grad():
+        want = spade({'label': masks, 'z': z})['fake_images']
+        spade = spade.to(dev)
+        got = spade({'label': masks.to(dev), 'z': z.to(dev)})[
+            'fake_images'].cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    n_params = sum(v.numel() for v in oracle.values())
+    log(f'[campaign] (a) phase 15\'s landscape1m oracle ({n_params} values) '
+        f'in the reference layout (net_G, module., weight_orig / _u / _v, '
+        f'num_batches_tracked, optimizer and scheduler beside): {mb:.0f} MB '
+        f'written in {write_s:.1f} s, loaded by cli.train in {load_s:.1f} s, '
+        f'its weights within {w_err:.3g} of phase 15\'s (relative to each '
+        f'tensor\'s largest; tolerance 1e-5); float32 image at '
+        f'{ORACLE_RES}x{ORACLE_RES} labels, card against CPU max abs diff '
+        f'{err:.3g} of max |image| {scale:.3g} (tolerance {CARD_CPU_RTOL} of '
+        f'it)')
+    assert w_err <= 1e-5, 'the loaded oracle is not phase 15\'s'
+    assert 0 < scale <= 1 and err <= CARD_CPU_RTOL * scale, \
+        'the reference oracle differs between the card and the CPU'
+    del spade, got, want
+    torch.cuda.empty_cache()
+
+    # (b) training assets ----------------------------------------------------
+    t0 = time.time()
+    (data, acache), _ = _tee_run(campaign.make_training_assets, [
+        '--outdir', os.path.join(root, 'assets'), '--num-images', str(n),
+        '--num-scenes', '2', '--seed', str(SEED)])
+    assets_s = time.time() - t0
+    pair = PairedImageDataset(data)[0]
+    world = WorldCache(acache).sample_world(
+        rng=cli._RandomAdapter(np.random.default_rng(SEED)))
+    log(f'[campaign] (b) make_training_assets: {n} pairs of 320x320 PNG and '
+        f'2 cached worlds of a 512 terrain cropped to 256 in {assets_s:.1f} '
+        f's (host); pair {tuple(pair["images"].shape)}, world {world.dims}')
+    assert len(os.listdir(os.path.join(data, 'images'))) == n
+    assert sorted(os.listdir(acache)) == [f'{SEED:06d}', f'{SEED + 1:06d}']
+
+    # (c) the pseudo-GT set ------------------------------------------------
+    pgt = os.path.join(root, 'pgt')
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    paths, text = _tee_run(campaign.make_pseudo_gt_set, [
+        '--spade-checkpoint', ref, '--terrain-cache', cache, '--outdir', pgt,
+        '--num-images', str(n), '--spade-size', '512', '--spade-res', '512',
+        '--spade-filters', '128', '--seed', str(SEED)])
+    torch.cuda.synchronize()
+    pgt_wall = time.time() - t0
+    pgt_counts = kernels.launch_counts()
+    pgt_loop = float(re.search(r'pseudo-GT images .* in ([\d.]+) s',
+                               text).group(1))
+    imgs = [read_png(open(p, 'rb').read()) for p in paths]
+    log(f'[campaign] (c) make_pseudo_gt_set: {n} images of 256x256 on phase '
+        f'9\'s cache through (a)\'s file (bf16 oracle at 512): '
+        f'{pgt_loop / n:.3f} s/image ({pgt_loop:.2f} s for the images, '
+        f'{pgt_wall:.1f} s with the oracle\'s load), launches per image '
+        f'{ {k: v / n for k, v in pgt_counts.items() if v} }, pixel std '
+        f'{float(np.std(np.stack(imgs))):.1f}')
+    assert len(imgs) == n and all(i.shape == (256, 256, 3) for i in imgs)
+    assert pgt_counts['dda'] > 0, 'the sampler did not launch K1'
+    assert not any(v for k, v in pgt_counts.items() if k != 'dda'), \
+        f'the pseudo-GT set launched a hash kernel: {pgt_counts}'
+
+    # (d) the campaign over phase 9's xor run ------------------------------
+    run_dir = os.path.dirname(loop['xor_checkpoints'])
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rows, text = _tee_run(campaign.campaign_eval, [
+        '--run-dir', run_dir, '--real-dir', pgt, '--terrain-cache', cache,
+        '--outdir', os.path.join(root, 'eval'), '--num-images', str(n),
+        '--config', loop['xor_yaml']])
+    torch.cuda.synchronize()
+    camp_s = time.time() - t0
+    fake_counts = kernels.launch_counts()
+    fake_s = [float(v) for v in
+              re.findall(r'fake images .* in ([\d.]+) s', text)]
+    per_fake = {k: v / (2 * n) for k, v in fake_counts.items()}
+    log(f'[campaign] (d) campaign_eval over phase 9\'s xor run, checkpoints '
+        f'{[r["step"] for r in rows]}, {n} fake images each: '
+        f'{camp_s / len(rows):.2f} s per checkpoint (fake set and both '
+        f'extractors), the fake images {[round(s / n, 3) for s in fake_s]} '
+        f's/image; launches per fake image '
+        f'{ {k: v for k, v in per_fake.items() if v} }; rows {rows}')
+    assert [r['step'] for r in rows] == [3, 4] and len(fake_s) == 2
+    assert all(math.isfinite(v) for r in rows for v in r.values())
+    for name in ('dda', 'hash_bake', 'hash_encode'):
+        assert fake_counts[name] > 0, f'the fake sets never launched {name}'
+    for name in BWD + PAIRED + GENERAL:
+        assert fake_counts[name] == 0, f'the fake sets launched {name}'
+
+    # (e) the smoke render -------------------------------------------------
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    frames, text = _tee_run(campaign.smoke_render, [
+        '--outdir', os.path.join(root, 'smoke'), '--frames', '2'])
+    torch.cuda.synchronize()
+    smoke_s = time.time() - t0
+    smoke_counts = kernels.launch_counts()
+    log(f'[campaign] (e) smoke_render (scene 1024, 270x480, 8 samples), 2 '
+        f'frames: {smoke_s:.1f} s with terrain and world; launches '
+        f'{ {k: v for k, v in smoke_counts.items() if v} }')
+    assert len(frames) == 2 and all(
+        f.shape == (270, 480, 3) and f.dtype == np.uint8 for f in frames)
+    assert os.path.exists(os.path.join(root, 'smoke', 'rgb_render.mp4'))
+    for name in ('dda', 'hash_bake', 'hash_encode'):
+        assert smoke_counts[name] > 0, \
+            f'the smoke render never launched {name}'
+
+    shutil.rmtree(root)
+    shutil.rmtree(os.path.dirname(run_dir))     # phase 9's xor run
+    log(f'[campaign] phase 19 in {time.time() - t_phase:.1f} s')
+    return dict(pgt_counts={k: v / n for k, v in pgt_counts.items()},
+                fake_counts=per_fake)
+
+
 def split_extra(split):
     """The `kernels` row fields of a scatter's per-level split: the whole
     launch with every level direct (before the coarse path) in ray order,
@@ -4513,7 +4750,7 @@ def main():
                       loop, rest, dev)
 
     # 15. SPADE oracle training ------------------------------------------------
-    spade_training(torch, kernels, loop, dev)
+    spade = spade_training(torch, kernels, loop, dev)
 
     # 16. the legacy GANcraft path, evaluation, the scene CLIs -----------------
     legacy = legacy_eval_scene(torch, kernels, world, ctl, dev)
@@ -4523,6 +4760,9 @@ def main():
 
     # 18. the exported tile program ------------------------------------------
     exported = tile_export(torch, kernels, world, style, ctl[0], dev)
+
+    # 19. the training-campaign path -----------------------------------------
+    camp = campaign_path(torch, kernels, loop, spade.pop('oracle'), dev)
 
     table_rows = kernel_rows(serving, k3, k3_split, train, k5, k5_split,
                              k5b, loop) \
@@ -4544,10 +4784,12 @@ def main():
             legacy['eval']['vgg19']['counts'][row['name']] / EVAL_FRAMES
         row['launches_per_exported_tile_call'] = {
             spec: counts[row['name']] for spec, counts in exported.items()}
+        row['launches_per_pseudo_gt_image'] = camp['pgt_counts'][row['name']]
+        row['launches_per_fake_image'] = camp['fake_counts'][row['name']]
     log(json.dumps({'kernels': table_rows}))
 
     log(card_line())
-    log(f'[smoke] phases 1-18 in {time.time() - t_start:.1f} s')
+    log(f'[smoke] phases 1-19 in {time.time() - t_start:.1f} s')
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -73,7 +73,8 @@ from scenedreamer_tpu_torch.train.trainer import (GANTrainer, TrainerConfig,
                                                   load_checkpoint,
                                                   save_checkpoint,
                                                   split_generator)
-from scenedreamer_tpu_torch.utils.convert import spade_frozen_from_trained
+from scenedreamer_tpu_torch.utils.convert import (
+    load_reference_spade_state_dict, spade_frozen_from_trained)
 from scenedreamer_tpu_torch.utils.config import Config
 from scenedreamer_tpu_torch.utils.meters import (MetricsWriter,
                                                  make_logging_dir)
@@ -83,14 +84,11 @@ from scenedreamer_tpu_torch.utils.visualization import (image_grid,
                                                         tensor2label)
 
 
-def build_everything(cfg, args, device, mesh):
-    """Models, loader, world cache, batch builder and trainer from the
-    config and the parsed flags, on `device`; the loader reads the
-    share of `mesh`'s data group, and the trainer steps over the mesh."""
+def generator_config(cfg):
+    """The `GeneratorConfig` of a config's `gen` block (and the bf16
+    compute dtype of `trainer.amp_config.enabled`): the generator that
+    `cli.train` trains and `cli/campaign.py` renders fake sets with."""
     gen_cfg = cfg.get('gen', {})
-    crop = tuple(gen_cfg.get('crop_size', (256, 256)))
-    pad = int(gen_cfg.get('pad', 6))
-
     # `trainer.amp_config.enabled` (reference
     # `configs/scenedreamer_train.yaml:11-12`, GradScaler machinery in
     # `trainers/base.py:77-78`): bf16 module compute with float32
@@ -99,14 +97,12 @@ def build_everything(cfg, args, device, mesh):
     # non-finite gradient stands in for the scaler's retry
     amp = bool(cfg.get('trainer', {}).get('amp_config', {})
                .get('enabled', False))
-    model_dtype = torch.bfloat16 if amp else torch.float32
-
-    gcfg = GeneratorConfig(
-        dtype=model_dtype,
+    return GeneratorConfig(
+        dtype=torch.bfloat16 if amp else torch.float32,
         style_dims=int(gen_cfg.get('style_dims', 128)),
         interm_style_dims=int(gen_cfg.get('interm_style_dims', 256)),
         final_feat_dim=int(gen_cfg.get('final_feat_dim', 64)),
-        pad=pad,
+        pad=int(gen_cfg.get('pad', 6)),
         num_blocks_early_stop=int(gen_cfg.get('num_blocks_early_stop', 6)),
         num_samples=int(gen_cfg.get('num_samples', 24)),
         sample_depth=float(gen_cfg.get('sample_depth', 3.0)),
@@ -124,6 +120,16 @@ def build_everything(cfg, args, device, mesh):
         style_enc_num_filters=int(
             gen_cfg.get('style_enc', {}).get('num_filters', 64)),
     )
+
+
+def build_everything(cfg, args, device, mesh):
+    """Models, loader, world cache, batch builder and trainer from the
+    config and the parsed flags, on `device`; the loader reads the
+    share of `mesh`'s data group, and the trainer steps over the mesh."""
+    gen_cfg = cfg.get('gen', {})
+    crop = tuple(gen_cfg.get('crop_size', (256, 256)))
+    gcfg = generator_config(cfg)
+    model_dtype = gcfg.dtype
     generator = SceneDreamerGenerator(gcfg, seed=args.seed).to(device)
 
     dis_cfg = cfg.get('dis', {})
@@ -212,18 +218,27 @@ def build_everything(cfg, args, device, mesh):
             trainer, gcfg)
 
 
-def _load_spade_oracle(args, device):
-    """Build the frozen SPADE pseudo-GT oracle's apply function:
-    (label one-hot [B, R, R, 185], torch generator) -> image [B, R, R, 3].
+def build_spade_oracle(args):
+    """The frozen SPADE pseudo-GT oracle (`models/spade.SPADEWrapper`,
     184 labels: the pseudo-GT one-hot is 185-ch but the oracle consumes
-    label[..., :-1] exactly like the reference
-    (`trainers/gancraft.py:53`). `--spade-checkpoint` is a state dict of
-    the frozen `models/spade.SPADEWrapper` saved with `torch.save`, or a
-    `cli.train_spade` run: its run directory, its checkpoints directory
-    or one of its checkpoints, folded into the frozen layout (the EMA
-    parameters when kept; JAX `cli/train.py:189-227`); without it, a
-    seeded random init. `args` needs spade_checkpoint / spade_size /
-    spade_res / spade_filters / spade_oracle_f32."""
+    label[..., :-1] exactly like the reference, `trainers/gancraft.py:53`)
+    on the CPU in float32, eval mode, without gradients.
+    `--spade-checkpoint` is a file or a `cli.train_spade` run (its run
+    directory or its checkpoints directory: the latest checkpoint), read
+    by what it holds, not by its suffix (as `cli/inference.py:
+    load_generator` reads a generator):
+      * a `cli.train_spade` checkpoint ('generator' and 'step') -> folded
+        into the frozen layout, the EMA parameters when kept (JAX
+        `cli/train.py:189-227`);
+      * the reference's checkpoint (`{'net_G': ...}`, spectral-norm
+        `weight_orig` triplets, `module.` prefixes; JAX `:186-194`) or
+        the port's frozen state dict saved with `torch.save` ->
+        `utils.convert.load_reference_spade_state_dict`.
+    A reference file holds optimizer and scheduler objects, so it is
+    opened with `weights_only=False`. The widths (and the style encoder,
+    when the file carries one) come from the checkpoint; without one, a
+    seeded random init at the flags' widths. `args` needs
+    spade_checkpoint / spade_size / spade_filters."""
     sd = None
     nf, sf, zd = args.spade_filters, 128, 256
     if args.spade_checkpoint:
@@ -236,10 +251,12 @@ def _load_spade_oracle(args, device):
             if path is None:
                 raise SystemExit(f'--spade-checkpoint {args.spade_checkpoint}'
                                  ': no checkpoint found there')
-        sd = torch.load(path, map_location='cpu', weights_only=True)
-        if 'generator' in sd and 'step' in sd:
+        ckpt = torch.load(path, map_location='cpu', weights_only=False)
+        if 'generator' in ckpt and 'step' in ckpt:
             # a cli.train_spade checkpoint: freeze the trained oracle
-            sd = spade_frozen_from_trained(sd)
+            sd = spade_frozen_from_trained(ckpt)
+        else:
+            sd = load_reference_spade_state_dict(ckpt)
         head = sd['spade_generator.head_0.layers.conv.weight']
         if head.shape[1] != 184:
             raise SystemExit(
@@ -253,16 +270,32 @@ def _load_spade_oracle(args, device):
         sf = sd['spade_generator.head_1.conv_block_0.layers.norm.mlps.0.0'
                 '.layers.conv.weight'].shape[0]
         zd = sd['spade_generator.fc_0.layers.conv.weight'].shape[1]
-    spade = SPADEWrapper(num_labels=184, out_size=args.spade_size,
-                         num_filters=nf, spade_filters=sf, style_dims=zd,
-                         seed=0)
+    enc = None if sd is None else sd.get(
+        'style_encoder.layer1.layers.conv.weight')
+    # with weights to load, built on the meta device and given the loaded
+    # tensors: the random init of the landscape1m width (414M values)
+    # would cost seconds of host time for nothing
+    with torch.device('meta' if sd is not None else 'cpu'):
+        spade = SPADEWrapper(num_labels=184, out_size=args.spade_size,
+                             num_filters=nf, spade_filters=sf, style_dims=zd,
+                             style_encoder=enc is not None,
+                             style_enc_filters=64 if enc is None
+                             else enc.shape[0], seed=0)
     if sd is not None:
-        spade.load_state_dict(sd)
+        spade.load_state_dict(sd, assign=True)
         print('[train] loaded SPADE oracle weights')
     else:
         print('[train] WARNING: SPADE oracle randomly initialized '
               '(provide --spade-checkpoint for real pseudo-GT)')
-    spade = spade.to(device).eval().requires_grad_(False)
+    return spade.eval().requires_grad_(False)
+
+
+def _load_spade_oracle(args, device):
+    """The frozen oracle of `build_spade_oracle` on `device` as an apply
+    function: (label one-hot [B, R, R, 185], torch generator) -> image
+    [B, R, R, 3]. `args` needs spade_checkpoint / spade_size /
+    spade_res / spade_filters / spade_oracle_f32."""
+    spade = build_spade_oracle(args).to(device)
     if not args.spade_oracle_f32:
         # the reference evals its frozen oracle half-precision
         # unconditionally (`trainers/gancraft.py:41` calls `.half()`

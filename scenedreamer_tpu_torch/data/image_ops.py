@@ -20,6 +20,9 @@ in numpy with OpenCV's own arithmetic:
     IJG tables scaled by quality, then dequantisation, the integer
     inverse DCT, "fancy" (triangle) chroma upsampling and the
     fixed-point YCbCr -> RGB. Entropy coding is lossless and left out.
+`resize_area` is `cv2.resize`'s INTER_AREA (the evaluation's resize),
+`resize_cubic` its INTER_CUBIC on float32 (the synthetic training
+images of `cli/campaign.py`).
 Where OpenCV rounds in another order (float sums, vectorised paths), the
 results can differ by a level; `tests/test_torch_augment.py` measures
 each op against cv2 and states its tolerance.
@@ -443,3 +446,55 @@ def resize_area(img, size_hw):
     out = np.clip(out, 0, 255).astype(np.uint8) if is_u8 \
         else out.astype(np.float32)
     return out[..., 0] if squeeze else out
+
+
+_CUBIC_A = np.float32(-0.75)
+_CUBIC_LANES = 4    # floats per vector in OpenCV's baseline (SSE) build
+
+
+def _cubic_taps(n_in, n_out):
+    """OpenCV's cubic taps along one axis (`resize.cpp`: `interpolateCubic`
+    with A = -0.75, the source coordinate (d + 0.5) * scale - 0.5 rounded
+    to float32 from double, the weights in float32): source indices
+    [n_out, 4], the border replicated, and the four weight vectors."""
+    scale = 1.0 / (n_out / n_in)
+    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = f - s
+    a, one, g = _CUBIC_A, np.float32(1), np.float32(1) - f
+    x1 = f + one
+    c0 = ((a * x1 - np.float32(5) * a) * x1 + np.float32(8) * a) * x1 \
+        - np.float32(4) * a
+    c1 = ((a + np.float32(2)) * f - (a + np.float32(3))) * f * f + one
+    c2 = ((a + np.float32(2)) * g - (a + np.float32(3))) * g * g + one
+    c3 = one - c0 - c1 - c2
+    idx = np.clip(s.astype(np.int64)[:, None] + np.arange(-1, 3), 0,
+                  n_in - 1)
+    return idx, (c0, c1, c2, c3)
+
+
+def resize_cubic(img, size_hw):
+    """`cv2.resize(img, (w, h), interpolation=cv2.INTER_CUBIC)` of a
+    float32 [H, W] image, as OpenCV's own C++ path computes it (bicubic
+    with A = -0.75, half-pixel centres, border replicated): rows first,
+    each output the four products summed first to last in float32; then
+    columns, whose sum OpenCV's vector body (4 lanes) takes last to first
+    and its scalar tail (the last W % 4 columns) first to last. Equal to
+    cv2 with `cv2.ipp.setUseIPP(False)`; OpenCV's default IPP path
+    computes its weights otherwise, within a few float32 steps
+    (`tests/test_torch_campaign.py`)."""
+    x = np.asarray(img, np.float32)
+    h, w = (int(v) for v in size_hw)
+    if (h, w) == x.shape:
+        return x.copy()
+    ix, cx = _cubic_taps(x.shape[1], w)
+    rows = x[:, ix[:, 0]] * cx[0]
+    for j in (1, 2, 3):
+        rows = rows + x[:, ix[:, j]] * cx[j]
+    iy, cy = _cubic_taps(x.shape[0], h)
+    terms = [rows[iy[:, j]] * cy[j][:, None] for j in range(4)]
+    out = ((terms[0] + terms[1]) + terms[2]) + terms[3]
+    vec = w - w % _CUBIC_LANES
+    out[:, :vec] = (((terms[3] + terms[2]) + terms[1])
+                    + terms[0])[:, :vec]
+    return out

@@ -36,6 +36,9 @@ dict) into the port's names: wrappers stripped and spectral norm folded
 as `strip_prefixes` / `fold_spectral_norm` do in the JAX package
 (`convert.py:39-80`, copied here), then each name variant that its
 `convert_scenedreamer_generator` accepts mapped onto the port's module.
+`load_reference_spade_state_dict` does the same for the reference's
+SPADE oracle (the landscape1m checkpoint's `net_G`; JAX `convert_spade`
++ `load_torch_checkpoint`, `convert.py:232-343` there).
 """
 import re
 
@@ -182,6 +185,34 @@ def load_reference_generator_state_dict(sd_or_ckpt):
         if name is not None:
             out[name] = torch.from_numpy(
                 np.array(_np(v), dtype=np.float32, order='C'))
+    return out
+
+
+def load_reference_spade_state_dict(sd_or_ckpt):
+    """The reference's SPADE weights, `{'net_G': state_dict, ...}` (the
+    released landscape1m checkpoint, optimizer and scheduler state
+    beside it) or the bare state dict, -> a state dict that the frozen
+    `models/spade.SPADEWrapper` loads with `strict=True` (with
+    `style_encoder=True` when the file carries one): prefixes stripped
+    and spectral norm folded (`strip_prefixes`, `fold_spectral_norm`),
+    and a batch norm without affine weight / bias given ones / zeros, as
+    JAX's `convert_spade` (`_bn_stats`) reads it. The port's names are
+    the reference's (the style encoder's `fc_mu` / `fc_var` flatten NCHW
+    in both), so no key is renamed and no weight permuted. Dropped, as
+    JAX's converter ignores them: keys outside `spade_generator.` and
+    `style_encoder.` (other nets, optimizer state) and the batch norms'
+    `num_batches_tracked`. The port's own frozen state dict passes
+    through unchanged."""
+    sd = sd_or_ckpt.get('net_G', sd_or_ckpt)
+    sd = fold_spectral_norm(strip_prefixes(sd))
+    out = {k: torch.from_numpy(np.ascontiguousarray(_np(v), np.float32))
+           for k, v in sd.items()
+           if k.split('.')[0] in ('spade_generator', 'style_encoder')
+           and not k.endswith('.num_batches_tracked')}
+    for k in [k for k in out if k.endswith('.running_mean')]:
+        norm = k[:-len('.running_mean')]
+        out.setdefault(f'{norm}.weight', torch.ones_like(out[k]))
+        out.setdefault(f'{norm}.bias', torch.zeros_like(out[k]))
     return out
 
 
