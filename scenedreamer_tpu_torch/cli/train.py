@@ -28,7 +28,12 @@ generator, the discriminator and the VGG loss, float32
 parameters, optimizer state and losses, and no loss scaling (JAX
 `cli/train.py:48-56`); `trainer.aug_policy` turns on DiffAugment;
 `--profile` writes a `torch.profiler` Chrome trace of iterations 2-4
-(CPU and CUDA activity) under `<logdir>/trace`.
+(CPU and CUDA activity, with the recorder's spans: `utils/profiling.py`)
+under `<logdir>/trace`; `--speed-benchmark` logs each span's mean host
+time as `speed/<span>_ms` (no device barrier: a span holds what the host
+spent in it, waits on the device included) and each counter per step as
+`speed/<counter>` (the values read from the device, `host_reads`, and with
+a mesh the bytes and calls of the gradient exchange).
 
 Usage:
     python -m scenedreamer_tpu_torch.cli.train \\
@@ -46,7 +51,7 @@ import signal
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import nullcontext
+from contextlib import ExitStack
 
 import numpy as np
 import torch
@@ -78,7 +83,7 @@ from scenedreamer_tpu_torch.utils.convert import (
 from scenedreamer_tpu_torch.utils.config import Config
 from scenedreamer_tpu_torch.utils.meters import (MetricsWriter,
                                                  make_logging_dir)
-from scenedreamer_tpu_torch.utils.profiling import PhaseTimer
+from scenedreamer_tpu_torch.utils import profiling
 from scenedreamer_tpu_torch.utils.visualization import (image_grid,
                                                         tensor2im,
                                                         tensor2label)
@@ -376,15 +381,19 @@ def _parser():
                         'SCENEDREAMER_SHARED_FWD=0')
     p.add_argument('--profile', action='store_true',
                    help='write a torch.profiler Chrome trace (CPU and CUDA '
-                        'activity) of iterations 2-4 of this process to '
+                        'activity, and the spans) of iterations 2-4 of this '
+                        'process to '
                         '<logdir>/trace (reference train.py:129-151; after '
                         'the first iterations, which build the kernels '
                         'and warm the allocator)')
     p.add_argument('--speed-benchmark', action='store_true',
-                   help='per-phase wall timers with a device barrier '
-                        '(trainers/base.py:876-940 speed_benchmark); '
-                        'disables the prefetch so phases stay '
-                        'attributable')
+                   help='log the mean host ms of each span '
+                        '(world_sample, batch_build, train_step and the '
+                        "step's own, utils/profiling.py) as speed/<span>_ms "
+                        'and each counter per step as speed/<counter> '
+                        '(trainers/base.py:876-940 speed_benchmark, '
+                        'without its device barrier); disables the '
+                        'prefetch so phases stay attributable')
     p.add_argument('--no-prefetch', dest='prefetch', action='store_false',
                    help='disable building batch i+1 on a worker thread '
                         'while the device trains on batch i (a single '
@@ -488,24 +497,18 @@ def _run(a, cfg, device, stop_requested):
              for _ in range(a.batch_size)]
     trainer.voxel_dims = tuple(int(d) for d in world[0].voxel.shape)
 
-    timer = PhaseTimer(device) if a.speed_benchmark else None
-
-    def _ph(name):
-        return timer.phase(name) if timer else nullcontext()
-
+    if a.speed_benchmark:
+        profiling.enable()
     profile_window = (2, 4) if a.profile and rank == 0 else None
-    trace = {'prof': None}
+    trace_dir = os.path.join(logdir, 'trace')
+    trace = {'open': None}
 
     def _stop_trace():
-        prof = trace['prof']
-        if prof is None:
+        if trace['open'] is None:
             return
-        trace['prof'] = None
-        prof.stop()
-        trace_dir = os.path.join(logdir, 'trace')
-        os.makedirs(trace_dir, exist_ok=True)
+        trace['open'].close()
+        trace['open'] = None
         path = os.path.join(trace_dir, 'trace.json')
-        prof.export_chrome_trace(path)
         print(f'[train] trace written to {path}')
 
     it = 0
@@ -568,12 +571,12 @@ def _run(a, cfg, device, stop_requested):
         if not builds:
             return None
         if it_now > 0 and it_now % max(1, a.world_switch_every) == 0:
-            with _ph('world_sample'):
+            with profiling.span('world_sample'):
                 world = [world_cache.sample_world(rng=_RandomAdapter(rng))
                          for _ in range(a.batch_size)]
         data = {k: torch.from_numpy(v).to(device)
                 for k, v in data_np.items() if k in ('images', 'label')}
-        with _ph('batch_build'):
+        with profiling.span('batch_build'):
             return builder(data, world, rng, g_batch)
 
     def _next_generators():
@@ -601,12 +604,9 @@ def _run(a, cfg, device, stop_requested):
             while nxt is not None:
                 data_np, nxt = nxt, next(diter, None)
                 if profile_window and steps_run == profile_window[0] \
-                        and trace['prof'] is None:
-                    acts = [torch.profiler.ProfilerActivity.CPU]
-                    if device.type == 'cuda':
-                        acts.append(torch.profiler.ProfilerActivity.CUDA)
-                    trace['prof'] = torch.profiler.profile(activities=acts)
-                    trace['prof'].start()
+                        and trace['open'] is None:
+                    trace['open'] = ExitStack()
+                    trace['open'].enter_context(profiling.trace(trace_dir))
                 if fut is not None:
                     pending, g_step = fut
                     batch = pending.result()
@@ -614,6 +614,10 @@ def _run(a, cfg, device, stop_requested):
                 else:
                     g_batch, g_step = _next_generators()
                     batch = _build(data_np, it, g_batch)
+                # the sampler's counts as this batch left them, before the
+                # worker starts on the next: what the serial loop logs
+                sampled = (builder.sampler.fallback_rate,
+                           builder.sampler.stats['proposals'])
                 if executor is not None and nxt is not None:
                     gb2, gs2 = _next_generators()
                     fut = (executor.submit(_build, nxt, it + 1, gb2), gs2)
@@ -621,9 +625,9 @@ def _run(a, cfg, device, stop_requested):
                 batch = pm.broadcast_batch(mesh, batch, device)
                 if steps_run == 0:
                     pm.global_batch_from_local(mesh, batch)
-                with _ph('train_step'):
+                with profiling.span('train_step'):
                     metrics = step_fn(batch, g_step)
-                if trace['prof'] is not None \
+                if trace['open'] is not None \
                         and steps_run == profile_window[1]:
                     _stop_trace()
                 it += 1
@@ -636,19 +640,18 @@ def _run(a, cfg, device, stop_requested):
                     writer.scalar('perf/iters_per_s', logging_iter / dt, it)
                     # cameras admitted past max_rejections must be visible
                     # (the reference retries forever; here bounded + counted)
-                    writer.scalar('sampler/fallback_rate',
-                                  builder.sampler.fallback_rate, it)
-                    writer.scalar('sampler/proposals',
-                                  builder.sampler.stats['proposals'], it)
+                    writer.scalar('sampler/fallback_rate', sampled[0], it)
+                    writer.scalar('sampler/proposals', sampled[1], it)
                     print(f'epoch {epoch} iter {it} '
                           f'({logging_iter / dt:.2f} it/s) '
                           f"G {float(metrics['gen/total']):.3f} "
                           f"D {float(metrics['dis/total']):.3f}")
-                    if timer is not None:
-                        print('[speed_benchmark]\n' + timer.report())
-                        for name, mean_s in timer.means().items():
-                            writer.scalar(f'speed/{name}_ms', mean_s * 1e3, it)
-                        timer.reset()
+                    if a.speed_benchmark:
+                        speed = speed_scalars(profiling.take())
+                        print('[speed_benchmark]\n' + '\n'.join(
+                            f'{k}: {v:.2f}' for k, v in speed.items()))
+                        for name, v in speed.items():
+                            writer.scalar(f'speed/{name}', v, it)
                     t0 = time.time()
                 if it % snapshot_save_iter == 0:
                     _save()
@@ -670,9 +673,29 @@ def _run(a, cfg, device, stop_requested):
         _finish('[train] done at iteration {it}; checkpoints in {ckpt_dir}')
     finally:
         _stop_trace()       # a run shorter than the window
+        if a.speed_benchmark:
+            profiling.disable()
+            profiling.take()
         writer.close()
         if executor is not None:
             executor.shutdown(wait=False, cancel_futures=True)
+
+
+def speed_scalars(took):
+    """`--speed-benchmark`'s scalars from what the recorder took
+    (`profiling.take()`): each span's mean host ms as `<span>_ms`, and
+    each counter per step as `<counter>` (`host_reads`; with a mesh
+    `allreduce_bytes` and `allreduce_calls`)."""
+    total = {}
+    for s in took['spans']:
+        n, ms = total.get(s.name, (0, 0.0))
+        total[s.name] = (n + 1, ms + s.ms)
+    out = {f'{k}_ms': ms / n for k, (n, ms) in sorted(total.items())}
+    steps = sum(k == 'step' for k in took['units'].values())
+    if steps:
+        out.update((k, v / steps) for k, v in sorted(
+            took['counters'].items()))
+    return out
 
 
 def _barrier():

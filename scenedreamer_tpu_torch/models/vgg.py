@@ -19,6 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from scenedreamer_tpu_torch.utils.profiling import upload
+
 # (tap name after the ReLU, out channels, pool before) per conv
 VGG19_CFG = [
     ('relu_1_1', 64, False), ('relu_1_2', 64, False),
@@ -38,8 +40,8 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 def imagenet_normalize(x):
     """[-1, 1] RGB (NHWC) -> ImageNet-normalised."""
     x = (x + 1.0) * 0.5
-    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
-    std = torch.as_tensor(IMAGENET_STD, device=x.device)
+    mean = upload(IMAGENET_MEAN, x.device, tag='imagenet_mean')
+    std = upload(IMAGENET_STD, x.device, tag='imagenet_std')
     return (x - mean) / std
 
 

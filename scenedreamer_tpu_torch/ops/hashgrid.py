@@ -73,6 +73,7 @@ from scenedreamer_tpu_torch import kernels
 from scenedreamer_tpu_torch.device import tensor_cache
 from scenedreamer_tpu_torch.ops import hash_ops
 from scenedreamer_tpu_torch.ops.rounding import fma
+from scenedreamer_tpu_torch.utils.profiling import upload
 
 # Instant-NGP / reference primes (cu:42); prime 1 keeps dim 0 coherent.
 PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
@@ -229,11 +230,16 @@ def scene_fold_weights(spec, scene, bound=1.0):
                _offset(spec))                                # [L, Ds]
     sgrid = torch.floor(spos)
     sfrac = spos - sgrid
-    bits = torch.tensor([[(a >> d) & 1 for d in range(ds)]
-                         for a in range(2 ** ds)], device=scene.device)
+    bits = upload([[(a >> d) & 1 for d in range(ds)]
+                   for a in range(2 ** ds)], scene.device, tag='fold_bits')
     on = bits.to(torch.bool)[None]                           # [1, A, Ds]
-    weights = torch.where(on, sfrac[:, None, :],
-                          1.0 - sfrac[:, None, :]).prod(dim=-1)  # [L, A]
+    factors = torch.where(on, sfrac[:, None, :], 1.0 - sfrac[:, None, :])
+    # the product over the axes as multiplies: the backward of `prod`
+    # reads on the host whether its input holds a zero, which waits for
+    # the device's queue
+    weights = factors[..., 0]                                # [L, A]
+    for d in range(1, ds):
+        weights = weights * factors[..., d]
     corner = sgrid.to(torch.int64)[:, None, :] + bits[None]  # [L, A, Ds]
     masks = torch.zeros(corner.shape[:-1], dtype=torch.int64,
                         device=scene.device)

@@ -16,6 +16,7 @@ import torch
 
 from scenedreamer_tpu_torch import kernels
 from scenedreamer_tpu_torch.ops.rounding import cross3, fma, norm3
+from scenedreamer_tpu_torch.utils.profiling import upload
 
 
 def _normalize(v):
@@ -32,8 +33,8 @@ def camera_rays(cam_dir, cam_up, cam_f, cam_c, img_dims, device='cpu'):
     do (`ops/rounding.py`), so both packages trace the same rays.
     """
     h, w = img_dims
-    cam_dir = torch.as_tensor(cam_dir, dtype=torch.float32, device=device)
-    cam_up = torch.as_tensor(cam_up, dtype=torch.float32, device=device)
+    cam_dir = upload(cam_dir, device, torch.float32, 'camera')
+    cam_up = upload(cam_up, device, torch.float32, 'camera')
     fwd = _normalize(cam_dir)
     side = _normalize(cross3(fwd, cam_up))
     up2 = _normalize(cross3(side, fwd))

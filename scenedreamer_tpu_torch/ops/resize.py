@@ -19,6 +19,8 @@ takes floor(dst * in / out) instead.
 """
 import torch
 
+from scenedreamer_tpu_torch.utils.profiling import upload
+
 
 def _weights(n_in, n_out, device):
     scale = n_out / n_in
@@ -33,7 +35,8 @@ def _weights(n_in, n_out, device):
                     w / torch.where(total != 0, total, torch.ones_like(total)),
                     torch.zeros_like(w))
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
+    return upload(torch.where(inside[None, :], w, torch.zeros_like(w)),
+                  device, tag='resize')
 
 
 def resize_bilinear(x, size):

@@ -35,6 +35,8 @@ import os
 import torch
 import torch.distributed as dist
 
+from scenedreamer_tpu_torch.utils.profiling import count, span
+
 # batch keys that are per-sample only (batch axis only); every other key
 # with an image-row axis at dim 1 is cut on 'rays'
 _BATCH_ONLY_KEYS = ('cam_ori', 'height_field', 'semantic_field', 'z')
@@ -267,16 +269,21 @@ def check_replicated(*modules):
 
 def all_mean_(tensors):
     """Replace each float tensor of `tensors` by its mean over the
-    world's ranks, in one flat `all_reduce` of float32."""
-    tensors = list(tensors)
-    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat)
-    flat /= dist.get_world_size()
-    off = 0
-    with torch.no_grad():
-        for t in tensors:
-            t.copy_(flat[off:off + t.numel()].view(t.shape))
-            off += t.numel()
+    world's ranks, in one flat `all_reduce` of float32: span
+    `mesh.all_mean`, counters `allreduce_bytes` (the flat buffer's) and
+    `allreduce_calls` (`utils/profiling.py`)."""
+    with span('mesh.all_mean'):
+        tensors = list(tensors)
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        count('allreduce_bytes', flat.numel() * 4)
+        count('allreduce_calls', 1)
+        dist.all_reduce(flat)
+        flat /= dist.get_world_size()
+        off = 0
+        with torch.no_grad():
+            for t in tensors:
+                t.copy_(flat[off:off + t.numel()].view(t.shape))
+                off += t.numel()
 
 
 def all_mean(x, group):

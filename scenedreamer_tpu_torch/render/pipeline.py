@@ -91,6 +91,8 @@ from scenedreamer_tpu_torch.ops.ray_voxel import (build_occupancy_bits,
 from scenedreamer_tpu_torch.scene.camera import EvalCameraController
 from scenedreamer_tpu_torch.scene.labels import get_label_translator
 from scenedreamer_tpu_torch.utils.png import write_png
+from scenedreamer_tpu_torch.utils.profiling import (begin_unit, span,
+                                                   upload)
 from scenedreamer_tpu_torch.utils.visualization import colormap
 
 # biome color LUT for the semantic-map visualization
@@ -307,8 +309,7 @@ class TiledRenderer:
         cam_c = ((h - 1) / 2.0, (w - 1) / 2.0)
         raydirs = camera_rays(cdir, up, cam_f, cam_c, (h, w),
                               device=self.device)
-        cam_ori = torch.as_tensor(ori, dtype=torch.float32,
-                                  device=self.device)
+        cam_ori = upload(ori, self.device, torch.float32, 'camera')
         vid, dep, hit = ray_voxel_intersection(
             self.voxel, cam_ori, raydirs.reshape(-1, 3), self.m,
             occupancy=self.occupancy, image_width=w)
@@ -401,40 +402,57 @@ class TiledRenderer:
         """Queue all of one frame's device work; returns a zero-argument
         materializer giving `frame`'s result. `generator` is the
         `torch.Generator` of the frame's stratified draws (none are drawn
-        here: the renderer samples deterministically)."""
-        h, w = self.cam_res
-        model = self.model
-        f = dict(self.rays(cam_pose), z=z, generator=generator, model=model,
-                 global_enc=self.global_enc)
-        f['sky_avg'] = self.sky_avg(f['raydirs'], z)
-        f['baked'] = model.bake_hash(self.global_enc)
+        here: the renderer samples deterministically). One frame unit of
+        the recorder (`utils/profiling.py`): spans `render.rays`,
+        `render.sky_avg`, `render.bake`, then the route's (split refine:
+        `render.hit_counts`, a read, `render.field_chunk` tagged with
+        its path, `render.refine`), `render.to_host`; the materializer's
+        wait is `render.fetch`, a read of the same frame."""
+        with begin_unit('frame', 'render.frame') as frame:
+            h, w = self.cam_res
+            model = self.model
+            with span('render.rays'):
+                f = dict(self.rays(cam_pose), z=z, generator=generator,
+                         model=model, global_enc=self.global_enc)
+            with span('render.sky_avg'):
+                f['sky_avg'] = self.sky_avg(f['raydirs'], z)
+            with span('render.bake'):
+                f['baked'] = model.bake_hash(self.global_enc)
 
-        tile_in = self.tile + self.pad if self.tile else None
-        if tile_in is not None and self.split_refine:
-            img, depth = self._frame_split(f)
-        elif tile_in is None or tile_in > h or tile_in > w:
-            img, depth = self._frame_full(f)
-        else:
-            img, depth = self._frame_tiles(f, tile_in)
-        vid0 = self._crop(f['vid'][0])[..., 0] if return_aux else None
-        fetch = self._to_host(img, depth if return_aux else None, vid0)
+            tile_in = self.tile + self.pad if self.tile else None
+            if tile_in is not None and self.split_refine:
+                img, depth = self._frame_split(f)
+            elif tile_in is None or tile_in > h or tile_in > w:
+                img, depth = self._frame_full(f)
+            else:
+                img, depth = self._frame_tiles(f, tile_in)
+            with span('render.to_host'):
+                vid0 = self._crop(f['vid'][0])[..., 0] if return_aux \
+                    else None
+                bufs, done = self._to_host(
+                    img, depth if return_aux else None, vid0)
+        unit = frame.unit
 
         def materialize():
-            img_h, depth_h, vid_h = fetch()
+            with span('render.fetch', kind='read', reads=bufs, unit=unit):
+                if done is not None:
+                    done.synchronize()
+            img_h, depth_h, vid_h = [None if b is None else b.numpy()
+                                     for b in bufs]
             if not return_aux:
                 return img_h
             return img_h, {'depth': depth_h, 'first_voxel_id': vid_h}
         return materialize
 
     def _to_host(self, *tensors):
-        """Queue the copies of `tensors` (None passes through) to the
-        host; returns the function that waits for them and gives numpy
-        arrays. On CUDA they go to pinned memory without blocking, and an
-        event recorded after them is all the host waits on."""
+        """Queue the copies of `tensors` (None passes through) to host
+        tensors; returns them and the event to wait on before reading
+        them (None on the CPU, where they are the tensors themselves). On
+        CUDA they go to pinned memory without blocking, and an event
+        recorded after them is all the host waits on."""
         if self.device.type != 'cuda':
-            arrays = [None if t is None else t.contiguous().numpy()
-                      for t in tensors]
-            return lambda: arrays
+            return [None if t is None else t.contiguous()
+                    for t in tensors], None
         bufs = []
         for t in tensors:
             if t is None:
@@ -445,11 +463,7 @@ class TiledRenderer:
             bufs.append(buf)
         done = torch.cuda.Event()
         done.record()
-
-        def fetch():
-            done.synchronize()
-            return [None if b is None else b.numpy() for b in bufs]
-        return fetch
+        return bufs, done
 
     def _render(self, f, sl=slice(None), sky_only=False, compact_k=None,
                 coords=None, tile_in=None):
@@ -501,7 +515,9 @@ class TiledRenderer:
         per_row = f['hit'][0].any(dim=-1).sum(dim=-1)          # [H]
         padded = per_row.new_zeros(len(starts) * rows)
         padded[:h] = per_row
-        counts = padded.reshape(len(starts), rows).sum(dim=1).tolist()
+        hits = padded.reshape(len(starts), rows).sum(dim=1)
+        with span('render.hit_counts', kind='read', reads=hits):
+            counts = hits.tolist()
         stats = dict(rays=h * w, hit_rays=sum(counts), chunks_sky_only=0,
                      chunks_compacted=0, chunks_full=0, field_rays=0,
                      field_points=0)
@@ -514,18 +530,20 @@ class TiledRenderer:
             if self.field_compact and not sky_only:
                 k = -(-count // COMPACT_GRANULE) * COMPACT_GRANULE
                 compact_k = k if k < n_rays else None
-            out = self._render(f, sl, sky_only=sky_only,
-                               compact_k=compact_k)
-            depths.append(expected_depth(out))
-            feats.append(out['net_out'])
             path = 'sky_only' if sky_only else \
                 'compacted' if compact_k else 'full'
+            with span('render.field_chunk', tag=path):
+                out = self._render(f, sl, sky_only=sky_only,
+                                   compact_k=compact_k)
+                depths.append(expected_depth(out))
+            feats.append(out['net_out'])
             stats[f'chunks_{path}'] += 1
             field_rays = 0 if sky_only else (compact_k or n_rays)
             stats['field_rays'] += field_rays
             stats['field_points'] += field_rays * out['rand_depth'].shape[-2]
         self.last_stats = stats
-        img = self._refine(torch.cat(feats, dim=1), f['z'])
+        with span('render.refine'):
+            img = self._refine(torch.cat(feats, dim=1), f['z'])
         return self._crop(img), self._crop(torch.cat(depths, dim=1)[0])
 
     def _refine(self, feats, z):
@@ -558,7 +576,9 @@ class TiledRenderer:
             hit_any = f['hit'][0].any(dim=-1)
             flags = torch.stack([hit_any[y0:y0 + tile_in,
                                          x0:x0 + tile_in].any()
-                                 for y0, x0 in coords]).tolist()
+                                 for y0, x0 in coords])
+            with span('render.hit_counts', kind='read', reads=flags):
+                flags = flags.tolist()
         if self.mesh:
             jobs = self._mesh_jobs(coords, flags)
         else:

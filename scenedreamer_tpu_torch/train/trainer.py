@@ -56,6 +56,7 @@ from scenedreamer_tpu_torch.parallel.mesh import all_mean_
 from scenedreamer_tpu_torch.train import losses as L
 from scenedreamer_tpu_torch.train import optim
 from scenedreamer_tpu_torch.utils import diff_aug
+from scenedreamer_tpu_torch.utils.profiling import begin_unit, span
 
 
 @dataclasses.dataclass
@@ -89,7 +90,8 @@ def clip_and_validate(params, cfg):
     if cfg.grad_clip_norm > 0:
         scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-6), max=1.0)
         torch._foreach_mul_(grads, scale)
-    gnorm = float(gnorm)
+    with span('clip_read', kind='read', reads=gnorm):
+        gnorm = float(gnorm)
     ok = math.isfinite(gnorm) and (cfg.skip_grad_norm <= 0
                                    or gnorm <= cfg.skip_grad_norm)
     return ok, gnorm
@@ -128,20 +130,23 @@ def mean_over_ranks(mesh, params, metrics, buffers=()):
     Missing gradients are zeros."""
     if mesh is None:
         return
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    names = list(metrics)
-    vals = [torch.as_tensor(metrics[n], dtype=torch.float32,
-                            device=params[0].device).detach().clone()
-            for n in names]
-    all_mean_([p.grad for p in params] + vals + list(buffers))
-    metrics.update(zip(names, vals))
+    with span('allreduce'):
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        names = list(metrics)
+        vals = [torch.as_tensor(metrics[n], dtype=torch.float32,
+                                device=params[0].device).detach().clone()
+                for n in names]
+        all_mean_([p.grad for p in params] + vals + list(buffers))
+        metrics.update(zip(names, vals))
 
 
 def _floats(metrics):
-    return {k: float(v.detach()) if torch.is_tensor(v) else float(v)
-            for k, v in metrics.items()}
+    """The metrics as Python floats: one read of the device a tensor."""
+    with span('metrics_read', kind='read', reads=metrics):
+        return {k: float(v.detach()) if torch.is_tensor(v) else float(v)
+                for k, v in metrics.items()}
 
 
 class GANTrainer:
@@ -184,9 +189,10 @@ class GANTrainer:
     def _render(self, batch, generator, style_eps, compact_k=None):
         band = None if self.mesh is None else \
             self.mesh.row_band(batch['voxel_id'].shape[1])
-        return self.gen(batch, self.voxel_dims, random_style=False,
-                        generator=generator, style_eps=style_eps,
-                        compact_k=compact_k, band=band)
+        with span('train.render'):
+            return self.gen(batch, self.voxel_dims, random_style=False,
+                            generator=generator, style_eps=style_eps,
+                            compact_k=compact_k, band=band)
 
     def _aug_draws(self, update, name, x, generator):
         """The DiffAugment draws of D input `name` ('images',
@@ -239,16 +245,19 @@ class GANTrainer:
         return total, m
 
     def _dis_update(self, batch, fake, generator=None):
-        self.d_opt.zero_grad()
-        loss, m = self._dis_loss(batch, fake.detach(), generator)
-        loss.backward()
-        mean_over_ranks(self.mesh, self.d_opt.params, m,
-                        self.dis.buffers())
-        ok, m['dis/grad_norm'] = clip_and_validate(self.d_opt.params,
-                                                   self.cfg)
-        if ok:
-            self.d_opt.step()
-        return _floats(m)
+        with span('train.dis_update'):
+            self.d_opt.zero_grad()
+            loss, m = self._dis_loss(batch, fake.detach(), generator)
+            with span('backward'):
+                loss.backward()
+            mean_over_ranks(self.mesh, self.d_opt.params, m,
+                            self.dis.buffers())
+            ok, m['dis/grad_norm'] = clip_and_validate(self.d_opt.params,
+                                                       self.cfg)
+            if ok:
+                with span('adam'):
+                    self.d_opt.step()
+            return _floats(m)
 
     def _gen_loss(self, g_out, batch, generator=None):
         """G loss (`gancraft.py:158-204`) from the generator's outputs,
@@ -296,35 +305,42 @@ class GANTrainer:
         return total, m
 
     def _gen_update(self, loss, m):
-        loss.backward()
-        mean_over_ranks(self.mesh, self.g_opt.params, m)
-        ok, m['gen/grad_norm'] = clip_and_validate(self.g_opt.params,
-                                                   self.cfg)
-        if ok:
-            self.g_opt.step()
-        if self.g_ema is not None:
-            b = self.cfg.ema_beta
-            with torch.no_grad():
-                for n, p in self.gen.named_parameters():
-                    self.g_ema[n].mul_(b).add_(p, alpha=1.0 - b)
-        self.step += 1
-        return _floats(m)
+        with span('train.gen_update'):
+            with span('backward'):
+                loss.backward()
+            mean_over_ranks(self.mesh, self.g_opt.params, m)
+            ok, m['gen/grad_norm'] = clip_and_validate(self.g_opt.params,
+                                                       self.cfg)
+            if ok:
+                with span('adam'):
+                    self.g_opt.step()
+            if self.g_ema is not None:
+                b = self.cfg.ema_beta
+                with span('ema'), torch.no_grad():
+                    for n, p in self.gen.named_parameters():
+                        self.g_ema[n].mul_(b).add_(p, alpha=1.0 - b)
+            self.step += 1
+            return _floats(m)
 
     # ------------------------------------------------------------------
     def dis_step(self, batch, generator=None, style_eps=None,
                  compact_k=None):
         """D update on a fresh render (`gancraft.py:206-251`)."""
-        with torch.no_grad():
-            fake = self._render(batch, generator, style_eps,
-                                compact_k)['fake_images']
-        return self._dis_update(batch, fake, generator)
+        with begin_unit('step', 'train.step'):
+            with torch.no_grad():
+                fake = self._render(batch, generator, style_eps,
+                                    compact_k)['fake_images']
+            return self._dis_update(batch, fake, generator)
 
     def gen_step(self, batch, generator=None, style_eps=None,
                  compact_k=None):
         """G update on a fresh render (`gancraft.py:158-204`)."""
-        self.g_opt.zero_grad()
-        g_out = self._render(batch, generator, style_eps, compact_k)
-        return self._gen_update(*self._gen_loss(g_out, batch, generator))
+        with begin_unit('step', 'train.step'):
+            self.g_opt.zero_grad()
+            g_out = self._render(batch, generator, style_eps, compact_k)
+            with span('train.gen_loss'):
+                loss, m = self._gen_loss(g_out, batch, generator)
+            return self._gen_update(loss, m)
 
     def train_step(self, batch, generator=None, style_eps=(None, None),
                    compact_k=None):
@@ -332,10 +348,11 @@ class GANTrainer:
         each on its own generator split from `generator` (as JAX splits
         the step key into kd, kg) and style draws given per phase as a
         (D, G) pair."""
-        gd, gg = split_generator(generator)
-        dm = self.dis_step(batch, gd, style_eps[0], compact_k)
-        gm = self.gen_step(batch, gg, style_eps[1], compact_k)
-        return {**dm, **gm}
+        with begin_unit('step', 'train.step'):
+            gd, gg = split_generator(generator)
+            dm = self.dis_step(batch, gd, style_eps[0], compact_k)
+            gm = self.gen_step(batch, gg, style_eps[1], compact_k)
+            return {**dm, **gm}
 
     def train_step_fused(self, batch, generator=None,
                          style_eps=(None, None), compact_k=None):
@@ -351,12 +368,21 @@ class GANTrainer:
                           compact_k=None):
         """One iteration with ONE render: keep its graph, update D on the
         detached fake, take the G loss through the updated D and run the
-        G backward through the kept graph."""
-        self.g_opt.zero_grad()
-        g_out = self._render(batch, generator, style_eps, compact_k)
-        dm = self._dis_update(batch, g_out['fake_images'], generator)
-        gm = self._gen_update(*self._gen_loss(g_out, batch, generator))
-        return {**dm, **gm}
+        G backward through the kept graph. One step unit of the
+        recorder (`utils/profiling.py`): spans `train.render`,
+        `train.dis_update` (`backward`, with a mesh `allreduce`,
+        `clip_read` and `metrics_read` (reads), `adam`),
+        `train.gen_loss` (D and VGG19), `train.gen_update` (the same,
+        and `ema`); `train_step` and the single updates take the same
+        spans."""
+        with begin_unit('step', 'train.step'):
+            self.g_opt.zero_grad()
+            g_out = self._render(batch, generator, style_eps, compact_k)
+            dm = self._dis_update(batch, g_out['fake_images'], generator)
+            with span('train.gen_loss'):
+                loss, m = self._gen_loss(g_out, batch, generator)
+            gm = self._gen_update(loss, m)
+            return {**dm, **gm}
 
     # ------------------------------------------------------------------
     def state_dict(self):

@@ -752,3 +752,91 @@ def test_padded_tile_frame_matches_cpu(cuda):
                                atol=1e-3, rtol=0)
     np.testing.assert_array_equal(aux_g['first_voxel_id'],
                                   aux_c['first_voxel_id'])
+
+
+def _syncs_outside_reads(fn):
+    """Run `fn` under `torch.cuda.set_sync_debug_mode('warn')`, the
+    recorder on: (the innermost span of each synchronising call, the
+    innermost span and the stack of each made outside a read or upload
+    span)."""
+    import traceback
+    import warnings
+    from scenedreamer_tpu_torch.utils import profiling
+    seen, outside = [], []
+
+    def hook(message, *args, **kwargs):
+        if 'called a synchronizing CUDA operation' in str(message):
+            cur = profiling.current()
+            seen.append(cur)
+            if cur is None or cur.kind not in ('read', 'upload'):
+                outside.append(f'{None if cur is None else cur.name}: '
+                               f'{message}\n'
+                               + ''.join(traceback.format_stack(limit=14)))
+    profiling.enable()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter('always')
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        profiling.disable()
+        profiling.take()
+    return seen, outside
+
+
+def test_every_sync_of_a_frame_and_a_step_is_in_a_read_span(cuda):
+    """One split-refine `frame_async` and its fetch, and one
+    `train_step_shared`, of tiny models on the card: every call that
+    synchronises the device is made inside a span of the recorder that
+    waits on purpose: a read (the hit counts, the fetch, the clip and
+    metrics reads) or an upload from pageable memory; and there are
+    some."""
+    from scenedreamer_tpu_torch.data.synthetic import make_batch, make_world
+    from scenedreamer_tpu_torch.models.discriminator import \
+        GANcraftDiscriminator
+    from scenedreamer_tpu_torch.models.generator import (
+        GeneratorConfig, SceneDreamerGenerator)
+    from scenedreamer_tpu_torch.render.pipeline import TiledRenderer
+    from scenedreamer_tpu_torch.scene.camera import EvalCameraController
+    from scenedreamer_tpu_torch.train.losses import PerceptualLoss
+    from scenedreamer_tpu_torch.train.trainer import GANTrainer
+    world = make_world(size=64, seed=7, n_voronoi=20, boundary_detect=4)
+    cfg = GeneratorConfig(style_dims=16, interm_style_dims=32,
+                          final_feat_dim=8, pad=2, num_blocks_early_stop=4,
+                          num_samples=6, hash_num_levels=4, hash_level_dim=4,
+                          hash_log2_size=10, hash_desired_resolution=128,
+                          mlp_hidden=32, style_enc_num_filters=8)
+    model = SceneDreamerGenerator(cfg, seed=3).to(cuda)
+    r = TiledRenderer(model, world, num_samples=6, num_blocks_early_stop=4,
+                      pad=6, tile_size=16, resolution_hw=(32, 48),
+                      chunk_rays=300, split_refine=True, device=cuda)
+    poses = EvalCameraController(world, maxstep=4, pattern=0)
+    z = r.style_z(np.random.default_rng(5).standard_normal((1, 16)))
+    gens = [torch.Generator(device=cuda).manual_seed(i) for i in range(3)]
+    r.frame_async(poses[0], z, gens[0], return_aux=True)()   # warm-up
+    prev = r.frame_async(poses[1], z, gens[1], return_aux=True)
+
+    def frame():
+        nxt = r.frame_async(poses[2], z, gens[2], return_aux=True)
+        prev()
+        nxt()
+    seen, outside = _syncs_outside_reads(frame)
+    assert seen
+    if outside:
+        pytest.fail('\n\n'.join(outside))
+
+    trainer = GANTrainer(model.train(), GANcraftDiscriminator(12, 8).to(cuda),
+                         world.dims, perceptual=PerceptualLoss(
+                             layers=('relu_2_1',), weights=(1.0,)).to(cuda))
+    batch = make_batch(world, 2, 34, 34, 4, 2, device=cuda)
+    draws = torch.Generator(device=cuda).manual_seed(7)
+    trainer.train_step_shared(batch, draws)                  # warm-up
+    seen, outside = _syncs_outside_reads(
+        lambda: trainer.train_step_shared(batch, draws))
+    assert seen
+    if outside:
+        pytest.fail('\n\n'.join(outside))

@@ -7,8 +7,8 @@ through a seeded cotangent: `jax.vjp` against autograd) within 1e-5
 `tensor2flow` within one uint8 level (OpenCV's fastAtan2 polynomial and
 its min-max scale reproduced in numpy, rounded in another order),
 `plot_keypoints` and the PNG of `save_tensor_image` exactly,
-`tensor2pilimage` exactly (both Pillow); `trace` / `annotate` write a
-Chrome trace naming the span."""
+`tensor2pilimage` exactly (both Pillow); `trace` and a `span` (JAX's
+`annotate`) write a Chrome trace naming the span."""
 import json
 import os
 
@@ -194,10 +194,14 @@ def test_pil_image_and_save_match_jax(tmp_path):
 
 
 def test_trace_and_annotate_write_a_chrome_trace(tmp_path):
-    from scenedreamer_tpu_torch.utils.profiling import annotate, trace
-    with trace(str(tmp_path / 'tr')):
-        with annotate('my_span'):
+    """`trace` turns the recorder on inside and back off after; a `span`
+    (JAX's `annotate`) shows in the Chrome trace."""
+    from scenedreamer_tpu_torch.utils import profiling
+    with profiling.trace(str(tmp_path / 'tr')):
+        with profiling.span('my_span'):
             torch.ones(8).sum()
+    assert not profiling.enabled()
+    assert [s.name for s in profiling.take()['spans']] == ['my_span']
     with open(tmp_path / 'tr' / 'trace.json') as f:
         events = json.load(f)['traceEvents']
     assert any(e.get('name') == 'my_span' for e in events)

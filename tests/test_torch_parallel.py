@@ -50,6 +50,34 @@ PKW = {k: v for k, v in KW.items() if k != 'fov'}
 MESHES = [(8, 1), (4, 2), (2, 4)]
 
 
+def test_all_mean_counts_the_flat_buffer(tmp_path):
+    """On a one-process gloo group, `all_mean_` leaves its tensors as they
+    were (the mean of one rank) and, with the recorder on, opens
+    `mesh.all_mean` and counts one call of the flat float32 buffer's
+    bytes, whatever the tensors' dtypes."""
+    import torch.distributed as dist
+    from scenedreamer_tpu_torch.utils import profiling
+    dist.init_process_group('gloo', init_method=f"file://{tmp_path / 'pg'}",
+                            world_size=1, rank=0)
+    tensors = [torch.arange(6.0).reshape(2, 3), torch.ones(5).half(),
+               torch.tensor(2.5)]
+    want = [t.clone() for t in tensors]
+    try:
+        pm.all_mean_(tensors)           # off: nothing recorded
+        profiling.enable()
+        profiling.take()
+        pm.all_mean_(tensors)
+        got = profiling.take()
+    finally:
+        profiling.disable()
+        dist.destroy_process_group()
+    for t, w in zip(tensors, want):
+        torch.testing.assert_close(t, w, rtol=0, atol=0)
+    assert got['counters'] == {'allreduce_bytes': (6 + 5 + 1) * 4,
+                               'allreduce_calls': 1}
+    assert [s.name for s in got['spans']] == ['mesh.all_mean']
+
+
 @pytest.mark.parametrize('data, rays', MESHES)
 def test_ranks_sit_where_jax_puts_devices(data, rays):
     ids = np.vectorize(lambda d: d.id)(jpm.make_mesh(rays=rays).devices)

@@ -94,6 +94,49 @@ def test_render_trajectory_writes_frames(frames, tmp_path):
     assert png[:8] == b'\x89PNG\r\n\x1a\n'
 
 
+def test_frame_async_records_its_spans(frames):
+    """With the recorder on, one split-refine frame is one frame unit:
+    root `render.frame` over rays, sky average, bake, the hit counts (a
+    read of one value per chunk), a field chunk per chunk tagged with
+    the route `last_stats` counts, the refine and the copies to the
+    host; the materializer's fetch is a read of the same frame, outside
+    the root."""
+    from scenedreamer_tpu_torch.utils import profiling
+    world, tmodel, style = frames[1]
+    kw = {k: v for k, v in KW.items() if k != 'fov'}
+    tr = TiledRenderer(tmodel, world, chunk_rays=300, device='cpu', **kw)
+    z = tr.style_z(style)
+    profiling.enable()
+    try:
+        profiling.take()
+        mat = tr.frame_async(_poses(world)['tour'], z, return_aux=True)
+        img, aux = mat()
+        got = profiling.take()
+    finally:
+        profiling.disable()
+    spans = got['spans']
+    (root,) = [s for s in spans if s.name == 'render.frame']
+    assert got['units'] == {root.unit: 'frame'} and root.parent is None
+    inside = [s.name for s in sorted(spans, key=lambda s: s.start_ns)
+              if s.parent == root.id]
+    chunks = [s for s in spans if s.name == 'render.field_chunk']
+    stats = tr.last_stats
+    assert inside == ['render.rays', 'render.sky_avg', 'render.bake',
+                      'render.hit_counts'] + ['render.field_chunk'] * len(
+                          chunks) + ['render.refine', 'render.to_host']
+    for path in ('sky_only', 'compacted', 'full'):
+        assert sum(c.tag == path for c in chunks) == stats[f'chunks_{path}']
+    assert stats['chunks_compacted'] > 0
+    (hits,) = [s for s in spans if s.name == 'render.hit_counts']
+    (fetch,) = [s for s in spans if s.name == 'render.fetch']
+    assert hits.kind == fetch.kind == 'read' and hits.values == len(chunks)
+    assert fetch.unit == root.unit and fetch.parent is None
+    assert fetch.values == img.size + aux['depth'].size \
+        + aux['first_voxel_id'].size
+    assert got['counters']['host_reads'] == hits.values + fetch.values > 0
+    assert all(s.unit == root.unit for s in spans)
+
+
 def test_inference_cli_on_cpu(tmp_path):
     """The CLI's whole chain (terrain, world, flagship-width generator,
     renderer, PNGs) at a tiny scene and resolution on the CPU."""

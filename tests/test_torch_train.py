@@ -196,6 +196,48 @@ def test_shared_step_equals_two_forward_with_same_draws(setup):
         torch.testing.assert_close(x, y, rtol=0, atol=1e-7, msg=n)
 
 
+@pytest.mark.parametrize('step', ['train_step_shared', 'train_step'])
+def test_steps_record_their_spans(setup, step):
+    """With the recorder on, a step is one step unit: `train.render`,
+    `train.dis_update` (backward, clip read, Adam, metrics read),
+    `train.gen_loss`, `train.gen_update` (the same and the EMA); the
+    two-forward step renders again before the G loss. Each update reads
+    its gradient norm once (2 `clip_read` spans) and each metric tensor
+    once; no mesh, no exchange."""
+    from scenedreamer_tpu_torch.utils import profiling
+    tr = _port_trainer(setup, TrainerConfig(ema_beta=0.5))
+    eps = torch.from_numpy(setup['eps_shared'])
+    profiling.enable()
+    try:
+        profiling.take()
+        m = getattr(tr, step)(setup['batch'], style_eps=eps if step ==
+                              'train_step_shared' else (eps, eps))
+        got = profiling.take()
+    finally:
+        profiling.disable()
+    spans = sorted(got['spans'], key=lambda s: s.start_ns)
+    (root,) = [s for s in spans if s.name == 'train.step']
+    assert got['units'] == {root.unit: 'step'}
+
+    def children(parent):
+        return [s.name for s in spans if s.parent == parent.id]
+    render = ['train.render'] * (2 if step == 'train_step' else 1)
+    assert children(root) == render[:1] + ['train.dis_update'] \
+        + render[1:] + ['train.gen_loss', 'train.gen_update']
+    (dis,) = [s for s in spans if s.name == 'train.dis_update']
+    (gen,) = [s for s in spans if s.name == 'train.gen_update']
+    assert children(dis) == ['backward', 'clip_read', 'adam', 'metrics_read']
+    assert children(gen) == ['backward', 'clip_read', 'adam', 'ema',
+                             'metrics_read']
+    reads = [s for s in spans if s.kind == 'read']
+    assert [s.name for s in reads].count('clip_read') == 2
+    assert {s.name for s in reads} == {'clip_read', 'metrics_read'}
+    # the two gradient norms are read by the clip, every other metric by
+    # its update's metrics read
+    assert got['counters'] == {'host_reads': len(m)}
+    assert all(s.unit == root.unit for s in spans)
+
+
 def _snapshot(tr):
     return (copy.deepcopy(tr.gen.state_dict()),
             copy.deepcopy(tr.dis.state_dict()),

@@ -208,6 +208,8 @@ def test_prefetch_does_not_change_the_batches(setup, first_runs, flag):
         for phase in ('batch_build', 'train_step', 'world_sample'):
             assert all(v > 0 for _, v in got[f'speed/{phase}_ms'])
         assert [s for s, _ in got['speed/world_sample_ms']] == [2, 3, 4]
+        # the recorder's counters, per step: the values the step read
+        assert all(v > 0 for _, v in got['speed/host_reads'])
 
 
 def test_two_forward_step_runs(setup):
