@@ -237,7 +237,8 @@ of the repository. Phases, each fatal on failure:
      12's frame, one with a hit and one without, held against the live
      tile (`render_tile`: image within 1e-5, depth within 1e-4 where
      finite, inf on the same rays), with exactly K2a + K2b, K5a + K5b
-     or K4a launched, once each per call; the export, save and load
+     or K4a launched, once each per call, and K6 6 times (the RenderMLP's
+     hidden layers); the export, save and load
      seconds, the artifact's MB, and the loaded and live tile's ms
      (median of 5, CUDA events) beside the card's name and power limit.
  19. the training-campaign path ('[campaign]' lines, `cli/campaign.py`):
@@ -252,8 +253,18 @@ of the repository. Phases, each fatal on failure:
      run (checkpoints 3 and 4, 8 images each, vgg19 and pixel): finite
      FID / KID, K1, K2a and K2b launched, no backward kernel; (e)
      `smoke_render` for 2 frames.
+ 20. K6, the RenderMLP's hidden layer (`csrc/mlp_gemm.cu`, '[K6]' lines),
+     at the serving chunk's shape (1,306,800 points): the first layer (K
+     128 with the 12 one-hot labels, `fc_1`'s weight shared) and a
+     ModLinear layer (K 256, a weight per batch item) against the plain
+     composition, which is the parent's sequence of ops (`F.linear`'s
+     addmm, the label mm, the add and `F.leaky_relu`; `bmm`, the
+     broadcast add and `F.leaky_relu`): within 1e-5 of the largest
+     output (accumulation order only); the kernel's, that sequence's and
+     its GEMM alone's ms (median of 5, CUDA events, L2 flushed) beside
+     the bound from operations.
 
-Then the total time, one `kernels` JSON line covering K1-K5 (K4a also
+Then the total time, one `kernels` JSON line covering K1-K6 (K4a also
 at the serving chunk, under `at_serving_chunk`; K5b's whole launch there
 under `serving_chunk_ms`; every row with its launches per padded-tile
 frame at 1 and 4 tiles per batch and per AMP step), the card's name and
@@ -3931,12 +3942,14 @@ def layer_library(torch, kernels, dev):
 # phase 18: the exported tile program --------------------------------------
 
 # the specs of phase 18 and the kernels their tile program launches
+# each spec's kernels and their launches per call of its loaded program:
+# its hash kernels once, K6 once per hidden layer of the RenderMLP
 EXPORT_SPECS = (
-    ('xor', {}, ('hash_bake', 'hash_encode')),
+    ('xor', {}, dict(hash_bake=1, hash_encode=1, render_mlp_gemm=6)),
     ('paired', dict(hash_variant='paired'),
-     ('hash_shift_bake', 'hash_encode_paired')),
+     dict(hash_shift_bake=1, hash_encode_paired=1, render_mlp_gemm=6)),
     (f'log2-{LOG2_UNFOLDED}', dict(hash_log2_size=LOG2_UNFOLDED),
-     ('hash_encode_general',)),
+     dict(hash_encode_general=1, render_mlp_gemm=6)),
 )
 
 
@@ -3967,8 +3980,8 @@ def tile_export(torch, kernels, world, style, pose, dev):
     (phase 4's first pose), the first with a hit and the first without,
     each held against the live tile (`render_tile`): image within 1e-5,
     depth within 1e-4 where finite, inf on the same rays; exactly its
-    kernels launched, once each per call. Returns {spec: launches per
-    loaded call by kernel}."""
+    kernels launched, its hash kernels once each per call and K6 once per
+    hidden layer. Returns {spec: launches per loaded call by kernel}."""
     import numpy as np
     from scenedreamer_tpu_torch.models import generator as gen_mod
     from scenedreamer_tpu_torch.models.generator import (
@@ -4042,7 +4055,7 @@ def tile_export(torch, kernels, world, style, pose, dev):
                 f'the loaded {name} program\'s depth differs from the live tile'
         log(f'[export] {name}: launches in {len(args)} loaded calls {counts}')
         for kname, n in counts.items():
-            want = len(args) if kname in launched else 0
+            want = len(args) * launched.get(kname, 0)
             assert n == want, f'the loaded {name} program launched {kname} ' \
                 f'{n} times, not {want}'
         per_call[name] = {k: n / len(args) for k, n in counts.items()}
@@ -4371,6 +4384,80 @@ def general_rows(k4, k4_split, k4c, render, step, loop):
                    ('points', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
                     'bound_by'), k4c))))))
     return out
+
+
+# phase 20: K6, the RenderMLP's hidden layer --------------------------------
+def render_mlp_layers(torch, kernels, dev):
+    """Phase 20: K6 against its plain composition at the serving chunk's
+    shape, timed beside it and beside its GEMM alone (cuBLAS). Returns
+    {layer: dict(rows, k, n, labels, max_abs_err, ms, plain_ms,
+    gemm_only_ms, bound_ms, bound_by)} for 'fc_1' and 'fc_2'."""
+    from scenedreamer_tpu_torch.ops.mlp_ops import render_mlp_gemm_plain
+    from scenedreamer_tpu_torch.render.pipeline import CHUNK_RAYS
+    w_rays = RES[1] + PAD
+    rows = CHUNK_RAYS // w_rays * w_rays * SAMPLES
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for layer, k, labels in (('fc_1', 128, 12), ('fc_2', 256, 0)):
+        n = 256
+        x = torch.randn((1, rows, k), generator=gen, device=dev)
+        x = torch.where(x > 0, x, 0.2 * x)
+        shared = labels > 0
+        wshape = (n, k) if shared else (1, n, k)
+        w = torch.randn(wshape, generator=gen, device=dev) * (1.4 / k ** 0.5)
+        shift = torch.randn(wshape[:-1], generator=gen, device=dev) * 0.3
+        args = (x, w, shift)
+        if labels:
+            ids = torch.randint(0, labels, (1, rows), generator=gen,
+                                device=dev)
+            args += (torch.nn.functional.one_hot(ids, labels).float(),
+                     torch.randn((n, labels), generator=gen, device=dev))
+        got = kernels.render_mlp_gemm(*args)
+        want = render_mlp_gemm_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        del got, want
+        ms = median_ms(lambda: kernels.render_mlp_gemm(*args))
+        plain_ms = median_ms(lambda: render_mlp_gemm_plain(*args))
+        if shared:
+            gemm_ms = median_ms(lambda: torch.matmul(x, w.t()))
+        else:
+            gemm_ms = median_ms(lambda: torch.bmm(x, w.transpose(1, 2)))
+        flops = 2.0 * rows * n * (k + labels)
+        nbytes = 4.0 * rows * (k + n + labels)
+        bound, by = bound_ms(nbytes, flops)
+        log(f'[K6] {layer}: {rows} rows, K {k}, N {n}, labels {labels}: max '
+            f'abs err {err:.3g} of max |y| {top:.3g} (tolerance 1e-5 of it); '
+            f'kernel {ms:.3f} ms, plain (the parent\'s ops) {plain_ms:.3f} '
+            f'ms, its GEMM alone {gemm_ms:.3f} ms; bound {bound:.3f} ms '
+            f'({by}; {100 * bound / ms:.1f}% of it)')
+        assert err <= 1e-5 * top, f'K6 ({layer}) differs from plain'
+        out[layer] = dict(rows=rows, k=k, n=n, labels=labels,
+                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          gemm_only_ms=gemm_ms, bound_ms=bound, bound_by=by)
+        del x, w, shift, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def mlp_row(k6, serving, train, loop):
+    """The `kernels` JSON row of K6: its ModLinear layer's reading
+    (phase 20), `launches` per served frame (phase 4), per training step
+    (phase 7: the D update's no-grad render of `train_step`) and per loop
+    iteration (phase 9's paired run)."""
+    name, lay = 'render_mlp_gemm', k6['fc_2']
+    return dict(name=name, route='cuda',
+                source='scenedreamer_tpu_torch/csrc/mlp_gemm.cu',
+                replaces=None, launches=serving['counts'][name],
+                max_abs_err=lay['max_abs_err'], ms=lay['ms'],
+                plain_ms=lay['plain_ms'], bound_ms=lay['bound_ms'],
+                bound_by=lay['bound_by'], library_ms=None,
+                launches_per_frame=serving['counts'][name]
+                / serving['n_frames'],
+                launches_per_step=train['counts'][name] / train['steps'],
+                launches_per_loop_iteration=loop['counts'][name]
+                / loop['iterations'], layers=k6)
 
 
 def float32_exact(torch):
@@ -4764,10 +4851,13 @@ def main():
     # 19. the training-campaign path -----------------------------------------
     camp = campaign_path(torch, kernels, loop, spade.pop('oracle'), dev)
 
+    # 20. K6, the RenderMLP's hidden layer ----------------------------------
+    k6 = render_mlp_layers(torch, kernels, dev)
+
     table_rows = kernel_rows(serving, k3, k3_split, train, k5, k5_split,
                              k5b, loop) \
         + general_rows(k4, k4_split, (int(chunk_n), *k4c), urender, ustep,
-                       uloop)
+                       uloop) + [mlp_row(k6, serving, train, loop)]
     amp_counts = {**rest['amp']['amp']['counts'],
                   **{k: v for k, v in rest['amp']['paired_counts'].items()
                      if k in PAIRED}}
@@ -4789,7 +4879,7 @@ def main():
     log(json.dumps({'kernels': table_rows}))
 
     log(card_line())
-    log(f'[smoke] phases 1-19 in {time.time() - t_start:.1f} s')
+    log(f'[smoke] phases 1-20 in {time.time() - t_start:.1f} s')
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -21,7 +21,8 @@ plain PyTorch versions do (see the notes in each source and
 
 Importing this module builds nothing. The op modules, and the `sd::`
 ops that `ops/hash_ops.py` registers for the forward kernels on the
-tile path, call these wrappers only for CUDA tensors.
+tile path and `ops/mlp_ops.py` for the RenderMLP's hidden layers, call
+these wrappers only for CUDA tensors.
 """
 import ctypes
 import os
@@ -36,7 +37,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 SOURCES = {'dda': 'dda.cu', 'hashgrid_fwd': 'hashgrid_fwd.cu',
            'hashgrid_bwd': 'hashgrid_bwd.cu',
            'hashgrid_paired': 'hashgrid_paired.cu',
-           'hashgrid_general': 'hashgrid_general.cu'}
+           'hashgrid_general': 'hashgrid_general.cu',
+           'mlp_gemm': 'mlp_gemm.cu'}
 # included by the three table scatters (`scatter_accum.cuh`) and by the
 # two dw reductions (`bake_dw.cuh`)
 HEADERS = ('scatter_accum.cuh', 'bake_dw.cuh')
@@ -53,7 +55,7 @@ _LAUNCHES = {'dda': 0, 'hash_bake': 0, 'hash_encode': 0,
              'hash_shift_bake': 0, 'hash_encode_paired': 0,
              'hash_encode_paired_bwd': 0, 'hash_shift_bake_bwd': 0,
              'hash_shift_bake_dw': 0, 'hash_encode_general': 0,
-             'hash_encode_general_bwd': 0}
+             'hash_encode_general_bwd': 0, 'render_mlp_gemm': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,6 +74,8 @@ _SIGNATURES = {
                                _F, _F, _P],
     'sd_hash_encode_general_bwd': [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
                                    _I, _I, _F, _F, _F, _F, _P, _P],
+    'sd_render_mlp_gemm': [_P, _P, _LL, _P, _LL, _P, _P, _I, _P, _I, _LL, _I,
+                           _I, _I, _P],
 }
 # the paired variant's entry points (K5) take the arguments of their xor
 # counterparts
@@ -579,3 +583,52 @@ def hash_encode_general_bwd_split(g, x, meta, scales, offset, bound,
                 int(bool(xor_hash)), float(bound), float(2.0 * bound),
                 float(offset), coarse_max_scale, stats_ptr)
     return grad, dx
+
+
+MLP_GEMM_MAX_LABELS = 32   # label columns K6 stages in shared memory
+
+
+def render_mlp_gemm(x, w, shift, m=None, wm=None):
+    """K6, one RenderMLP hidden layer (`csrc/mlp_gemm.cu`): x [B, R, K]
+    float32; w [N, K] shared by the batch, or [B, N, K]; shift [N] with a
+    shared w, else [B, N]; optionally the label term m [B, R, Km] with wm
+    [N, Km] -> leaky_relu_0.2(x @ w^T + shift (+ m @ wm^T)) [B, R, N]
+    float32, written once."""
+    _require(x, torch.float32, 'x', 3)
+    _require(w, torch.float32, 'w')
+    _require(shift, torch.float32, 'shift')
+    b, rows, k = x.shape
+    shared = w.dim() == 2
+    if w.dim() not in (2, 3) or w.shape[-1] != k \
+            or (not shared and w.shape[0] != b):
+        raise ValueError('w must be [N, K] or [B, N, K] for x [B, R, K]')
+    n = w.shape[-2]
+    if shift.shape != ((n,) if shared else (b, n)):
+        raise ValueError('shift must be [N] with a shared w, else [B, N]')
+    if (m is None) != (wm is None):
+        raise ValueError('m and wm come together')
+    km = 0
+    if m is not None:
+        _require(m, torch.float32, 'm', 3)
+        _require(wm, torch.float32, 'wm', 2)
+        km = m.shape[2]
+        if m.shape[:2] != (b, rows) or wm.shape != (n, km) \
+                or not 1 <= km <= MLP_GEMM_MAX_LABELS:
+            raise ValueError(f'm must be [B, R, Km] and wm [N, Km], 1 <= Km '
+                             f'<= {MLP_GEMM_MAX_LABELS}')
+    dev = x.device
+    if any(t.device != dev for t in (w, shift, m, wm) if t is not None):
+        raise ValueError('render_mlp_gemm\'s tensors must share x\'s device')
+    if k < 1 or not 1 <= b <= 65535:
+        raise ValueError('render_mlp_gemm needs K >= 1 and 1 <= B <= 65535')
+    out = torch.empty((b, rows, n), dtype=torch.float32, device=dev)
+    if rows and n:
+        # the kernel reads W^T rows with 16-byte copies
+        wt = w.transpose(-1, -2).contiguous()
+        _launch('mlp_gemm', 'sd_render_mlp_gemm', 'render_mlp_gemm', dev,
+                x.data_ptr(), wt.data_ptr(), 0 if shared else n * k,
+                shift.data_ptr(), 0 if shared else n,
+                m.data_ptr() if m is not None else None,
+                wm.data_ptr() if wm is not None else None, km,
+                out.data_ptr(), b, rows, k, n, int(n % 4 == 0))
+    return out

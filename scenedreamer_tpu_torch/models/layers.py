@@ -21,12 +21,14 @@ float32 and cast, as JAX's `ModLinear` and `AffineMod` do). Each module has
 kaiming(leaky 0.2) x 0.5 for weights, zero biases, randn/sqrt(fan) for
 modulation weights (`generators/scenedreamer.py:66-78`).
 """
+import functools
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from scenedreamer_tpu_torch.ops import mlp_ops
 from scenedreamer_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -149,15 +151,21 @@ class ModLinear(nn.Module):
         _mod_weight_(self.weight_beta, generator)
         nn.init.zeros_(self.bias_beta)
 
-    def forward(self, x, z):
+    def modulation(self, z):
+        """(W * alpha_b [B, O, I], beta_b [B, O]) in the compute dtype,
+        from the style z [B, S] in float32."""
         dt = self.compute_dtype
-        prefix = x.shape[:-1]
-        xb = x.reshape(x.shape[0], -1, x.shape[-1]).to(dt)
         z = z.float()
         alpha = F.linear(z, self.weight_alpha, self.bias_alpha)   # [B, I]
         beta = F.linear(z, self.weight_beta, self.bias_beta)      # [B, O]
         w_mod = (self.weight[None] * alpha[:, None, :]).to(dt)    # [B, O, I]
-        y = torch.bmm(xb, w_mod.transpose(1, 2)) + beta[:, None].to(dt)
+        return w_mod, beta.to(dt)
+
+    def forward(self, x, z):
+        prefix = x.shape[:-1]
+        xb = x.reshape(x.shape[0], -1, x.shape[-1]).to(self.compute_dtype)
+        w_mod, beta = self.modulation(z)
+        y = torch.bmm(xb, w_mod.transpose(1, 2)) + beta[:, None]
         return y.reshape(*prefix, y.shape[-1])
 
 
@@ -197,7 +205,15 @@ class RenderMLP(nn.Module):
     and style -> (sigma, color feature). Reference `gancraft_base.py:
     20-88`. With a view direction, `fc_5` is a plain linear without
     bias, `fc_viewdir(raydir)` is added to it and `mod_5` (AffineMod)
-    modulates the sum; otherwise `fc_5` is a ModLinear."""
+    modulates the sum; otherwise `fc_5` is a ModLinear.
+
+    Each hidden layer but a view-direction `fc_5` is one call of
+    `ops/mlp_ops.py`: the GEMM, the bias or style shift, the first
+    layer's label term and the LeakyReLU. Where autograd records nothing
+    (grad mode off, or no input and no parameter requiring grad) and the
+    layers compute in float32, that is the `sd::render_mlp_gemm` op
+    (kernel K6 on CUDA, which writes the activation once; the plain
+    composition on the CPU); otherwise the plain composition itself."""
 
     def __init__(self, in_channels, style_dim, mask_dim, out_channels_c,
                  hidden_channels=256, viewdir_dim=0, use_seg=True,
@@ -223,21 +239,34 @@ class RenderMLP(nn.Module):
     def forward(self, x, z, m, raydir=None):
         """x [B, N, C_in]; z [B, S]; m [B, N, mask_dim] (unused without
         `use_seg`); raydir [B, N, viewdir_dim] when `viewdir_dim` > 0."""
-        f = self.fc_1(x)
-        if self.fc_m_a is not None:
-            f = f + self.fc_m_a(m)
-        f = leaky_relu(f)
-        f = leaky_relu(self.fc_2(f, z))
-        f = leaky_relu(self.fc_3(f, z))
-        f = leaky_relu(self.fc_4(f, z))
+        dt = self.fc_1.compute_dtype
+        if dt == torch.float32 and not self._records_grad(x, z, m, raydir):
+            layer = mlp_ops.render_mlp_gemm
+        else:
+            layer = functools.partial(mlp_ops.render_mlp_gemm_plain,
+                                      act=leaky_relu)
+        label = () if self.fc_m_a is None else (m.to(dt),
+                                                self.fc_m_a.weight.to(dt))
+        f = layer(x.to(dt), self.fc_1.weight.to(dt), self.fc_1.bias.to(dt),
+                  *label)
+        f = layer(f, *self.fc_2.modulation(z))
+        f = layer(f, *self.fc_3.modulation(z))
+        f = layer(f, *self.fc_4.modulation(z))
         sigma = self.fc_sigma(f)
         if isinstance(self.fc_5, ModLinear):
-            f = leaky_relu(self.fc_5(f, z))
+            f = layer(f, *self.fc_5.modulation(z))
         else:
             f = self.fc_5(f) + self.fc_viewdir(raydir)
             f = leaky_relu(self.mod_5(f, z))
-        f = leaky_relu(self.fc_6(f, z))
+        f = layer(f, *self.fc_6.modulation(z))
         return sigma, self.fc_out_c(f)
+
+    def _records_grad(self, *inputs):
+        """Whether autograd would record this forward."""
+        if not torch.is_grad_enabled():
+            return False
+        return any(t is not None and t.requires_grad for t in inputs) \
+            or any(p.requires_grad for p in self.parameters())
 
 
 class StyleMLP(nn.Module):

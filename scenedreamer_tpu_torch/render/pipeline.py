@@ -66,9 +66,10 @@ hash table baked from the scene code inside, `render_pixels` with
 deterministic sampling, the RenderCNN, the expected depth, the pad // 2
 crop), exported with `torch.export` at the renderer's fixed shapes and
 saved with its weights. A serving process loads it and calls it with no
-model code: it imports only the registration of the hash ops
-(`ops/hash_ops.py`, through this module), whose kernels the program
-names and launches on CUDA. `render_tile` runs the same program live.
+model code: it imports only the registration of the hash ops and of
+the RenderMLP's hidden layer (`ops/hash_ops.py`, `ops/mlp_ops.py`,
+through this module), whose kernels the program names and launches on
+CUDA. `render_tile` runs the same program live.
 
 JAX's `field_tiles_per_batch` and `ray_voxel_intersection(chunk='auto')`
 have no counterpart: they cut dispatches over a remote TPU link and
@@ -84,7 +85,8 @@ import numpy as np
 import torch
 
 from scenedreamer_tpu_torch.device import resolve_device
-from scenedreamer_tpu_torch.ops import hash_ops  # noqa: F401  the sd:: ops
+# the sd:: ops a loaded tile program names
+from scenedreamer_tpu_torch.ops import hash_ops, mlp_ops  # noqa: F401
 from scenedreamer_tpu_torch.ops.ray_voxel import (build_occupancy_bits,
                                                   camera_rays,
                                                   ray_voxel_intersection)
@@ -386,7 +388,7 @@ class TiledRenderer:
     def load_exported(blob_or_path):
         """An `export_tile` artifact (bytes or a path) -> the tile program
         as a callable of its inputs giving (img, depth), its weights on
-        the device it was exported for. Needs the `sd::` hash ops, which
+        the device it was exported for. Needs the `sd::` ops, which
         importing this module registers, and no model code."""
         blob = blob_or_path
         if isinstance(blob, (str, os.PathLike)):

@@ -14,7 +14,11 @@ and K5c through `csrc/scatter_accum.cuh`) is forced onto every level and
 held to the same tolerances where a block's shared-memory table
 overflows, where every point lies in one cell, and in ray order or
 shuffled. The forward kernels' `sd::` ops (`ops/hash_ops.py`) launch
-them, each once, with the same result as the wrappers."""
+them, each once, with the same result as the wrappers. K6 (the
+RenderMLP's hidden layer, `sd::render_mlp_gemm`) is held to its plain
+composition within 1e-5 of the largest output (accumulation order
+only), launches six times per served field chunk and never in a
+training step."""
 import math
 
 import numpy as np
@@ -840,3 +844,120 @@ def test_every_sync_of_a_frame_and_a_step_is_in_a_read_span(cuda):
     assert seen
     if outside:
         pytest.fail('\n\n'.join(outside))
+
+
+SERVING_CHUNK_POINTS = 1306800   # points of a served frame's field chunk
+
+
+def _mlp_layer(rows, k, n, b, label, shared, gen, dev):
+    """Inputs of one RenderMLP hidden layer: activations x [b, rows, k]
+    (LeakyReLU outputs, so a fifth of them small and negative), a weight
+    at the generator's init scale, shared by the batch (the first layer)
+    or one per batch item (a ModLinear's), its shift and, with `label`
+    columns, one-hot labels and their weight."""
+    x = torch.randn((b, rows, k), generator=gen, device=dev)
+    x = torch.where(x > 0, x, 0.2 * x)
+    wshape = (n, k) if shared else (b, n, k)
+    w = torch.randn(wshape, generator=gen, device=dev) * (1.4 / math.sqrt(k))
+    shift = torch.randn(wshape[:-1], generator=gen, device=dev) * 0.3
+    if not label:
+        return x, w, shift
+    ids = torch.randint(0, label, (b, rows), generator=gen, device=dev)
+    m = torch.nn.functional.one_hot(ids, label).float()
+    m[:, ::7] = 0                                 # rows with no label
+    wm = torch.randn((n, label), generator=gen, device=dev) * 0.5
+    return x, w, shift, m, wm
+
+
+@pytest.mark.parametrize('rows,k,n,b,label,shared', [
+    (SERVING_CHUNK_POINTS, 128, 256, 1, 12, True),     # fc_1 + fc_m_a
+    (SERVING_CHUNK_POINTS, 256, 256, 1, 0, False),     # fc_2 .. fc_6
+    (1000, 37, 301, 2, 0, False),                      # ragged edges
+    (1000, 37, 301, 2, 5, True),
+    (77, 256, 45, 2, 12, False),
+])
+def test_render_mlp_gemm_matches_plain(cuda, rows, k, n, b, label, shared):
+    """K6 against its plain composition (cuBLAS GEMM, adds, LeakyReLU) at
+    the serving chunk's shape and at ragged edges (rows not a multiple of
+    the 128-row tile, odd K and N, N past one 256-wide tile, B = 2, with
+    and without the label term): within 1e-5 of the largest |y|. Both sum
+    256 float32 products in different orders (accumulation order only):
+    each sum's rounding reaches ~1e-6 of its terms' sum, ~1e-6 of the
+    largest output at this init. The label term of a one-hot row is one
+    exact weight on both sides."""
+    from scenedreamer_tpu_torch.ops import mlp_ops
+    gen = torch.Generator(device=cuda).manual_seed(rows + k + n + label)
+    args = _mlp_layer(rows, k, n, b, label, shared, gen, cuda)
+    kernels.reset_launch_counts()
+    got = kernels.render_mlp_gemm(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()['render_mlp_gemm'] == 1
+    want = mlp_ops.render_mlp_gemm_plain(*args)
+    assert got.shape == want.shape == (b, rows, n)
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    assert (got < 0).any() and (got > 1).any()
+    # the op launches the same kernel
+    assert torch.equal(mlp_ops.render_mlp_gemm(*args), got)
+    assert kernels.launch_counts()['render_mlp_gemm'] == 2
+
+
+def test_render_mlp_gemm_rejects_bad_input(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, w, shift, m, wm = _mlp_layer(300, 40, 64, 2, 12, True, gen, cuda)
+    for bad, what in (
+            ((x.double(), w, shift), 'must be torch.float32'),
+            ((x.cpu(), w, shift), 'must be a CUDA tensor'),
+            ((x, w.cpu(), shift), 'must be a CUDA tensor'),
+            ((x.transpose(1, 2).contiguous().transpose(1, 2), w, shift),
+             'must be contiguous'),
+            ((x, w.t().contiguous().t(), shift), 'must be contiguous'),
+            ((x, w, shift, m[:, :, :6].contiguous(), wm), 'm must be \\['),
+            ((x, w, shift, m), 'come together'),
+            ((x, w[:, :39].contiguous(), shift), 'w must be \\['),
+            ((x, w, shift[:-1]), 'shift must be \\[')):
+        with pytest.raises(ValueError, match=what):
+            kernels.render_mlp_gemm(*bad)
+
+
+def test_render_mlp_gemm_launches_per_field_chunk(cuda):
+    """A served split-refine frame launches K6 six times for each field
+    chunk that is not pure sky (`last_stats`), and a `train_step_shared`,
+    which renders under autograd, not at all."""
+    from scenedreamer_tpu_torch.data.synthetic import make_batch, make_world
+    from scenedreamer_tpu_torch.models.discriminator import \
+        GANcraftDiscriminator
+    from scenedreamer_tpu_torch.models.generator import (
+        GeneratorConfig, SceneDreamerGenerator)
+    from scenedreamer_tpu_torch.render.pipeline import TiledRenderer
+    from scenedreamer_tpu_torch.scene.camera import EvalCameraController
+    from scenedreamer_tpu_torch.train.losses import PerceptualLoss
+    from scenedreamer_tpu_torch.train.trainer import GANTrainer
+    world = make_world(size=64, seed=7, n_voronoi=20, boundary_detect=4)
+    cfg = GeneratorConfig(style_dims=16, interm_style_dims=32,
+                          final_feat_dim=8, pad=2, num_blocks_early_stop=4,
+                          num_samples=6, hash_num_levels=4, hash_level_dim=4,
+                          hash_log2_size=10, hash_desired_resolution=128,
+                          mlp_hidden=32, style_enc_num_filters=8)
+    model = SceneDreamerGenerator(cfg, seed=3).to(cuda)
+    r = TiledRenderer(model, world, num_samples=6, num_blocks_early_stop=4,
+                      pad=6, tile_size=16, resolution_hw=(32, 48),
+                      chunk_rays=300, split_refine=True, device=cuda)
+    pose = EvalCameraController(world, maxstep=4, pattern=0)[0]
+    z = r.style_z(np.random.default_rng(5).standard_normal((1, 16)))
+    kernels.reset_launch_counts()
+    r.frame(pose, z)
+    st = r.last_stats
+    chunks = st['chunks_compacted'] + st['chunks_full']
+    assert chunks > 0, st
+    assert kernels.launch_counts()['render_mlp_gemm'] == 6 * chunks, st
+
+    trainer = GANTrainer(model.train(), GANcraftDiscriminator(12, 8).to(cuda),
+                         world.dims, perceptual=PerceptualLoss(
+                             layers=('relu_2_1',), weights=(1.0,)).to(cuda))
+    batch = make_batch(world, 2, 34, 34, 4, 2, device=cuda)
+    kernels.reset_launch_counts()
+    trainer.train_step_shared(batch, torch.Generator(device=cuda)
+                              .manual_seed(7))
+    counts = kernels.launch_counts()
+    assert counts['render_mlp_gemm'] == 0 and counts['hash_encode'], counts

@@ -1,6 +1,6 @@
 """The port's serving artifact: `TiledRenderer.export_tile` (`torch.export`
-of the padded-tile program, the forward hash kernels as `sd::` ops) and
-`load_exported`.
+of the padded-tile program, the forward hash kernels and the RenderMLP's
+hidden layers as `sd::` ops) and `load_exported`.
 
 Held against JAX's `export_tile` -> `load_exported` round trip on the
 inputs of `tests/test_render.py::test_export_tile_round_trip` (tile 16,
@@ -37,18 +37,19 @@ cap_torch_threads()
 
 TILE = 16
 PORT_KW = {k: v for k, v in KW.items() if k != 'fov'}
-# the ops each spec's program names; the unfoldable spec (level 0 dense
-# at 9^5 cells under 2^16 rows) has no bake
+# the ops each spec's program names: its hash ops (the unfoldable spec,
+# level 0 dense at 9^5 cells under 2^16 rows, has no bake) and the
+# RenderMLP's hidden layers
 SPECS = {
-    'xor': (TINY, {'hash_bake', 'hash_encode'}),
+    'xor': (TINY, {'hash_bake', 'hash_encode', 'render_mlp_gemm'}),
     'paired': (dataclasses.replace(TINY, hash_variant='paired'),
-               {'hash_shift_bake', 'hash_encode_paired'}),
+               {'hash_shift_bake', 'hash_encode_paired', 'render_mlp_gemm'}),
     'unfolded': (dataclasses.replace(TINY, hash_base_resolution=8,
                                      hash_log2_size=16),
-                 {'hash_encode_general'}),
+                 {'hash_encode_general', 'render_mlp_gemm'}),
 }
 ALL_OPS = {'hash_bake', 'hash_shift_bake', 'hash_encode',
-           'hash_encode_paired', 'hash_encode_general'}
+           'hash_encode_paired', 'hash_encode_general', 'render_mlp_gemm'}
 
 
 def tile_inputs(r, z, b=1, seed=0):
